@@ -1,0 +1,1 @@
+"""convert of the PyTorch port (see the package docstring)."""
