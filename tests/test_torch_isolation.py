@@ -58,7 +58,10 @@ def test_scan_catches_forbidden_names():
 def test_importing_the_port_loads_no_vast_tpu_module():
     code = ("import sys, vast_tpu_torch.models.vast, "
             "vast_tpu_torch.evaluation.evaluation_mm, "
-            "vast_tpu_torch.convert.from_jax; "
+            "vast_tpu_torch.convert.from_jax, "
+            "vast_tpu_torch.training.step, "
+            "vast_tpu_torch.training.optimizer, "
+            "vast_tpu_torch.models.remat; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] == 'vast_tpu'))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

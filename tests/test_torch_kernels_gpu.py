@@ -122,3 +122,113 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     else:
         # fp32, other summation order over <= 4500 keys
         assert err <= 2e-5 * max(ref_max, 1.0), (err, ref_max)
+
+
+BWD_CASES = {
+    # name: (B, L, H, D, lk_true, bias, scale)
+    "single_token": (1, 1, 1, 1, 0, None, 1.0),
+    "eva01g": (4, 257, 16, 88, 0, None, 1.0),
+    "ragged_lk_true_d33": (2, 100, 2, 33, 77, None, 0.5),
+    "tile_plus_one": (3, 65, 2, 32, 0, None, 0.7),
+    "beats_bias": (2, 256, 12, 64, 0, "per_sample", 64 ** -0.5),
+    "shared_bias_d128": (3, 100, 2, 128, 0, "shared", 128 ** -0.5),
+    # keys 70..129 masked: dbias past the last 32-key tile (96..) is the
+    # wrapper's zero fill
+    "bias_lk_true_d88": (2, 130, 2, 88, 70, "per_sample", 0.3),
+}
+
+
+def split_dqkv(dqkv, heads):
+    b, l, total = dqkv.shape
+    x = dqkv.float().view(b, l, heads, 3, total // (3 * heads))
+    return {n: x[:, :, :, i].transpose(1, 2)
+            for i, n in enumerate(("dq", "dk", "dv"))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_bwd_kernel_matches_plain(cuda, case, dtype):
+    b, l, h, d, lk_true, bias_kind, scale = BWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn(b, l, h * 3 * d, device=cuda, generator=gen).to(dtype)
+    bias = None
+    if bias_kind:
+        nb = b if bias_kind == "per_sample" else 1
+        bias = torch.randn(nb, h, l, l, device=cuda, generator=gen).to(dtype)
+    o = fa._self_attention_tmajor_plain(qkv, bias, heads=h, lk_true=lk_true,
+                                        scale=scale)
+    do = torch.randn(b, l, h * d, device=cuda, generator=gen).to(dtype)
+    key = "tmajor_attention_bwd" + ("" if bias is None else "_bias")
+    before = fa.LAUNCHES[key]
+    got = fa.self_attention_tmajor_bwd(qkv, o, do, bias, heads=h,
+                                       lk_true=lk_true, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[key] == before + 1
+    want = fa._self_attention_tmajor_bwd_plain(qkv, o, do, bias, heads=h,
+                                               lk_true=lk_true, scale=scale)
+    if bias is None:
+        got, want = (got,), (want,)
+    assert got[0].dtype == dtype and got[0].shape == qkv.shape
+    outs = split_dqkv(got[0], h)
+    refs = split_dqkv(want[0], h)
+    if bias is not None:
+        assert got[1].dtype == dtype and got[1].shape == bias.shape
+        outs["dbias"], refs["dbias"] = got[1].float(), want[1].float()
+    scales = fa._self_attention_tmajor_bwd_abs_terms(
+        qkv, o, do, bias, heads=h, lk_true=lk_true, scale=scale)
+    if bias is not None and bias.shape[0] == 1:
+        scales["dbias"] = scales["dbias"].sum(0, keepdim=True)
+    for name, out in outs.items():
+        ref = refs[name]
+        diff = out - ref
+        err = diff.abs().max().item()
+        span = (ref.abs() + scales[name]).max().item()
+        if dtype == torch.bfloat16:
+            # p or ds rounded to bf16 before the last product (<= 2^-8 x
+            # the sum of |terms|) and the output rounded once (<= 2^-8 x
+            # |out|); 10% for the fp32 recomputation of p and ds
+            assert err <= 1.1 * 2 ** -8 * span, (name, err, span)
+            rms = (diff.square().mean()
+                   / ref.square().mean().clamp_min(1e-30)).sqrt().item()
+            assert rms <= 2 ** -6, (name, rms)
+        else:
+            # fp32 sums of <= 257 terms in another order
+            assert err <= 5e-5 * max(span, 1e-6), (name, err, span)
+        if lk_true and name in ("dk", "dv"):
+            assert out[:, :, lk_true:].abs().max().item() == 0.0, name
+        if lk_true and name == "dbias":
+            assert out[..., lk_true:].abs().max().item() == 0.0
+
+
+def test_tmajor_grad_on_cuda_goes_through_the_kernels(cuda):
+    """The differentiable op launches the forward and backward kernels and
+    matches autograd through the plain version; without a gradient it
+    launches the forward kernel alone."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, l, h, d = 2, 70, 3, 24
+    qkv = torch.randn(b, l, h * 3 * d, device=cuda, generator=gen)
+    bias = torch.randn(b, h, l, l, device=cuda, generator=gen)
+    do = torch.randn(b, l, h * d, device=cuda, generator=gen)
+    grads = []
+    for route in ("kernel", "plain"):
+        x = qkv.clone().requires_grad_(True)
+        bb = bias.clone().requires_grad_(True)
+        before = dict(fa.LAUNCHES)
+        if route == "kernel":
+            out = fa.self_attention_tmajor(x, bb, heads=h, scale=0.4)
+        else:
+            out = fa._self_attention_tmajor_plain(x, bb, heads=h, scale=0.4)
+        grads.append(torch.autograd.grad(out, (x, bb), do))
+        launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        if route == "kernel":
+            assert launched["tmajor_attention_fwd_bias"] == 1
+            assert launched["tmajor_attention_bwd_bias"] == 1
+    for got, want in zip(*grads):
+        assert (got - want).abs().max().item() <= 5e-5 * max(
+            want.abs().max().item(), 1.0)
+    before = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        fa.self_attention_tmajor(qkv.clone().requires_grad_(True), heads=h)
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: int(k == "tmajor_attention_fwd") for k in before}

@@ -6,7 +6,10 @@
 BERT) and returns flat reference torch names -> numpy arrays. Dense
 kernels are transposed back to (out, in), conv kernels go from HWIO to
 OIHW, BEATs' weight-norm ``v``/``g`` back to (out, in/groups, k) /
-(1, 1, k). Load the result with ``load_state_dict``.
+(1, 1, k). Load the result with ``load_state_dict``. Every mapping is a
+transpose, so a tree of the same structure with other contents (a
+gradient, an Adam moment, labels coded as arrays) maps the same way, to
+the same names and shapes as the port's parameters.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import torch
 
 
 def _put(out, name, value):
-    out[name] = np.ascontiguousarray(np.asarray(value))
+    value = np.asarray(value)       # a 0-d leaf (contra_temp) stays 0-d
+    out[name] = value.copy() if value.ndim == 0 else \
+        np.ascontiguousarray(value)
 
 
 def _dense(out, name, p):
@@ -150,7 +155,9 @@ def load_numpy_state_dict(module: torch.nn.Module, sd: dict) -> None:
 @torch.no_grad()
 def init_random_(model: torch.nn.Module, generator: torch.Generator):
     """Fill every floating parameter with N(0, 0.02) and every other one
-    with zeros, in the manner of bench.py's ``fast_params``."""
+    with zeros, in the manner of bench.py's ``fast_params``. Each
+    parameter is drawn in its own dtype, so a model with fp32 parameters
+    and bf16 compute (``param_dtype``) starts from fp32 values."""
     for p in model.parameters():
         if p.is_floating_point():
             p.normal_(0.0, 0.02, generator=generator)

@@ -10,23 +10,30 @@ through every layer; the GRU-style gate computed from the unscaled q
 with its bias, scaling that bias per sample, head and query; deep-norm
 post-LN layers.
 
-Every layer's self-attention runs through the token-major CUDA kernel
-with the gated bias, added after the scale ``D**-0.5`` (reference
-beats.py:767-769; the alpha=32 rescaling is neutral under softmax).
-Parameter names are the reference torch ones.
+Every layer's self-attention runs through the token-major CUDA kernels
+(forward and backward) with the gated bias, added after the scale
+``D**-0.5`` (reference beats.py:767-769; the alpha=32 rescaling is
+neutral under softmax); the bias's gradient (ds) flows back through the
+gate and the relative-bias table. Parameter names are the reference
+torch ones. Training adds activation checkpointing per layer
+(models/remat.py); the released config has no dropout (``dropout`` 0 in
+vast_tpu, unused there too).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.hmajor import FusedCache, fuse_qkv
+from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.ops.activations import gelu
 from vast_tpu_torch.ops.flash_attention import self_attention_tmajor
 
@@ -45,6 +52,13 @@ class BeatsConfig:
     max_distance: int = 800
     ln_eps: float = 1e-5
     dtype: torch.dtype = torch.float32
+    param_dtype: Optional[torch.dtype] = None     # None: dtype
+    remat: bool = False
+    remat_policy: str = "dots"
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return self.param_dtype or self.dtype
 
     @property
     def head_dim(self) -> int:
@@ -72,17 +86,17 @@ class BeatsAttention(nn.Module):
     def __init__(self, c: BeatsConfig, has_relative_attention_bias: bool,
                  device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
+        fk = dict(device=device, dtype=c.pdtype)
         e, h = c.encoder_embed_dim, c.encoder_attention_heads
         self.cfg = c
-        self.q_proj = nn.Linear(e, e, **fk)
-        self.k_proj = nn.Linear(e, e, **fk)
-        self.v_proj = nn.Linear(e, e, **fk)
-        self.out_proj = nn.Linear(e, e, **fk)
+        self.q_proj = layers.Linear(e, e, **fk)
+        self.k_proj = layers.Linear(e, e, **fk)
+        self.v_proj = layers.Linear(e, e, **fk)
+        self.out_proj = layers.Linear(e, e, **fk)
         if has_relative_attention_bias:
             self.relative_attention_bias = nn.Embedding(c.num_buckets, h,
                                                         **fk)
-        self.grep_linear = nn.Linear(c.head_dim, 8, **fk)
+        self.grep_linear = layers.Linear(c.head_dim, 8, **fk)
         self.grep_a = nn.Parameter(torch.ones(1, h, 1, 1, **fk))
         self._fused = FusedCache()
 
@@ -110,7 +124,7 @@ class BeatsAttention(nn.Module):
         if position_bias is None:                         # layer 0
             position_bias = self.compute_bias(l)
         w, bb = self.fused_qkv()
-        y = F.linear(x, w, bb)                            # (B, L, H*3*D)
+        y = F.linear(x, w.to(x.dtype), bb.to(x.dtype))    # (B, L, H*3*D)
         # gate from the unscaled query (reference beats.py:905-915)
         qt = y.view(b, l, h, 3, d)[..., 0, :]             # (B, L, H, D)
         g = self.grep_linear(qt).view(b, l, h, 2, 4).sum(-1)
@@ -126,14 +140,14 @@ class BeatsLayer(nn.Module):
     def __init__(self, c: BeatsConfig, has_relative_attention_bias: bool,
                  device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
+        fk = dict(device=device, dtype=c.pdtype)
         e = c.encoder_embed_dim
         self.self_attn = BeatsAttention(c, has_relative_attention_bias,
                                         device)
-        self.self_attn_layer_norm = nn.LayerNorm(e, eps=c.ln_eps, **fk)
-        self.fc1 = nn.Linear(e, c.encoder_ffn_embed_dim, **fk)
-        self.fc2 = nn.Linear(c.encoder_ffn_embed_dim, e, **fk)
-        self.final_layer_norm = nn.LayerNorm(e, eps=c.ln_eps, **fk)
+        self.self_attn_layer_norm = layers.LayerNorm(e, eps=c.ln_eps, **fk)
+        self.fc1 = layers.Linear(e, c.encoder_ffn_embed_dim, **fk)
+        self.fc2 = layers.Linear(c.encoder_ffn_embed_dim, e, **fk)
+        self.final_layer_norm = layers.LayerNorm(e, eps=c.ln_eps, **fk)
         self.alpha = math.pow(2 * c.encoder_layers, 0.25)   # deep norm
 
     def forward(self, x, position_bias=None):
@@ -164,21 +178,23 @@ class WeightNormConv1d(nn.Module):
         norm = torch.sqrt((v ** 2).sum(dim=(0, 1), keepdim=True) + 1e-12)
         w = (self.weight_g.float() / norm * v).to(x.dtype)
         k = v.shape[-1]
-        return F.conv1d(x, w, self.bias, padding=k // 2, groups=self.groups)
+        return F.conv1d(x, w, self.bias.to(x.dtype), padding=k // 2,
+                        groups=self.groups)
 
 
 class BeatsEncoder(nn.Module):
     def __init__(self, c: BeatsConfig, device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
+        fk = dict(device=device, dtype=c.pdtype)
         self.cfg = c
+        check_policy(c.remat_policy)
         self.pos_conv = nn.ModuleList([WeightNormConv1d(
             c.encoder_embed_dim, c.conv_pos, c.conv_pos_groups, **fk)])
         self.layers = nn.ModuleList(
             BeatsLayer(c, i == 0, device)
             for i in range(c.encoder_layers))
-        self.layer_norm = nn.LayerNorm(c.encoder_embed_dim, eps=c.ln_eps,
-                                       **fk)
+        self.layer_norm = layers.LayerNorm(c.encoder_embed_dim,
+                                           eps=c.ln_eps, **fk)
 
     def forward(self, x):
         c = self.cfg
@@ -187,8 +203,9 @@ class BeatsEncoder(nn.Module):
             y = y[:, :, :-1]               # SamePad trims one for even k
         x = self.layer_norm(x + gelu(y.transpose(1, 2)))
         position_bias = None
+        policy = c.remat_policy if c.remat else "none"
         for layer in self.layers:
-            x, position_bias = layer(x, position_bias)
+            x, position_bias = remat_call(policy, layer, x, position_bias)
         return x
 
 
@@ -197,15 +214,15 @@ class BeatsModel(nn.Module):
 
     def __init__(self, c: BeatsConfig, device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
+        fk = dict(device=device, dtype=c.pdtype)
         self.cfg = c
         p = c.input_patch_size
-        self.patch_embedding = nn.Conv2d(1, c.embed_dim, p, p, bias=False,
-                                         **fk)
-        self.layer_norm = nn.LayerNorm(c.embed_dim, eps=c.ln_eps, **fk)
+        self.patch_embedding = layers.Conv2d(1, c.embed_dim, p, p,
+                                             bias=False, **fk)
+        self.layer_norm = layers.LayerNorm(c.embed_dim, eps=c.ln_eps, **fk)
         if c.embed_dim != c.encoder_embed_dim:
-            self.post_extract_proj = nn.Linear(c.embed_dim,
-                                               c.encoder_embed_dim, **fk)
+            self.post_extract_proj = layers.Linear(c.embed_dim,
+                                                   c.encoder_embed_dim, **fk)
         self.encoder = BeatsEncoder(c, device)
 
     def forward(self, fbank):

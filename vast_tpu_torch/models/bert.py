@@ -6,7 +6,12 @@ full-sequence encode with a 2-D or 3-D mask, cross K/V computed once per
 condition sequence (``precompute_cross_kv``), and the ``kv_groups`` fold
 that scores T texts against one candidate's K/V (bert.py:116-135). The
 MLM head's weights are here so the state dict is complete; the MLM loss
-and the decode KV cache come with the captioning slice.
+and the decode KV cache come with the captioning slice. Training adds
+the hidden dropout of ``vast_tpu`` (after the embeddings' LN, each
+attention's output projection and the MLP's output: bert.py:71, :101,
+:173) and activation checkpointing per layer (models/remat.py). Like
+``vast_tpu``, it drops no attention probabilities (its
+``attention_probs_dropout_prob`` field is read nowhere).
 
 Module names follow HF's BertForMaskedLM, so the reference state dict
 (``multimodal_encoder.bert.encoder.layer.{i}.attention.self.query...``)
@@ -19,10 +24,14 @@ on, the head-major CUDA kernel.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
+from vast_tpu_torch.models import layers
+from vast_tpu_torch.models.layers import dropout
+from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.ops.activations import gelu
 from vast_tpu_torch.ops.attention import multi_head_attention
 
@@ -37,7 +46,15 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    hidden_dropout_prob: float = 0.1
     dtype: torch.dtype = torch.float32
+    param_dtype: Optional[torch.dtype] = None     # None: dtype
+    remat: bool = False
+    remat_policy: str = "dots"
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return self.param_dtype or self.dtype
 
     @property
     def head_dim(self) -> int:
@@ -47,21 +64,25 @@ class BertConfig:
 class BertEmbeddings(nn.Module):
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
-        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size, **fk)
-        self.position_embeddings = nn.Embedding(c.max_position_embeddings,
-                                                c.hidden_size, **fk)
-        self.token_type_embeddings = nn.Embedding(c.type_vocab_size,
-                                                  c.hidden_size, **fk)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
-                                      **fk)
+        fk = dict(device=device, dtype=c.pdtype, compute_dtype=c.dtype)
+        self.cfg = c
+        self.word_embeddings = layers.Embedding(c.vocab_size, c.hidden_size,
+                                                **fk)
+        self.position_embeddings = layers.Embedding(
+            c.max_position_embeddings, c.hidden_size, **fk)
+        self.token_type_embeddings = layers.Embedding(c.type_vocab_size,
+                                                      c.hidden_size, **fk)
+        self.LayerNorm = layers.LayerNorm(c.hidden_size,
+                                          eps=c.layer_norm_eps, device=device,
+                                          dtype=c.pdtype)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, generator=None):
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(pos)[None]
-             + self.token_type_embeddings.weight[0])
-        return self.LayerNorm(x)
+             + self.token_type_embeddings.weight[0].to(self.cfg.dtype))
+        return dropout(self.LayerNorm(x), self.cfg.hidden_dropout_prob,
+                       generator)
 
 
 class BertSelfAttention(nn.Module):
@@ -69,10 +90,10 @@ class BertSelfAttention(nn.Module):
 
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
-        self.query = nn.Linear(c.hidden_size, c.hidden_size, **fk)
-        self.key = nn.Linear(c.hidden_size, c.hidden_size, **fk)
-        self.value = nn.Linear(c.hidden_size, c.hidden_size, **fk)
+        fk = dict(device=device, dtype=c.pdtype)
+        self.query = layers.Linear(c.hidden_size, c.hidden_size, **fk)
+        self.key = layers.Linear(c.hidden_size, c.hidden_size, **fk)
+        self.value = layers.Linear(c.hidden_size, c.hidden_size, **fk)
 
 
 class BertOutput(nn.Module):
@@ -80,13 +101,15 @@ class BertOutput(nn.Module):
 
     def __init__(self, c: BertConfig, in_features: int, device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
-        self.dense = nn.Linear(in_features, c.hidden_size, **fk)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
-                                      **fk)
+        fk = dict(device=device, dtype=c.pdtype)
+        self.cfg = c
+        self.dense = layers.Linear(in_features, c.hidden_size, **fk)
+        self.LayerNorm = layers.LayerNorm(c.hidden_size,
+                                          eps=c.layer_norm_eps, **fk)
 
-    def forward(self, x, residual):
-        return self.LayerNorm(residual + self.dense(x))
+    def forward(self, x, residual, generator=None):
+        y = dropout(self.dense(x), self.cfg.hidden_dropout_prob, generator)
+        return self.LayerNorm(residual + y)
 
 
 class BertAttention(nn.Module):
@@ -106,7 +129,8 @@ class BertAttention(nn.Module):
         """Cross K/V of a condition sequence, (B, Lc, H, D) each."""
         return self._heads(self.self.key(x)), self._heads(self.self.value(x))
 
-    def forward(self, hidden, kv_source=None, mask=None, precomputed_kv=None):
+    def forward(self, hidden, kv_source=None, mask=None, precomputed_kv=None,
+                generator=None):
         c = self.cfg
         b, lq, _ = hidden.shape
         q = self._heads(self.self.query(hidden))
@@ -130,14 +154,14 @@ class BertAttention(nn.Module):
             k, v = self.project_kv(src)
         out = multi_head_attention(q, k, v, mask=mask)
         out = out.reshape(b, lq, c.hidden_size)
-        return self.output(out, hidden)
+        return self.output(out, hidden, generator)
 
 
 class BertIntermediate(nn.Module):
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
-        self.dense = nn.Linear(c.hidden_size, c.intermediate_size,
-                               device=device, dtype=c.dtype)
+        self.dense = layers.Linear(c.hidden_size, c.intermediate_size,
+                                   device=device, dtype=c.pdtype)
 
     def forward(self, x):
         return gelu(self.dense(x))
@@ -152,13 +176,15 @@ class BertLayer(nn.Module):
         self.output = BertOutput(c, c.intermediate_size, device)
 
     def forward(self, hidden, self_mask=None, encoder_hidden_states=None,
-                cross_mask=None, cross_kv=None):
-        hidden = self.attention(hidden, mask=self_mask)
+                cross_mask=None, cross_kv=None, seed: Optional[int] = None):
+        """``seed`` (training): the layer's dropout draws; None: off."""
+        g = None if seed is None else layers.seeded(seed, hidden.device)
+        hidden = self.attention(hidden, mask=self_mask, generator=g)
         if encoder_hidden_states is not None or cross_kv is not None:
             hidden = self.crossattention(
                 hidden, kv_source=encoder_hidden_states, mask=cross_mask,
-                precomputed_kv=cross_kv)
-        return self.output(self.intermediate(hidden), hidden)
+                precomputed_kv=cross_kv, generator=g)
+        return self.output(self.intermediate(hidden), hidden, g)
 
 
 def _extend_mask(attention_mask, lq: int):
@@ -187,20 +213,31 @@ class BertModel(nn.Module):
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
         self.cfg = c
+        check_policy(c.remat_policy)
         self.embeddings = BertEmbeddings(c, device)
         self.encoder = BertEncoder(c, device)
 
     def forward(self, input_ids, attention_mask=None,
                 encoder_hidden_states=None, encoder_attention_mask=None,
-                cross_kv=None):
-        """Full-sequence forward -> last hidden state (B, L, hidden)."""
-        x = self.embeddings(input_ids)
+                cross_kv=None, generator=None):
+        """Full-sequence forward -> last hidden state (B, L, hidden).
+        ``generator`` (the step's, training): dropout on; None: off."""
+        c = self.cfg
+        drop = generator is not None and c.hidden_dropout_prob > 0.0
+        emb_g = None
+        if drop:
+            emb_g = layers.seeded(layers.next_seed(generator),
+                                  input_ids.device)
+        x = self.embeddings(input_ids, emb_g)
         lq = x.shape[1]
         self_mask = _extend_mask(attention_mask, lq)
         cross_mask = _extend_mask(encoder_attention_mask, lq)
+        policy = c.remat_policy if c.remat else "none"
         for i, layer in enumerate(self.encoder.layer):
-            x = layer(x, self_mask, encoder_hidden_states, cross_mask,
-                      None if cross_kv is None else cross_kv[i])
+            seed = layers.next_seed(generator) if drop else None
+            x = remat_call(policy, layer, x, self_mask,
+                           encoder_hidden_states, cross_mask,
+                           None if cross_kv is None else cross_kv[i], seed)
         return x
 
     def precompute_cross_kv(self, encoder_hidden_states):
@@ -211,10 +248,10 @@ class BertModel(nn.Module):
 class BertPredictionHeadTransform(nn.Module):
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
-        self.dense = nn.Linear(c.hidden_size, c.hidden_size, **fk)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
-                                      **fk)
+        fk = dict(device=device, dtype=c.pdtype)
+        self.dense = layers.Linear(c.hidden_size, c.hidden_size, **fk)
+        self.LayerNorm = layers.LayerNorm(c.hidden_size,
+                                          eps=c.layer_norm_eps, **fk)
 
 
 class BertLMPredictionHead(nn.Module):
@@ -225,7 +262,7 @@ class BertLMPredictionHead(nn.Module):
         super().__init__()
         self.transform = BertPredictionHeadTransform(c, device)
         self.bias = nn.Parameter(torch.zeros(c.vocab_size, device=device,
-                                             dtype=c.dtype))
+                                             dtype=c.pdtype))
 
 
 class BertOnlyMLMHead(nn.Module):

@@ -10,19 +10,27 @@ for them.
 Module and parameter names are the reference torch ones
 (``blocks.{i}.attn.qkv.weight``, ``...q_bias``, ``...v_bias``), so
 released weights load as they are. Attention runs through the
-token-major CUDA kernel with the query scale baked into the fused
-weights (scale 1.0 in the kernel), at the true L = 257: no padding.
+token-major CUDA kernels (forward and backward) with the query scale
+baked into the fused weights (scale 1.0 in the kernel), at the true
+L = 257: no padding. Training adds drop-path (eva_vit.py:299-303, one
+keep decision per sample, rates rising linearly over the blocks) and
+activation checkpointing per block (models/remat.py); parameters may be
+kept in ``param_dtype`` and cast to ``dtype`` at use (models/layers.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.hmajor import FusedCache, fuse_qkv
+from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.ops.activations import gelu
 from vast_tpu_torch.ops.flash_attention import self_attention_tmajor
 
@@ -36,7 +44,15 @@ class EvaVitConfig:
     head_width: int = 88
     mlp_ratio: float = 4.3637
     ln_eps: float = 1e-6
+    drop_path_rate: float = 0.0
     dtype: torch.dtype = torch.float32
+    param_dtype: Optional[torch.dtype] = None     # None: dtype
+    remat: bool = False
+    remat_policy: str = "dots"
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return self.param_dtype or self.dtype
 
     @property
     def num_heads(self) -> int:
@@ -53,13 +69,13 @@ EVA_PRESETS = {"evaclip01_giant": EvaVitConfig()}
 class EvaAttention(nn.Module):
     def __init__(self, c: EvaVitConfig, device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
+        fk = dict(device=device, dtype=c.pdtype)
         self.cfg = c
         all_dim = c.num_heads * c.head_width
-        self.qkv = nn.Linear(c.width, 3 * all_dim, bias=False, **fk)
+        self.qkv = layers.Linear(c.width, 3 * all_dim, bias=False, **fk)
         self.q_bias = nn.Parameter(torch.zeros(all_dim, **fk))
         self.v_bias = nn.Parameter(torch.zeros(all_dim, **fk))
-        self.proj = nn.Linear(all_dim, c.width, **fk)
+        self.proj = layers.Linear(all_dim, c.width, **fk)
         self._fused = FusedCache()
 
     def fused_qkv(self):
@@ -75,7 +91,7 @@ class EvaAttention(nn.Module):
 
     def forward(self, x):
         w, b = self.fused_qkv()
-        y = F.linear(x, w, b)                             # (B, L, H*3*D)
+        y = F.linear(x, w.to(x.dtype), b.to(x.dtype))     # (B, L, H*3*D)
         out = self_attention_tmajor(y, heads=self.cfg.num_heads)
         return self.proj(out)
 
@@ -83,34 +99,47 @@ class EvaAttention(nn.Module):
 class EvaMlp(nn.Module):
     def __init__(self, c: EvaVitConfig, device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
+        fk = dict(device=device, dtype=c.pdtype)
         hidden = int(c.width * c.mlp_ratio)
-        self.fc1 = nn.Linear(c.width, hidden, **fk)
-        self.fc2 = nn.Linear(hidden, c.width, **fk)
+        self.fc1 = layers.Linear(c.width, hidden, **fk)
+        self.fc2 = layers.Linear(hidden, c.width, **fk)
 
     def forward(self, x):
         return self.fc2(gelu(self.fc1(x)))
 
 
 class EvaBlock(nn.Module):
-    def __init__(self, c: EvaVitConfig, device=None):
+    def __init__(self, c: EvaVitConfig, drop_path: float = 0.0,
+                 device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
-        self.norm1 = nn.LayerNorm(c.width, eps=c.ln_eps, **fk)
+        fk = dict(device=device, dtype=c.pdtype)
+        self.drop_path = drop_path
+        self.norm1 = layers.LayerNorm(c.width, eps=c.ln_eps, **fk)
         self.attn = EvaAttention(c, device)
-        self.norm2 = nn.LayerNorm(c.width, eps=c.ln_eps, **fk)
+        self.norm2 = layers.LayerNorm(c.width, eps=c.ln_eps, **fk)
         self.mlp = EvaMlp(c, device)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def _drop_path(self, x, generator):
+        if generator is None or self.drop_path == 0.0:
+            return x
+        keep = 1.0 - self.drop_path
+        mask = torch.empty((x.shape[0], 1, 1), dtype=x.dtype,
+                           device=x.device).bernoulli_(keep,
+                                                       generator=generator)
+        return x * mask / keep
+
+    def forward(self, x, seed: Optional[int] = None):
+        """``seed`` (training): drop-path's draws; None: deterministic."""
+        g = None if seed is None else layers.seeded(seed, x.device)
+        x = x + self._drop_path(self.attn(self.norm1(x)), g)
+        return x + self._drop_path(self.mlp(self.norm2(x)), g)
 
 
 class PatchEmbed(nn.Module):
     def __init__(self, c: EvaVitConfig, device=None):
         super().__init__()
-        self.proj = nn.Conv2d(3, c.width, c.patch_size, c.patch_size,
-                              device=device, dtype=c.dtype)
+        self.proj = layers.Conv2d(3, c.width, c.patch_size, c.patch_size,
+                                  device=device, dtype=c.pdtype)
 
     def forward(self, pixels):
         """(B, H, W, 3) channels-last -> (B, P, width), row-major P."""
@@ -121,21 +150,29 @@ class PatchEmbed(nn.Module):
 class EvaVisionTransformer(nn.Module):
     def __init__(self, c: EvaVitConfig, device=None):
         super().__init__()
-        fk = dict(device=device, dtype=c.dtype)
+        fk = dict(device=device, dtype=c.pdtype)
         self.cfg = c
+        check_policy(c.remat_policy)
         self.patch_embed = PatchEmbed(c, device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c.width, **fk))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, c.num_patches + 1, c.width, **fk))
-        self.blocks = nn.ModuleList(EvaBlock(c, device)
-                                    for _ in range(c.layers))
-        self.norm = nn.LayerNorm(c.width, eps=c.ln_eps, **fk)
+        rates = np.linspace(0, c.drop_path_rate, c.layers)
+        self.blocks = nn.ModuleList(EvaBlock(c, float(r), device)
+                                    for r in rates)
+        self.norm = layers.LayerNorm(c.width, eps=c.ln_eps, **fk)
 
-    def forward(self, pixels):
-        """pixels: (B, H, W, 3) normalized -> (B, 1+P, width) all tokens."""
-        x = self.patch_embed(pixels.to(self.cfg.dtype))
-        cls = self.cls_token.expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed
+    def forward(self, pixels, generator: Optional[torch.Generator] = None):
+        """pixels: (B, H, W, 3) normalized -> (B, 1+P, width) all tokens.
+        ``generator`` (the step's, training): drop-path on; None: off."""
+        c = self.cfg
+        x = self.patch_embed(pixels.to(c.dtype))
+        cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
+        policy = c.remat_policy if c.remat else "none"
         for blk in self.blocks:
-            x = blk(x)
+            seed = None
+            if generator is not None and blk.drop_path > 0.0:
+                seed = layers.next_seed(generator)
+            x = remat_call(policy, blk, x, seed)
         return self.norm(x)

@@ -9,10 +9,13 @@ scale may be baked into the q rows. The port keeps the true head width
 head-concatenated layout and the output projection is a plain linear
 layer: ``TokenSlicedOut`` needs no counterpart.
 
-The reordered weights are built once from the checkpoint-layout
-parameters and rebuilt only when those parameters change (their tensor
-version counters move on every in-place write, as a state-dict load or
-an init does), never on every forward.
+Without autograd (inference) the reordered weights are built once from
+the checkpoint-layout parameters and rebuilt only when those parameters
+change (their tensor version counters move on every in-place write, as
+a state-dict load, an init or an optimizer step does), never on every
+forward. While autograd records, they are rebuilt on every call from the
+parameters, differentiably, so the gradient reaches the checkpoint-layout
+parameters (``qkv.weight``, ``q_bias``, ``v_bias``, BEATs' ``q/k/v_proj``).
 """
 
 from __future__ import annotations
@@ -35,13 +38,17 @@ def fuse_qkv(wq, wk, wv, bq, bk, bv, heads: int, q_scale: float = 1.0):
 
 class FusedCache:
     """Holds a value derived from some parameters; rebuilds it when any of
-    them was written to, moved or re-typed since the last build."""
+    them was written to, moved or re-typed since the last build. While
+    autograd records, it builds the value afresh and keeps nothing: a
+    cached value would carry no gradient to the parameters."""
 
     def __init__(self):
         self._key = None
         self._value = None
 
     def get(self, params, build):
+        if torch.is_grad_enabled():
+            return build()
         key = tuple((p._version, p.data_ptr(), p.dtype, p.device)
                     for p in params)
         if key != self._key:

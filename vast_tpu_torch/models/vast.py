@@ -1,13 +1,22 @@
-"""VAST for ``ret%tva`` retrieval inference.
+"""VAST for ``ret%tva`` retrieval: inference and the training losses.
 
-Counterpart of ``vast_tpu.models.vast`` for the retrieval-inference
-slice: on-device preprocessing (uint8 frames -> normalized pixels,
-waveform -> kaldi fbank clips), EVA01 over the frames, BEATs over the
-fbank, the BERT text encoder, the poolers and projection heads, the
-feature DAG (``get_feature``) for the keys ``ret%tva`` needs, and the
-ITM scores of the rerank (``compute_slice_scores(_grouped)``). Training
-losses and the captioning / QA heads come in later slices and raise
+Counterpart of ``vast_tpu.models.vast`` for the retrieval slices:
+on-device preprocessing (uint8 frames -> normalized pixels, with the
+random crop and flip when training; waveform -> kaldi fbank clips, a
+random clip per segment when training), EVA01 over the frames, BEATs
+over the fbank, the BERT text encoder, the poolers and projection heads,
+the feature DAG (``get_feature``) for the keys ``ret%tva`` needs, the ITM
+scores of the rerank (``compute_slice_scores(_grouped)``), and the ITC +
+ITM losses of ``forward_ret(compute_loss=True)`` (vast.py:564-623). The
+captioning / QA heads come in a later slice and raise
 ``NotImplementedError``.
+
+Randomness: a training forward takes the step's CPU ``torch.Generator``
+(``generator``); None is the deterministic (eval) forward. The order of
+draws differs from ``vast_tpu``'s key split, so the two agree on random
+draws in distribution only; the tests inject what they compare
+(``itm_neg_cond_idx`` / ``itm_neg_text_idx``, or configurations with no
+draw).
 
 The module tree carries the reference torch state-dict names
 (``vision_encoder.visual.*``, ``audio_encoder.*``,
@@ -27,6 +36,7 @@ from torch import nn
 
 from vast_tpu_torch.config import parse_task_string
 from vast_tpu_torch.device import resolve_device
+from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.beats import BeatsConfig, BeatsModel
 from vast_tpu_torch.models.bert import BertConfig, BertForMaskedLM
 from vast_tpu_torch.models.eva_vit import (EVA_PRESETS, EvaVisionTransformer,
@@ -50,11 +60,28 @@ class VASTConfig:
     vision_resolution: int = 224
     audio_melbins: int = 64
     audio_target_length: int = 1024
-    dtype: torch.dtype = torch.float32
+    itm_ratio: float = 0.1
+    label_smoothing: float = 0.1
+    # activation checkpointing of every encoder block (models/remat.py);
+    # 'attn' is the flagship training policy (bench.py:473-477)
+    checkpointing: bool = False
+    remat_policy: str = "attn"
+    frozen_vision: bool = False
+    frozen_audio: bool = False
+    dtype: torch.dtype = torch.float32        # compute
+    param_dtype: Optional[torch.dtype] = None  # None: dtype (inference)
     # explicit sub-configs override the *_encoder_type presets (tiny tests)
     vision_cfg: Optional[Any] = None
     audio_cfg: Optional[Any] = None
     bert_cfg: Optional[BertConfig] = None
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return self.param_dtype or self.dtype
+
+    def _sub(self):
+        return dict(dtype=self.dtype, param_dtype=self.param_dtype,
+                    remat=self.checkpointing, remat_policy=self.remat_policy)
 
     def resolved_vision_cfg(self) -> EvaVitConfig:
         if self.vision_cfg is not None:
@@ -64,7 +91,7 @@ class VASTConfig:
                 f"vision encoder {self.vision_encoder_type} is not ported")
         return dataclasses.replace(EVA_PRESETS[self.vision_encoder_type],
                                    image_size=self.vision_resolution,
-                                   dtype=self.dtype)
+                                   **self._sub())
 
     def resolved_audio_cfg(self) -> BeatsConfig:
         if self.audio_cfg is not None:
@@ -72,10 +99,19 @@ class VASTConfig:
         if not self.audio_encoder_type.startswith("beats"):
             raise NotImplementedError(
                 f"audio encoder {self.audio_encoder_type} is not ported")
-        return BeatsConfig(dtype=self.dtype)
+        return BeatsConfig(**self._sub())
 
     def resolved_bert_cfg(self) -> BertConfig:
-        return self.bert_cfg or BertConfig(dtype=self.dtype)
+        return self.bert_cfg or BertConfig(**self._sub())
+
+
+def label_smoothed_ce(logits, targets, smoothing: float):
+    """Cross entropy with label smoothing, in fp32 (vast.py:180-187,
+    torch ``F.cross_entropy`` semantics)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    smooth = -logp.mean(dim=-1)
+    return ((1.0 - smoothing) * nll + smoothing * smooth).mean()
 
 
 def _l2norm(x):
@@ -97,7 +133,7 @@ class ContraHead(nn.Module):
 
     def __init__(self, d_in, d_out, **fk):
         super().__init__()
-        self.linear = nn.Linear(d_in, d_out, bias=False, **fk)
+        self.linear = layers.Linear(d_in, d_out, bias=False, **fk)
 
     def forward(self, x):
         return self.linear(x)
@@ -108,9 +144,9 @@ class MatchHead(nn.Module):
 
     def __init__(self, hidden, **fk):
         super().__init__()
-        self.linear1 = nn.Linear(hidden, hidden, **fk)
-        self.layernorm = nn.LayerNorm(hidden, eps=1e-12, **fk)
-        self.linear2 = nn.Linear(hidden, 2, **fk)
+        self.linear1 = layers.Linear(hidden, hidden, **fk)
+        self.layernorm = layers.LayerNorm(hidden, eps=1e-12, **fk)
+        self.linear2 = layers.Linear(hidden, 2, **fk)
 
     def forward(self, x):
         return self.linear2(self.layernorm(
@@ -119,8 +155,8 @@ class MatchHead(nn.Module):
 
 def _proj_ln(d_in, d_out, **fk):
     """Dense + LayerNorm(eps 1e-12): hidden_trans_*_multimodal.{0,1}."""
-    return nn.Sequential(nn.Linear(d_in, d_out, **fk),
-                         nn.LayerNorm(d_out, eps=1e-12, **fk))
+    return nn.Sequential(layers.Linear(d_in, d_out, **fk),
+                         layers.LayerNorm(d_out, eps=1e-12, **fk))
 
 
 class VASTModel(nn.Module):
@@ -134,7 +170,7 @@ class VASTModel(nn.Module):
         vc = c.resolved_vision_cfg()
         ac = c.resolved_audio_cfg()
         bc = c.resolved_bert_cfg()
-        fk = dict(device=dev, dtype=c.dtype)
+        fk = dict(device=dev, dtype=c.pdtype)
 
         self.vision_encoder = nn.ModuleDict(
             {"visual": EvaVisionTransformer(vc, dev)})
@@ -148,9 +184,9 @@ class VASTModel(nn.Module):
         self.contra_head_s = ContraHead(md, d, **fk)
         self.contra_head_v = ContraHead(vd, d, **fk)
         self.contra_head_a = ContraHead(ad, d, **fk)
-        self.contra_head_va = nn.Linear(vd + ad, d, **fk)
-        self.contra_head_vs = nn.Linear(vd + md, d, **fk)
-        self.contra_head_vas = nn.Linear(vd + ad + md, d, **fk)
+        self.contra_head_va = layers.Linear(vd + ad, d, **fk)
+        self.contra_head_vs = layers.Linear(vd + md, d, **fk)
+        self.contra_head_vas = layers.Linear(vd + ad + md, d, **fk)
         self.contra_temp = nn.Parameter(torch.tensor(0.07, **fk))
         self.itm_head = MatchHead(md, **fk)
         self.vision_frame_embedding = nn.Parameter(
@@ -167,40 +203,55 @@ class VASTModel(nn.Module):
 
     # ---------------- encoders ----------------
 
-    def forward_vision_encoder(self, pixels):
-        """(B, n, H, W, 3) normalized -> (B, n, tokens, vision_dim)."""
+    def forward_vision_encoder(self, pixels, generator=None):
+        """(B, n, H, W, 3) normalized -> (B, n, tokens, vision_dim).
+        Frozen (``frozen_vision``): no gradient and no drop-path."""
         b, n = pixels.shape[:2]
-        out = self.vision_encoder["visual"](pixels.flatten(0, 1))
+        frozen = self.cfg.frozen_vision
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+            out = self.vision_encoder["visual"](
+                pixels.flatten(0, 1), None if frozen else generator)
         return out.view(b, n, *out.shape[1:])
 
     def forward_audio_encoder(self, spectrograms):
-        """(B, n, T, M) -> (B, n, tokens, audio_dim)."""
+        """(B, n, T, M) -> (B, n, tokens, audio_dim). Frozen
+        (``frozen_audio``): no gradient."""
         b, n = spectrograms.shape[:2]
-        out = self.audio_encoder(spectrograms.flatten(0, 1))
+        frozen = self.cfg.frozen_audio
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+            out = self.audio_encoder(spectrograms.flatten(0, 1))
         return out.view(b, n, *out.shape[1:])
 
     # ---------------- fusion-space inputs (gm.py:476-525) ----------------
 
     def _multimodal_input(self, output, proj, frame_embedding, type_embedding):
         b, n = output.shape[:2]
-        x = proj(output) + _interp_nearest(frame_embedding, n)[:, :, None]
-        return x.reshape(b, -1, self.multimodal_dim) + type_embedding
+        x = proj(output)
+        x = x + _interp_nearest(frame_embedding, n)[:, :, None].to(x.dtype)
+        return (x.reshape(b, -1, self.multimodal_dim)
+                + type_embedding.to(x.dtype))
 
-    # ---------------- on-device preprocessing (eval) ----------------
+    # ---------------- on-device preprocessing ----------------
 
-    def _preprocess_vision(self, batch):
+    def _preprocess_vision(self, batch, generator=None):
         if "vision_frames" in batch:
             frames = batch["vision_frames"]            # uint8 (B, n, H, W, 3)
         else:
             frames = yuv420_to_rgb(batch["vision_frames_yuv"])
+        transforms = str(batch.get("vision_transforms", "none"))
+        g = None
+        if generator is not None and transforms == "crop_flip":
+            g = layers.seeded(layers.next_seed(generator), frames.device)
         return preprocess_frames(
             frames, self.cfg.vision_resolution, mean=CLIP_MEAN, std=CLIP_STD,
-            transforms=str(batch.get("vision_transforms", "none")))
+            transforms=transforms, generator=g)
 
-    def _preprocess_audio(self, batch):
+    def _preprocess_audio(self, batch, generator=None):
         """waveform (B, S) at int16 scale -> (B, n, T, M) fbank clips:
-        fbank, pad to a clip multiple, the centre clip of each of n even
-        segments, normalize (data/audio_mapper.py:55-88, eval branch)."""
+        fbank, pad to a clip multiple, one clip of each of n even segments,
+        normalize (data/audio_mapper.py:55-88). The clip is the centre one
+        of its segment, or with ``generator`` (training) a uniformly
+        random one (vast.py:420-427)."""
         c = self.cfg
         wav = batch["audio_waveforms"]
         n, t = c.max_audio_sample_num, c.audio_target_length
@@ -213,8 +264,16 @@ class VASTModel(nn.Module):
         bounds = np.linspace(0, total, n + 1)
         starts = bounds[:-1].astype(np.int64)
         sizes = np.maximum((bounds[1:] - bounds[:-1]).astype(np.int64), 1)
-        idx = (starts + (sizes + 1) // 2 - 1).tolist()
-        clips = fb.view(fb.shape[0], total, t, c.audio_melbins)[:, idx]
+        clips = fb.view(fb.shape[0], total, t, c.audio_melbins)
+        if generator is None:
+            clips = clips[:, (starts + (sizes + 1) // 2 - 1).tolist()]
+        else:
+            g = layers.seeded(layers.next_seed(generator), fb.device)
+            u = torch.rand((fb.shape[0], n), generator=g, device=fb.device)
+            idx = (torch.from_numpy(starts).to(fb.device)
+                   + (u * torch.from_numpy(sizes).to(fb.device)).long())
+            clips = clips[torch.arange(fb.shape[0], device=fb.device)[:, None],
+                          idx]
         if "audio_valid" in batch:
             valid = batch["audio_valid"].to(clips.dtype)
             clips = clips * valid[:, None, None, None]
@@ -222,47 +281,51 @@ class VASTModel(nn.Module):
 
     # ---------------- feature DAG (model/vast.py:81-314) ----------------
 
-    def get_feature(self, batch, key, cache):
+    def get_feature(self, batch, key, cache, generator=None):
+        """One node of the feature DAG, computed once per forward.
+        ``generator``: the step's (training randomness) or None."""
         if key in cache:
             return cache[key]
         if key == "vision_pixels":
             val = batch.get("vision_pixels")
             if val is None:
-                val = self._preprocess_vision(batch)
+                val = self._preprocess_vision(batch, generator)
         elif key == "audio_spectrograms":
             val = batch.get("audio_spectrograms")
             if val is None:
-                val = self._preprocess_audio(batch)
+                val = self._preprocess_audio(batch, generator)
         elif key == "vision_output":
             val = self.forward_vision_encoder(
-                self.get_feature(batch, "vision_pixels", cache))
+                self.get_feature(batch, "vision_pixels", cache, generator),
+                generator)
         elif key == "audio_output":
             val = self.forward_audio_encoder(
-                self.get_feature(batch, "audio_spectrograms", cache))
+                self.get_feature(batch, "audio_spectrograms", cache,
+                                 generator))
         elif key == "caption_output":
             val = self.multimodal_encoder.encode(
-                batch["caption_tokens"], batch["caption_attention_mask"])
+                batch["caption_tokens"], batch["caption_attention_mask"],
+                generator=generator)
         elif key == "condition_feats_v":
             val = self._multimodal_input(
-                self.get_feature(batch, "vision_output", cache),
+                self.get_feature(batch, "vision_output", cache, generator),
                 self.hidden_trans_vision_multimodal,
                 self.vision_frame_embedding, self.vision_type_embeddings)
         elif key == "condition_feats_a":
             val = self._multimodal_input(
-                self.get_feature(batch, "audio_output", cache),
+                self.get_feature(batch, "audio_output", cache, generator),
                 self.hidden_trans_audio_multimodal,
                 self.audio_frame_embedding, self.audio_type_embeddings)
         elif key == "condition_feats_va":
-            val = torch.cat([self.get_feature(batch, "condition_feats_v",
-                                              cache),
-                             self.get_feature(batch, "condition_feats_a",
-                                              cache)], dim=1)
+            val = torch.cat([self.get_feature(batch, f"condition_feats_{m}",
+                                              cache, generator)
+                             for m in "va"], dim=1)
         elif key == "feat_t":
-            co = self.get_feature(batch, "caption_output", cache)
+            co = self.get_feature(batch, "caption_output", cache, generator)
             val = _l2norm(self.contra_head_t(co[:, 0]))
         elif key == "feat_va":
-            vo = self.get_feature(batch, "vision_output", cache)
-            ao = self.get_feature(batch, "audio_output", cache)
+            vo = self.get_feature(batch, "vision_output", cache, generator)
+            ao = self.get_feature(batch, "audio_output", cache, generator)
             pooled = torch.cat([vo[:, :, 0].mean(dim=1),       # CLS per frame
                                 ao.mean(dim=2).mean(dim=1)], dim=1)
             val = _l2norm(self.contra_head_va(pooled))
@@ -274,19 +337,80 @@ class VASTModel(nn.Module):
 
     # ---------------- task forwards ----------------
 
-    def forward_ret(self, batch, subtasks, compute_loss=False):
-        if compute_loss:
-            raise NotImplementedError("retrieval losses come with training")
+    def forward_ret(self, batch, subtasks, compute_loss=False,
+                    generator=None):
         cache = {}
-        out = {"feat_t": self.get_feature(batch, "feat_t", cache),
-               "input_ids": batch["caption_tokens"],
-               "attention_mask": batch["caption_attention_mask"]}
-        for st in subtasks:
-            out[f"feat_cond_{st}"] = self.get_feature(
-                batch, f"feat_{st[1:]}", cache)
-            out[f"condition_feats_{st}"] = self.get_feature(
-                batch, f"condition_feats_{st[1:]}", cache)
-        return out
+        feat_t = self.get_feature(batch, "feat_t", cache, generator)
+        if not compute_loss:
+            out = {"feat_t": feat_t, "input_ids": batch["caption_tokens"],
+                   "attention_mask": batch["caption_attention_mask"]}
+            for st in subtasks:
+                out[f"feat_cond_{st}"] = self.get_feature(
+                    batch, f"feat_{st[1:]}", cache, generator)
+                out[f"condition_feats_{st}"] = self.get_feature(
+                    batch, f"condition_feats_{st[1:]}", cache, generator)
+            return out
+        return self._ret_losses(batch, subtasks, cache, feat_t, generator)
+
+    def _ret_losses(self, batch, subtasks, cache, feat_t, generator):
+        """ITC and ITM over the batch (vast.py:564-623). Each ITC
+        direction detaches its key side, as the reference's gather does;
+        ITM pairs every caption with its clip, a hard-negative clip and a
+        hard-negative caption, drawn from softmax(sim) + 1e-4 with the
+        diagonal zeroed, or injected (``itm_neg_cond_idx`` /
+        ``itm_neg_text_idx``, (n_subtasks, B))."""
+        c = self.cfg
+        input_ids = batch["caption_tokens"]
+        attention_mask = batch["caption_attention_mask"]
+        bs = feat_t.shape[0]
+        dev = feat_t.device
+        targets = torch.arange(bs, device=dev)
+        temp = self.contra_temp.float()
+        loss_itc, loss_itm = [], []
+        for si, st in enumerate(subtasks):
+            feat_cond = self.get_feature(batch, f"feat_{st[1:]}", cache,
+                                         generator)
+            sim_c2t = (feat_cond @ feat_t.detach().T).float() / temp
+            sim_t2c = (feat_t @ feat_cond.detach().T).float() / temp
+            loss_itc.append(
+                (label_smoothed_ce(sim_c2t, targets, c.label_smoothing)
+                 + label_smoothed_ce(sim_t2c, targets, c.label_smoothing))
+                / 2)
+
+            cond = self.get_feature(batch, f"condition_feats_{st[1:]}",
+                                    cache, generator)
+            if "itm_neg_cond_idx" in batch:
+                neg_cond_idx = batch["itm_neg_cond_idx"][si]
+                neg_text_idx = batch["itm_neg_text_idx"][si]
+            else:
+                if generator is None:
+                    raise ValueError("the ITM negatives are drawn at random: "
+                                     "pass a generator or inject "
+                                     "itm_neg_cond_idx / itm_neg_text_idx")
+                diag = torch.eye(bs, dtype=torch.bool, device=dev)
+                with torch.no_grad():
+                    w_t2c = (torch.softmax(sim_t2c, dim=1) + 1e-4
+                             ).masked_fill(diag, 0.0)
+                    w_c2t = (torch.softmax(sim_c2t, dim=1) + 1e-4
+                             ).masked_fill(diag, 0.0)
+                g = layers.seeded(layers.next_seed(generator), dev)
+                neg_cond_idx = torch.multinomial(w_t2c, 1, generator=g)[:, 0]
+                neg_text_idx = torch.multinomial(w_c2t, 1, generator=g)[:, 0]
+            ids3 = torch.cat([input_ids, input_ids, input_ids[neg_text_idx]])
+            mask3 = torch.cat([attention_mask, attention_mask,
+                               attention_mask[neg_text_idx]])
+            cond3 = torch.cat([cond, cond[neg_cond_idx], cond])
+            fused = self.multimodal_encoder.encode(
+                ids3, mask3, encoder_hidden_states=cond3,
+                generator=generator)
+            logits = self.itm_head(fused[:, 0])
+            labels = torch.cat([torch.ones(bs, dtype=torch.long, device=dev),
+                                torch.zeros(2 * bs, dtype=torch.long,
+                                            device=dev)])
+            loss_itm.append(c.itm_ratio
+                            * label_smoothed_ce(logits, labels, 0.0))
+        return {"loss_itc": sum(loss_itc) / len(loss_itc),
+                "loss_itm": sum(loss_itm) / len(loss_itm)}
 
     def text_features(self, caption_tokens, caption_attention_mask):
         """feat_t for a text-only chunk (the evaluation path)."""
@@ -324,10 +448,15 @@ class VASTModel(nn.Module):
         return self._itm_prob(self.multimodal_encoder.encode(
             input_ids, attention_mask, cross_kv=kv))
 
-    def forward(self, batch, task: str, compute_loss: bool = False):
+    def forward(self, batch, task: str, compute_loss: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """The task heads of ``task``. ``generator``: the step's CPU
+        generator for a training forward (dropout, drop-path, random crop
+        and clip, ITM negatives); None for a deterministic forward."""
         out = {}
         for head, subtasks in parse_task_string(task):
             if not head.startswith("ret"):
                 raise NotImplementedError(f"task head {head!r} is not ported")
-            out.update(self.forward_ret(batch, subtasks, compute_loss))
+            out.update(self.forward_ret(batch, subtasks, compute_loss,
+                                        generator))
         return out

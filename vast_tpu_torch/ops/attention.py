@@ -29,6 +29,7 @@ import torch
 
 from vast_tpu_torch.ops.flash_attention import flash_attention
 
+
 NEG_INF = -1e30
 
 

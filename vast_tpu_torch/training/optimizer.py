@@ -1,0 +1,189 @@
+"""Param-grouped AdamW in plain tensor ops.
+
+The port's counterpart of ``vast_tpu.training.optimizer`` (optimizer.py:
+54-167), which reproduces utils/build_optimizer.py:11-99's three LR
+groups with optax:
+
+* ``new``: parameters whose name holds a ``new_params_name`` substring
+  (reference torch names here; they are the port's names) -> ``new_lr``;
+* ``clip``: the vision encoder (``vision_encoder.*``) when it is an
+  (eva)clip tower -> ``clip_lr``;
+* ``basic``: everything else -> ``learning_rate``;
+
+each split into decay and no-decay (``_nd``). eps 1e-6, betas and weight
+decay from run_cfg, one LR-ratio schedule for all groups evaluated at the
+1-based update count (optimizer.py:117-122), optional global-norm
+clipping, and true gradient accumulation (optax ``MultiSteps``: the mean
+of ``gradient_accumulation_steps`` micro-batch gradients, one update).
+
+``torch.optim.AdamW`` cannot keep bf16 moments beside fp32 parameters,
+so the update is written out. With ``adam_nu_dtype`` set it follows
+``vast_tpu``'s ``scale_by_adam_general`` (moments rounded to their dtype
+before use); otherwise ``optax.adamw`` (mu rounded to ``adam_mu_dtype``
+only for storage). The update itself is computed in fp32 and applied to
+the parameters in place. A parameter the loss did not reach is updated
+as optax updates a zero gradient: its moments decay and decoupled weight
+decay still moves it.
+
+The no-decay rule is ``vast_tpu``'s, which reads the JAX leaf name: only
+``bias`` and LayerNorm ``scale`` are exempt (optimizer.py:27-36). In the
+port's module tree those are every LayerNorm's weight and bias and the
+bias of every Linear and Conv2d; ``q_bias``/``v_bias``, BEATs'
+``pos_conv`` bias (JAX ``pos_conv_bias``), BERT's
+``cls.predictions.bias`` (JAX ``decoder_bias``), embeddings and
+``contra_temp`` are decayed.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from vast_tpu_torch.training.sched import get_lr_ratio
+
+EPS = 1e-6
+
+
+def _moment_dtype(name):
+    """A run_cfg dtype name ("bfloat16", ...) or None/"" for the
+    parameter's own dtype."""
+    if not name:
+        return None
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"not a floating dtype: {name!r}")
+    return dtype
+
+
+def _no_decay(module: nn.Module, pname: str) -> bool:
+    if isinstance(module, nn.LayerNorm):
+        return True
+    return pname == "bias" and isinstance(module, (nn.Linear, nn.Conv2d))
+
+
+def param_labels(model: nn.Module, new_params_name=(),
+                 vision_is_clip: bool = False) -> dict[str, str]:
+    """Parameter name -> group label (``basic``/``new``/``clip``, with
+    ``_nd`` for no decay), as ``vast_tpu``'s ``param_labels``."""
+    labels = {}
+    for mod_name, mod in model.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{pname}" if mod_name else pname
+            nd = "_nd" if _no_decay(mod, pname) else ""
+            if any(n and n in name for n in new_params_name):
+                labels[name] = "new" + nd
+            elif vision_is_clip and name.startswith("vision_encoder."):
+                labels[name] = "clip" + nd
+            else:
+                labels[name] = "basic" + nd
+    return labels
+
+
+class AdamW:
+    """AdamW over ``model``'s parameters; :meth:`step` reads their
+    ``.grad`` and updates them in place."""
+
+    def __init__(self, model: nn.Module, run_cfg, model_cfg,
+                 num_train_steps: int):
+        get = run_cfg.get
+        self.b1, self.b2 = (float(b) for b in get("betas", (0.9, 0.98)))
+        self.weight_decay = float(get("weight_decay", 0.01))
+        self.accum = int(get("gradient_accumulation_steps", 1) or 1)
+        # the schedule advances once per update, so its horizon counts
+        # updates, not micro-batches (optimizer.py:57-62)
+        self.horizon = max(num_train_steps // self.accum, 1)
+        self.scheduler = get("scheduler", "warmup_linear")
+        self.warmup_ratio = get("warmup_ratio", 0.1)
+        lr = get("learning_rate", 1e-4)
+        self.lrs = {"basic": lr, "new": get("new_lr", 0.0) or lr,
+                    "clip": get("clip_lr", 5e-7)}
+        self.mu_dtype = _moment_dtype(get("adam_mu_dtype"))
+        self.nu_dtype = _moment_dtype(get("adam_nu_dtype"))
+        self.max_norm = (get("grad_norm", -1)
+                         if get("clip_grads", False) else None)
+        if get("optim", "adamw") != "adamw":
+            raise NotImplementedError(f"optim {get('optim')!r}: only adamw "
+                                      f"is ported")
+        vision_is_clip = "clip" in model_cfg.get("vision_encoder_type", "")
+        self.labels = param_labels(model, tuple(get("new_params_name", [])),
+                                   vision_is_clip)
+        self.params = {n: p for n, p in model.named_parameters()
+                       if p.requires_grad}
+        self.mu = {n: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                   for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(p, dtype=self.nu_dtype or p.dtype)
+                   for n, p in self.params.items()}
+        self.count = 0          # updates applied
+        self.mini_step = 0      # micro-batches accumulated toward the next
+        self.acc = ({n: torch.zeros_like(p) for n, p in self.params.items()}
+                    if self.accum > 1 else None)
+
+    def lr(self, group: str, update: int) -> float:
+        """The LR of ``group`` at the 1-based ``update``."""
+        return self.lrs[group] * get_lr_ratio(update, self.horizon,
+                                              self.scheduler,
+                                              self.warmup_ratio)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """Take this micro-batch's gradients; returns whether the
+        parameters were updated (every ``accum``-th call)."""
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in self.params.items()}
+        if self.acc is not None:
+            k = self.mini_step
+            for n, g in grads.items():
+                self.acc[n].add_((g - self.acc[n]) / (k + 1))
+            if k < self.accum - 1:
+                self.mini_step += 1
+                return False
+            self.mini_step = 0
+            grads = {n: a.clone() for n, a in self.acc.items()}
+            for a in self.acc.values():
+                a.zero_()
+        if self.max_norm is not None and self.max_norm > 0:
+            norm = global_norm(grads.values())
+            if not bool(norm < self.max_norm):
+                for g in grads.values():
+                    g.copy_(g / norm.to(g.dtype) * self.max_norm)
+        self.count += 1
+        k = self.count
+        c1, c2 = 1.0 - self.b1 ** k, 1.0 - self.b2 ** k
+        for n, p in self.params.items():
+            label = self.labels[n]
+            group = label.removesuffix("_nd")
+            wd = 0.0 if label.endswith("_nd") else self.weight_decay
+            u = self._adam(n, grads[n].float(), c1, c2)
+            if wd:
+                u = u + wd * p.float()
+            p.add_((u * -self.lr(group, k)).to(p.dtype))
+        return True
+
+    def _adam(self, n, g, c1, c2):
+        b1, b2 = self.b1, self.b2
+        mu, nu = self.mu[n], self.nu[n]
+        if self.nu_dtype is not None:
+            # scale_by_adam_general: both moments rounded before use
+            mu.copy_(b1 * mu.float() + (1 - b1) * g)
+            nu.copy_(b2 * nu.float() + (1 - b2) * g * g)
+            return (mu.float() / c1) / (torch.sqrt(nu.float() / c2) + EPS)
+        # optax.scale_by_adam: b1 * mu in mu's dtype, b1 rounded to it
+        # first (JAX's weak-typed scalar); the update uses the new mu
+        # before its rounding to mu's dtype
+        m = (1 - b1) * g + mu * torch.tensor(b1, dtype=mu.dtype)
+        nu.copy_((1 - b2) * g * g + b2 * nu)
+        mu.copy_(m)
+        return (m / c1) / (torch.sqrt(nu.float() / c2) + EPS)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of all ``tensors``, in fp32."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def build_optimizer(model: nn.Module, run_cfg, model_cfg,
+                    num_train_steps: int):
+    """(optimizer, labels), as ``vast_tpu``'s ``build_optimizer``;
+    ``num_train_steps`` counts micro-batches."""
+    opt = AdamW(model, run_cfg, model_cfg, num_train_steps)
+    return opt, opt.labels
