@@ -6,11 +6,14 @@ one, run them without the JAX test settings (tests/conftest.py):
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_kernels_gpu.py
 
-The shapes cover the main path's (EVA01-g 257 x 16 x 88, BEATs 256 x 12
-x 64 with a per-sample bias, BERT's grouped rerank 320 x 2312 x 12 x 64)
-and the edges of the kernel's tiling: L of 1 and of tiles plus one, D
+The shapes cover the main paths' (EVA01-g 257 x 16 x 88, BEATs 256 x 12
+x 64 with a per-sample bias, BERT's grouped rerank 320 x 2312 x 12 x 64;
+CLIP-L/14-336's 577 x 16 x 64 read out of its packed projection, AST's
+257 x 12 x 64, and the 4873 condition tokens of the CLIP + AST rerank)
+and the edges of the kernels' tiling: L of 1 and of tiles plus one, D
 from 1 to 128, lk_true, shared and broadcast biases, strided views, and
-rows whose keys are all masked.
+rows whose keys are all masked; for the head-major kernels the lse
+forward and the backward (with and without a bias and its ds).
 """
 
 import pytest
@@ -232,3 +235,162 @@ def test_tmajor_grad_on_cuda_goes_through_the_kernels(cuda):
         fa.self_attention_tmajor(qkv.clone().requires_grad_(True), heads=h)
     launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
     assert launched == {k: int(k == "tmajor_attention_fwd") for k in before}
+
+
+HMAJOR_CASES = {
+    # name: (B, H, Lq, Lk, D, lk_true, bias kind, layout)
+    # CLIP-L/14-336's and AST's self-attention at two images / clips:
+    # q, k, v strided views of one packed projection, or of three
+    "clip_packed": (2, 16, 577, 577, 64, 0, None, "packed"),
+    "ast_token_major": (2, 12, 257, 257, 64, 0, None, "token_major"),
+    "single_query": (1, 1, 1, 1, 8, 0, None, "contiguous"),
+    "ragged_lk_true_d33": (2, 3, 100, 130, 33, 77, None, "contiguous"),
+    "mask_bias": (2, 4, 100, 120, 64, 0, "mask", "token_major"),
+    "learned_bias": (2, 3, 70, 90, 24, 0, "learned", "contiguous"),
+    # keys 70..149 masked: ds past the last 32-key tile (96..) is the
+    # wrapper's zero fill
+    "learned_bias_lk_true_d88": (2, 2, 130, 150, 88, 70, "learned",
+                                 "token_major"),
+    # the rerank's condition length (8 x 577 + 257): row 6's shapes
+    "long_keys": (1, 2, 64, 4873, 64, 0, None, "contiguous"),
+}
+
+
+def hmajor_inputs(case, dtype, cuda, gen):
+    """q, k, v, the cotangent do (in the layout the models' autograd gives
+    it) and the bias of a case."""
+    b, h, lq, lk, d, lk_true, kind, layout = HMAJOR_CASES[case]
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen).to(dtype)
+
+    if layout == "packed":
+        q, k, v = (t.transpose(1, 2) for t in randn(b, lq, 3, h, d).unbind(2))
+    elif layout == "token_major":
+        q, k, v = (randn(b, n, h, d).transpose(1, 2) for n in (lq, lk, lk))
+    else:
+        q, k, v = (randn(b, h, n, d) for n in (lq, lk, lk))
+    do = randn(b, lq, h, d).transpose(1, 2)
+    bias = None
+    if kind == "mask":
+        keep = torch.rand(b, 1, lq, lk, device=cuda, generator=gen) > 0.3
+        keep[..., 0] = True
+        bias = torch.where(keep, 0.0, -1e30)
+    elif kind == "learned":
+        bias = randn(b, h, lq, lk)
+        bias[0, 0, 3] = float("-inf")          # a row with no key at all
+    return q, k, v, do, bias, lk_true, d ** -0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(HMAJOR_CASES))
+def test_flash_lse_kernel_matches_plain(cuda, case, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, _, bias, lk_true, scale = hmajor_inputs(case, dtype, cuda, gen)
+    before = fa.LAUNCHES["flash_attention_fwd_lse"]
+    out, lse = fa.flash_attention(q, k, v, bias, scale=scale,
+                                  lk_true=lk_true, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd_lse"] == before + 1
+    ref, ref_lse = fa._flash_attention_plain(q, k, v, bias, scale=scale,
+                                             lk_true=lk_true,
+                                             return_lse=True)
+    ref = ref.float()
+    err = (out.float() - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    if dtype == torch.bfloat16:
+        # as test_flash_kernel_matches_plain
+        v_max = v.float().abs().max().item()
+        assert err <= ref_max * 2 ** -7 + v_max * 2 ** -8, (err, ref_max)
+    else:
+        assert err <= 2e-5 * max(ref_max, 1.0), (err, ref_max)
+    # the scores are fp32 sums of exact products of the same inputs on
+    # both sides: the lse differs by fp32 rounding, ~1e-6 of |lse|
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    lerr = (lse - ref_lse)[finite].abs().max().item()
+    assert lerr <= 1e-5 * max(ref_lse[finite].abs().max().item(), 1.0), lerr
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(HMAJOR_CASES))
+def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do, bias, lk_true, scale = hmajor_inputs(case, dtype, cuda, gen)
+    kw = dict(scale=scale, lk_true=lk_true)
+    o, lse = fa._flash_attention_plain(q, k, v, bias, return_lse=True, **kw)
+    with_ds = HMAJOR_CASES[case][6] == "learned"
+    key = "flash_attention_bwd" + ("_dbias" if with_ds else "")
+    before = fa.LAUNCHES[key]
+    got = fa.flash_attention_bwd(q, k, v, bias, o, lse, do,
+                                 return_dbias=with_ds, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[key] == before + 1
+    want = fa._flash_attention_bwd_plain(q, k, v, bias, o, lse, do,
+                                         return_dbias=with_ds, **kw)
+    scales = fa._flash_attention_bwd_abs_terms(q, k, v, bias, o, lse, do,
+                                               **kw)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        diff = g.float() - w.float()
+        err = diff.abs().max().item()
+        span = (w.float().abs() + scales[name]).max().item()
+        assert bool(torch.isfinite(g.float()).all()), name
+        if dtype == torch.bfloat16:
+            # as test_bwd_kernel_matches_plain
+            assert err <= 1.1 * 2 ** -8 * span, (name, err, span)
+            rms = (diff.square().mean() / w.float().square().mean()
+                   .clamp_min(1e-30)).sqrt().item()
+            assert rms <= 2 ** -6, (name, rms)
+        else:
+            # fp32 sums of <= 4873 terms in another order
+            assert err <= 5e-5 * max(span, 1e-6), (name, err, span)
+        if lk_true and name in ("dk", "dv"):
+            assert g[:, :, lk_true:].abs().max().item() == 0.0, name
+        if lk_true and name == "dbias":
+            assert g[..., lk_true:].abs().max().item() == 0.0
+
+
+def test_flash_grad_on_cuda_goes_through_the_kernels(cuda):
+    """The differentiable head-major op launches the lse forward and the
+    backward kernels and matches autograd through the plain version; a
+    mask bias gets no ds, a learned one its ds summed over the batch;
+    without a gradient it launches the forward without the lse alone."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    b, h, l, d = 2, 3, 150, 32
+    q, k, v, do = (torch.randn(b, h, l, d, device=cuda, generator=gen)
+                   for _ in range(4))
+    bias = torch.randn(1, h, l, l, device=cuda, generator=gen)
+    grads = []
+    for route in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+        before = dict(fa.LAUNCHES)
+        if route == "kernel":
+            out = fa.flash_attention(*leaves, scale=0.3)
+        else:
+            out = fa._flash_attention_plain(*leaves, scale=0.3)
+        grads.append(torch.autograd.grad(out, leaves, do))
+        launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        if route == "kernel":
+            assert launched == {k: int(k in ("flash_attention_fwd_lse",
+                                             "flash_attention_bwd_dbias"))
+                                for k in before}
+    for got, want in zip(*grads):
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 5e-5 * max(
+            want.abs().max().item(), 1.0)
+    mask = torch.zeros(b, 1, l, l, device=cuda)
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(q.clone().requires_grad_(True), k, v, mask)
+    out.backward(do)
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: int(k in ("flash_attention_fwd_lse",
+                                     "flash_attention_bwd"))
+                        for k in before}
+    before = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        fa.flash_attention(q.clone().requires_grad_(True), k, v)
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: int(k == "flash_attention_fwd") for k in before}

@@ -2,11 +2,13 @@
 
 :func:`from_jax` is the inverse of
 ``vast_tpu.convert.vast_ckpt.convert_vast_checkpoint``: it takes a
-``VASTModel`` params tree (nested dicts of numpy arrays, EVA01 + BEATs +
-BERT) and returns flat reference torch names -> numpy arrays. Dense
-kernels are transposed back to (out, in), conv kernels go from HWIO to
-OIHW, BEATs' weight-norm ``v``/``g`` back to (out, in/groups, k) /
-(1, 1, k). Load the result with ``load_state_dict``. Every mapping is a
+``VASTModel`` params tree (nested dicts of numpy arrays: EVA01 or CLIP,
+BEATs or AST, and BERT) and returns flat reference torch names -> numpy
+arrays. Dense kernels are transposed back to (out, in), conv kernels go
+from HWIO to OIHW, BEATs' weight-norm ``v``/``g`` back to (out,
+in/groups, k) / (1, 1, k), CLIP's ``in_proj`` kernel to the packed
+``in_proj_weight``, AST's tree to the reference's two modules
+``audio_embeddings`` and ``audio_encoder``. Load the result with ``load_state_dict``. Every mapping is a
 transpose, so a tree of the same structure with other contents (a
 gradient, an Adam moment, labels coded as arrays) maps the same way, to
 the same names and shapes as the port's parameters.
@@ -58,6 +60,45 @@ def _eva(out, pre, p):
         _dense(out, f"{bp}attn.proj", attn["proj"])
         _dense(out, f"{bp}mlp.fc1", blk["mlp"]["fc1"])
         _dense(out, f"{bp}mlp.fc2", blk["mlp"]["fc2"])
+        i += 1
+
+
+def _clip(out, pre, p):
+    _conv2d(out, f"{pre}conv1", p["conv1"])
+    _put(out, f"{pre}class_embedding", p["class_embedding"])
+    _put(out, f"{pre}positional_embedding", p["positional_embedding"])
+    _ln(out, f"{pre}ln_pre", p["ln_pre"])
+    _ln(out, f"{pre}ln_post", p["ln_post"])
+    i = 0
+    while f"block_{i}" in p:
+        blk, bp = p[f"block_{i}"], f"{pre}transformer.resblocks.{i}."
+        _ln(out, f"{bp}ln_1", blk["ln_1"])
+        _put(out, f"{bp}attn.in_proj_weight",
+             np.asarray(blk["in_proj"]["kernel"]).T)
+        _put(out, f"{bp}attn.in_proj_bias", blk["in_proj"]["bias"])
+        _dense(out, f"{bp}attn.out_proj", blk["out_proj"])
+        _ln(out, f"{bp}ln_2", blk["ln_2"])
+        _dense(out, f"{bp}mlp.c_fc", blk["c_fc"])
+        _dense(out, f"{bp}mlp.c_proj", blk["c_proj"])
+        i += 1
+
+
+def _ast(out, p):
+    ep, np_ = "audio_embeddings.", "audio_encoder."
+    _conv2d(out, f"{ep}first_conv", p["first_conv"])
+    _put(out, f"{ep}cls_token", p["cls_token"])
+    _put(out, f"{ep}position_embeddings.weight",
+         p["position_embeddings"]["embedding"])
+    _ln(out, f"{np_}last_layernorm", p["last_layernorm"])
+    i = 0
+    while f"layer_{i}" in p:
+        lay, lp = p[f"layer_{i}"], f"{np_}layer.{i}."
+        _ln(out, f"{lp}layernorm1", lay["ln1"])
+        for j, proj in enumerate(("q", "k", "v", "proj")):
+            _dense(out, f"{lp}attention.linears.{j}", lay[proj])
+        _ln(out, f"{lp}layernorm2", lay["ln2"])
+        _dense(out, f"{lp}ff_layer.linear1", lay["fc1"])
+        _dense(out, f"{lp}ff_layer.linear2", lay["fc2"])
         i += 1
 
 
@@ -123,8 +164,15 @@ def _bert_mlm(out, pre, p):
 def from_jax(params) -> dict[str, np.ndarray]:
     """``vast_tpu`` VASTModel params -> reference torch state dict (numpy)."""
     out: dict[str, np.ndarray] = {}
-    _eva(out, "vision_encoder.visual.", params["vision_encoder"])
-    _beats(out, "audio_encoder.", params["audio_encoder"])
+    vision, audio = params["vision_encoder"], params["audio_encoder"]
+    if "conv1" in vision:
+        _clip(out, "vision_encoder.visual.", vision)
+    else:
+        _eva(out, "vision_encoder.visual.", vision)
+    if "first_conv" in audio:
+        _ast(out, audio)
+    else:
+        _beats(out, "audio_encoder.", audio)
     _bert_mlm(out, "multimodal_encoder.", params["multimodal_encoder"])
     _put(out, "contra_temp", params["contra_temp"])
     _dense(out, "itm_head.linear1", params["itm_head"]["linear1"])

@@ -5,13 +5,17 @@
 //   _tmajor_fwd_kernel_bias  (:789, the same with an additive score bias)
 //   _single_kernel_nolse     (:87, wrapper flash_attention :156; the
 //                             head-major forward without the lse output)
-//   _tmajor_bwd_kernel       (:795, wrapper self_attention_tmajor_bwd :898)
-//   _tmajor_bwd_kernel_bias  (:841); the backward is described at its
-//                             kernels below
-// One forward kernel body serves the first three: it reads q, k, v, the output and the
+//   _single_kernel           (:52, the same with the lse output)
+//   _looped_kernel_nolse / _looped_kernel (:137 / :94, the same at
+//                             Lk > 4096: every Lk streams alike here)
+//   the backward kernels, listed and described at their kernels below:
+//   _tmajor_bwd_kernel(_bias) (:795, :841) and flash_attention_bwd's
+//   fused and tiled kernels (:321, :363, :372, :413, :451)
+// One forward kernel body serves every forward: it reads q, k, v, the output and the
 // bias through (batch, head, row) element strides, so the token-major fused
 // qkv layout and the head-major layout differ only in the strides the two
-// C entry points at the end of this file pass.
+// C entry points pass; one backward body serves every backward the same
+// way.
 //
 // Contract. Per (batch b, head h):
 //   s = (q . k^T) * scale  [+ bias[b, h]]   in fp32,
@@ -20,7 +24,9 @@
 // (EVA01-g 88, BEATs and BERT 64). The bias is read through its own strides
 // (a stride of 0 reads one shared (Lq, Lk) plane, never broadcast in
 // memory), in the input type or in fp32. A row whose scores are all -inf
-// gives zeros, as the Pallas kernel's l == 0 guard does.
+// gives zeros, as the Pallas kernel's l == 0 guard does. On request the
+// head-major forward also writes each row's lse = m + log(l), the
+// backward's residual (+inf for such a row, so that its p is 0).
 //
 // What bounds it on an H100: at EVA's shape (B 64, L 257, H 16, D 88) the
 // arithmetic intensity is about L/2 = 128 FLOP per byte of qkv, below the
@@ -61,6 +67,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -76,10 +83,18 @@ struct Params {
   const void* in[3];      // q, k, v
   void* out;
   const void* bias;       // null: no bias
+  float* lse;             // null: none; else (B, heads, lq) fp32, contiguous
   long long st[5][3];     // element strides (batch, head, row) by Operand
-  int lq, kend, d;
+  int lq, kend, d, heads;
   float scale;
 };
+
+// the logsumexp of a row's scaled, biased and masked scores from its max m
+// and its sum l of exp(s - m); +inf for a row with no finite score, so
+// that exp(s - lse) is 0 there and not NaN
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : INFINITY;
+}
 
 struct NoBias {};
 
@@ -362,6 +377,11 @@ attention_fwd_mma_kernel(const Params p, bool vec) {
   // a row with no finite score has l == 0 and gives zeros
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (p.lse && t == 0) {
+    float* lse_bh = p.lse + ((long long)b * p.heads + h) * lq;
+    if (row0 < lq) lse_bh[row0] = row_lse(m0, l0);
+    if (row1 < lq) lse_bh[row1] = row_lse(m1, l1);
+  }
   auto* og = plane<__nv_bfloat16>(p.out, p.st[kO][0], p.st[kO][1], b, h);
   const long long o_rs = p.st[kO][2];
 #pragma unroll
@@ -552,6 +572,8 @@ attention_fwd_fp32_kernel(const Params p) {
     const int q = q0 + warp * kRowsPerWarp + r;
     if (q >= lq) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    if (p.lse && lane == 0)
+      p.lse[((long long)b * p.heads + h) * lq + q] = row_lse(m[r], l[r]);
     float* orow = og + (long long)q * p.st[kO][2];
 #pragma unroll
     for (int c = 0; c < kDimsPerLane; ++c) {
@@ -578,61 +600,84 @@ cudaError_t launch_fp32(const Params& p, int B, int H, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------
-// Backward of the token-major kernel: dqkv (and ds) from (qkv, o, do)
+// Backward: dq, dk, dv (and ds) from (q, k, v, o, do)
 // ---------------------------------------------------------------------
 //
-// Replaces _tmajor_bwd_kernel (vast_tpu/ops/flash_attention.py:795) and
-// _tmajor_bwd_kernel_bias (:841), wrapper self_attention_tmajor_bwd
-// (:898). Per (batch b, head h), in fp32 from the inputs:
-//   s = (q . k^T) * scale [+ bias], keys >= kend masked, p = softmax(s)
+// Replaces these Pallas kernels of vast_tpu/ops/flash_attention.py:
+//   _tmajor_bwd_kernel       (:795, wrapper self_attention_tmajor_bwd :898)
+//   _tmajor_bwd_kernel_bias  (:841)
+//   _bwd_fused_kernel_nods / _bwd_fused_kernel (:363 / :321, wrapper
+//                            flash_attention_bwd :462, lq <= 512)
+//   _bwd_dkv_kernel          (:372, flash_attention_bwd's tiled route)
+//   _bwd_dq_kernel_nods / _bwd_dq_kernel (:451 / :413, the same route)
+// Per (batch b, head h), in fp32 from the inputs:
+//   s = (q . k^T) * scale [+ bias], keys >= kend masked, p = exp(s - lse)
 //   delta = rowsum(do . o),   ds = p * (do . v^T - delta)
 //   dv = p^T . do,   dk = ds^T . q * scale,   dq = ds . k * scale
 // ds is the cotangent of the score before the scale, so with a bias it is
-// also the bias's (dbias, written in the bias type, full batch: a shared
-// bias is summed over the batch by the caller).
+// also the bias's (dbias, written when asked for; a broadcast bias is
+// summed over its broadcast axes by the caller). Keys >= kend get zero
+// gradients. Every operand is read and written through (batch, head, row)
+// strides, as in the forward, so one body serves both layouts: the
+// token-major fused qkv (rows 3-4) and head-major q, k, v of any strides
+// (rows 7-9; CLIP's packed in_proj output is read as it is).
 //
-// What bounds it on an H100: five L x L x D products per (b, h), 10 L^2 D
-// FLOP, against qkv + o + do read and dqkv written: about L/3 FLOP per
-// byte at EVA's shape (L 257), below the bf16 ridge, so bytes set the
-// floor, as for the forward. What the design does about it: the Pallas
-// kernel held whole L x L score tiles per head in VMEM; here no score
-// reaches device memory (except ds as dbias, which is an output). An
-// FA2-style split into two kernels, with no atomics, so the gradients are
-// deterministic:
+// lse: the head-major forward saves it (its lse output), so the backward
+// reads it; the token-major forward saves only its output, as vast_tpu's
+// does, so there the dQ kernel first sweeps the keys once for the row max
+// and sum. A row with no finite score has lse = +inf and so p = 0.
+//
+// What bounds it on an H100: five Lq x Lk x D products per (b, h), 10 Lq
+// Lk D FLOP, against q, k, v, o, do read and dq, dk, dv written: about L/3
+// FLOP per byte at L = 257 and L/2.6 at CLIP's 577, below the bf16 ridge
+// (~295), so bytes set the floor. What the design does about it: the
+// Pallas kernels hold whole score tiles per head in VMEM (fused) or
+// 512 x 512 tiles (tiled); here no score reaches device memory (except ds
+// as dbias, which is an output). The VMEM choice between the fused and
+// tiled routes has no counterpart: one FA2-style split into two kernels,
+// with no atomics, so the gradients are deterministic:
 // * dQ: one block per (query tile of 64, head, batch). It computes delta
-//   for its rows from o and do, sweeps the keys once for the row max and
-//   sum (the lse, kept in registers), then once more for p, dp, ds and
-//   dq, writing ds into dbias (each (row, key) is seen once here). It
-//   stores lse and delta, (B, H, L) fp32 scratch, for the second kernel.
+//   for its rows from o and do (and, with no saved lse, sweeps the keys
+//   for the row max and sum), then sweeps the keys for p, dp, ds and dq,
+//   writing ds into dbias (each (row, key) is seen once here). It stores
+//   delta (and a computed lse), (B, H, Lq) fp32, for the second kernel.
 // * dK/dV: one block per (key tile of 64, head, batch), looping over the
-//   query tiles, recomputing p from the stored lse; dk and dv accumulate
-//   in registers.
-// So the forward saves nothing beyond its output, as in vast_tpu; with s
-// and dp recomputed in both kernels and s once more for the lse, that is
-// eight L x L x D products (16 L^2 D FLOP) where five would do.
+//   query tiles, recomputing p from the lse; dk and dv accumulate in
+//   registers.
+// s and dp are recomputed in both kernels: seven Lq x Lk x D products
+// (eight with the lse sweep) where five would do.
 // bf16: mma.sync m16n8k16 with fp32 accumulators, 4 warps x 16 rows,
 // streamed tiles of 32 rows, D padded to DP in shared memory only, loads
 // masked at L, kend and D as in the forward. p and ds are rounded to bf16
-// as the A operands of their products, as the Pallas kernel casts them.
+// as the A operands of their products, as the Pallas kernels cast them.
 // fp32: CUDA cores, one lane per streamed row, as the fp32 forward.
 
 constexpr int kBwdWarps = 4;
 constexpr int kBwdRows = 16 * kBwdWarps;  // rows a block owns (64)
 constexpr int kBwdInner = 32;             // rows of a streamed tile
 
+// operands of the backward, and the rows of BwdParams::st
+enum BwdOperand { bQ, bK, bV, bO, bDO, bDQ, bDK, bDV, bBias, bDBias,
+                  kBwdOperands };
+
 struct BwdParams {
-  const void* qkv;      // (B, L, H*3*D), each head's [q | k | v]
-  const void* o;        // (B, L, H*D)
-  const void* dout;     // (B, L, H*D)
-  const void* bias;     // (B or 1, H, L, L) or null
-  void* dqkv;           // as qkv
-  void* dbias;          // (B, H, L, L) or null
-  float* lse;           // (B, H, L) scratch: written by dQ, read by dK/dV
-  float* delta;         // (B, H, L) scratch, likewise
-  long long bias_bs;    // batch stride of the bias (0: shared)
-  int B, L, H, D, kend;
+  const void* in[5];      // q, k, v, o, do (by BwdOperand)
+  void* grad[3];          // dq, dk, dv
+  const void* bias;       // null: no bias
+  void* dbias;            // (B, H, Lq, Lk) ds; null: not written
+  float* lse;             // (B, H, Lq): read if lse_given, else written by dQ
+  float* delta;           // (B, H, Lq) scratch: written by dQ, read by dK/dV
+  long long st[kBwdOperands][3];  // element strides (batch, head, row)
+  int B, H, lq, lk, D, kend;
   float scale;
+  bool lse_given;
 };
+
+template <typename T>
+__device__ __forceinline__ T* bwd_plane(const BwdParams& p, int op,
+                                        const void* base, int b, int h) {
+  return plane<T>(base, p.st[op][0], p.st[op][1], b, h);
+}
 
 template <int DP>
 struct BwdSmem {
@@ -719,40 +764,9 @@ __device__ __forceinline__ void to_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// the planes of head h of batch row b: q (k at +D, v at +2D) in qkv, and
-// the (B, L, H*D) o / do
-template <typename T>
-struct BwdPlanes {
-  const T* q;
-  const T* o;
-  const T* dout;
-  T* dq;
-  long long rs3, rs1;   // row strides of qkv and of o
-  __device__ BwdPlanes(const BwdParams& p, int b, int h) {
-    rs3 = 3LL * p.H * p.D;
-    rs1 = (long long)p.H * p.D;
-    q = static_cast<const T*>(p.qkv) + b * p.L * rs3 + 3LL * h * p.D;
-    dq = static_cast<T*>(p.dqkv) + b * p.L * rs3 + 3LL * h * p.D;
-    o = static_cast<const T*>(p.o) + b * p.L * rs1 + (long long)h * p.D;
-    dout = static_cast<const T*>(p.dout) + b * p.L * rs1 + (long long)h * p.D;
-  }
-};
-
-template <typename BiasT>
-__device__ __forceinline__ const BiasT* bias_plane(const BwdParams& p, int b,
-                                                   int h) {
-  return static_cast<const BiasT*>(p.bias) + b * p.bias_bs +
-         (long long)h * p.L * p.L;
-}
-
-template <typename BiasT>
-__device__ __forceinline__ BiasT* dbias_plane(const BwdParams& p, int b,
-                                              int h) {
-  return static_cast<BiasT*>(p.dbias) +
-         ((long long)b * p.H + h) * p.L * p.L;
-}
-
-template <int DP, typename BiasT>
+// BiasT: the bias's type (NoBias: none). DsT: the type ds is written in
+// as dbias (NoBias: not written).
+template <int DP, typename BiasT, typename DsT>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 attention_bwd_dq_mma_kernel(const BwdParams p, bool vec) {
   using bf16 = __nv_bfloat16;
@@ -767,19 +781,23 @@ attention_bwd_dq_mma_kernel(const BwdParams p, bool vec) {
   const int q0 = blockIdx.x * kBwdRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int L = p.L, D = p.D, kend = p.kend;
-  const BwdPlanes<bf16> pl(p, b, h);
-  const bf16* kg = pl.q + D;
-  const bf16* vg = pl.q + 2 * D;
+  const int lq = p.lq, lk = p.lk, D = p.D, kend = p.kend;
+  const bf16* qg = bwd_plane<const bf16>(p, bQ, p.in[bQ], b, h);
+  const bf16* kg = bwd_plane<const bf16>(p, bK, p.in[bK], b, h);
+  const bf16* vg = bwd_plane<const bf16>(p, bV, p.in[bV], b, h);
+  const bf16* og = bwd_plane<const bf16>(p, bO, p.in[bO], b, h);
+  const bf16* dog = bwd_plane<const bf16>(p, bDO, p.in[bDO], b, h);
+  const long long k_rs = p.st[bK][2], v_rs = p.st[bV][2];
+  const long long o_rs = p.st[bO][2], do_rs = p.st[bDO][2];
 
-  load_tile<kBwdRows, DP>(qs, pl.q, pl.rs3, q0, L, D, vec);
-  load_tile<kBwdRows, DP>(dos, pl.dout, pl.rs1, q0, L, D, vec);
+  load_tile<kBwdRows, DP>(qs, qg, p.st[bQ][2], q0, lq, D, vec);
+  load_tile<kBwdRows, DP>(dos, dog, do_rs, q0, lq, D, vec);
   cp_async_commit();
 
   const int wr = warp * 16;
-  const bool active = q0 + wr < L;
+  const bool active = q0 + wr < lq;
   const int row0 = q0 + wr + g, row1 = row0 + 8;
-  const long long stat0 = ((long long)b * p.H + h) * L;
+  const long long stat0 = ((long long)b * p.H + h) * lq;
 
   // delta of the warp's 16 rows, from do and o in device memory
   float delta0 = 0.f, delta1 = 0.f;
@@ -787,22 +805,28 @@ attention_bwd_dq_mma_kernel(const BwdParams p, bool vec) {
     for (int r = 0; r < 16; ++r) {
       const int row = q0 + wr + r;
       float acc = 0.f;
-      if (row < L)
+      if (row < lq)
         for (int d = lane; d < D; d += 32)
-          acc += __bfloat162float(pl.dout[row * pl.rs1 + d]) *
-                 __bfloat162float(pl.o[row * pl.rs1 + d]);
+          acc += __bfloat162float(dog[row * do_rs + d]) *
+                 __bfloat162float(og[row * o_rs + d]);
       acc = warp_sum(acc);
       if (r == g) delta0 = acc;
       if (r == g + 8) delta1 = acc;
-      if (lane == 0 && row < L) p.delta[stat0 + row] = acc;
+      if (lane == 0 && row < lq) p.delta[stat0 + row] = acc;
     }
   }
 
   const BiasT* bias_bh = nullptr;
-  BiasT* dbias_bh = nullptr;
+  long long bias_rs = 0;
   if constexpr (kHasBias<BiasT>) {
-    bias_bh = bias_plane<BiasT>(p, b, h);
-    dbias_bh = dbias_plane<BiasT>(p, b, h);
+    bias_bh = bwd_plane<const BiasT>(p, bBias, p.bias, b, h);
+    bias_rs = p.st[bBias][2];
+  }
+  DsT* dbias_bh = nullptr;
+  long long dbias_rs = 0;
+  if constexpr (kHasBias<DsT>) {
+    dbias_bh = bwd_plane<DsT>(p, bDBias, p.dbias, b, h);
+    dbias_rs = p.st[bDBias][2];
   }
   // scaled, biased and masked scores of a tile of keys from k0
   auto scores = [&](float s[kNT][4], int k0) {
@@ -817,62 +841,67 @@ attention_bwd_dq_mma_kernel(const BwdParams p, bool vec) {
         const int row = i < 2 ? row0 : row1;
         float x = s[n][i] * p.scale;
         if constexpr (kHasBias<BiasT>) {
-          if (key < kend && row < L)
-            x += to_float(bias_bh[(long long)row * L + key]);
+          if (key < kend && row < lq)
+            x += to_float(bias_bh[(long long)row * bias_rs + key]);
         }
         s[n][i] = key < kend ? x : -INFINITY;
       }
     }
   };
 
-  // sweep 1: the row max and sum, hence the lse
   const int n_tiles = (kend + kBwdInner - 1) / kBwdInner;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kBwdInner;
-    __syncthreads();                  // the previous tile is consumed
-    load_tile<kBwdInner, DP>(ks, kg, pl.rs3, k0, kend, D, vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (!active) continue;
-    float s[kNT][4];
-    scores(s, k0);
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+  float lse0, lse1;
+  if (p.lse_given) {
+    lse0 = row0 < lq ? p.lse[stat0 + row0] : INFINITY;
+    lse1 = row1 < lq ? p.lse[stat0 + row1] : INFINITY;
+  } else {
+    // sweep 1: the row max and sum, hence the lse
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * kBwdInner;
+      __syncthreads();                // the previous tile is consumed
+      load_tile<kBwdInner, DP>(ks, kg, k_rs, k0, kend, D, vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (!active) continue;
+      float s[kNT][4];
+      scores(s, k0);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      for (int n = 0; n < kNT; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float e0 = exp_ref(mn0), e1 = exp_ref(mn1);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        sum0 += expf(s[n][0] - e0) + expf(s[n][1] - e0);
+        sum1 += expf(s[n][2] - e1) + expf(s[n][3] - e1);
+      }
+      l0 = l0 * expf(m0 - e0) + sum0;
+      l1 = l1 * expf(m1 - e1) + sum1;
+      m0 = mn0;
+      m1 = mn1;
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
+      l0 += __shfl_xor_sync(kFull, l0, off);
+      l1 += __shfl_xor_sync(kFull, l1, off);
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float e0 = exp_ref(mn0), e1 = exp_ref(mn1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      sum0 += expf(s[n][0] - e0) + expf(s[n][1] - e0);
-      sum1 += expf(s[n][2] - e1) + expf(s[n][3] - e1);
+    lse0 = row_lse(m0, l0);
+    lse1 = row_lse(m1, l1);
+    if (active && t == 0) {
+      if (row0 < lq) p.lse[stat0 + row0] = lse0;
+      if (row1 < lq) p.lse[stat0 + row1] = lse1;
     }
-    l0 = l0 * expf(m0 - e0) + sum0;
-    l1 = l1 * expf(m1 - e1) + sum1;
-    m0 = mn0;
-    m1 = mn1;
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(kFull, l0, off);
-    l1 += __shfl_xor_sync(kFull, l1, off);
-  }
-  // a row with no finite score gets lse = +inf, so its p is 0
-  const float lse0 = l0 > 0.f ? exp_ref(m0) + logf(l0) : INFINITY;
-  const float lse1 = l1 > 0.f ? exp_ref(m1) + logf(l1) : INFINITY;
-  if (active && t == 0) {
-    if (row0 < L) p.lse[stat0 + row0] = lse0;
-    if (row1 < L) p.lse[stat0 + row1] = lse1;
   }
 
   // sweep 2: p, dp = do . v^T, ds, dq += ds . k
@@ -882,8 +911,8 @@ attention_bwd_dq_mma_kernel(const BwdParams p, bool vec) {
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * kBwdInner;
     __syncthreads();
-    load_tile<kBwdInner, DP>(ks, kg, pl.rs3, k0, kend, D, vec);
-    load_tile<kBwdInner, DP>(vs, vg, pl.rs3, k0, kend, D, vec);
+    load_tile<kBwdInner, DP>(ks, kg, k_rs, k0, kend, D, vec);
+    load_tile<kBwdInner, DP>(vs, vg, v_rs, k0, kend, D, vec);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -901,16 +930,18 @@ attention_bwd_dq_mma_kernel(const BwdParams p, bool vec) {
         const int row = i < 2 ? row0 : row1;
         const float pr = expf(s[n][i] - (i < 2 ? lse0 : lse1));
         const float ds = pr * (dpv[n][i] - (i < 2 ? delta0 : delta1));
-        if constexpr (kHasBias<BiasT>) {
-          if (row < L && key < L)
-            to_out(dbias_bh + (long long)row * L + key, ds);
+        if constexpr (kHasBias<DsT>) {
+          if (row < lq && key < lk)
+            to_out(dbias_bh + (long long)row * dbias_rs + key, ds);
         }
         s[n][i] = ds;
       }
     }
     mma_cy<DP, kNT>(dq, s, ks, lane);
   }
-  if (active) store_acc<DP>(pl.dq, pl.rs3, dq, row0, L, D, p.scale, t);
+  if (active)
+    store_acc<DP>(bwd_plane<bf16>(p, bDQ, p.grad[0], b, h), p.st[bDQ][2],
+                  dq, row0, lq, D, p.scale, t);
 }
 
 template <int DP, typename BiasT>
@@ -930,20 +961,28 @@ attention_bwd_dkv_mma_kernel(const BwdParams p, bool vec) {
   const int k0 = blockIdx.x * kBwdRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int L = p.L, D = p.D, kend = p.kend;
-  const BwdPlanes<bf16> pl(p, b, h);
-  const long long stat0 = ((long long)b * p.H + h) * L;
+  const int lq = p.lq, lk = p.lk, D = p.D, kend = p.kend;
+  const bf16* qg = bwd_plane<const bf16>(p, bQ, p.in[bQ], b, h);
+  const bf16* dog = bwd_plane<const bf16>(p, bDO, p.in[bDO], b, h);
+  const long long q_rs = p.st[bQ][2], do_rs = p.st[bDO][2];
+  const long long stat0 = ((long long)b * p.H + h) * lq;
 
-  load_tile<kBwdRows, DP>(ks, pl.q + D, pl.rs3, k0, kend, D, vec);
-  load_tile<kBwdRows, DP>(vs, pl.q + 2 * D, pl.rs3, k0, kend, D, vec);
+  load_tile<kBwdRows, DP>(ks, bwd_plane<const bf16>(p, bK, p.in[bK], b, h),
+                          p.st[bK][2], k0, kend, D, vec);
+  load_tile<kBwdRows, DP>(vs, bwd_plane<const bf16>(p, bV, p.in[bV], b, h),
+                          p.st[bV][2], k0, kend, D, vec);
   cp_async_commit();
 
   const int wr = warp * 16;
-  // keys in [kend, L) get dk = dv = 0 (their p is 0), so they are stored
-  const bool active = k0 + wr < L;
+  // keys in [kend, lk) get dk = dv = 0 (their p is 0), so they are stored
+  const bool active = k0 + wr < lk;
   const int key0 = k0 + wr + g, key1 = key0 + 8;
   const BiasT* bias_bh = nullptr;
-  if constexpr (kHasBias<BiasT>) bias_bh = bias_plane<BiasT>(p, b, h);
+  long long bias_rs = 0;
+  if constexpr (kHasBias<BiasT>) {
+    bias_bh = bwd_plane<const BiasT>(p, bBias, p.bias, b, h);
+    bias_rs = p.st[bBias][2];
+  }
 
   float dk[DP / 8][4], dv[DP / 8][4];
 #pragma unroll
@@ -951,17 +990,17 @@ attention_bwd_dkv_mma_kernel(const BwdParams p, bool vec) {
     dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
     dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
   }
-  const int n_tiles = (L + kBwdInner - 1) / kBwdInner;
+  const int n_tiles = (lq + kBwdInner - 1) / kBwdInner;
   for (int it = 0; it < n_tiles; ++it) {
     const int q0 = it * kBwdInner;
     __syncthreads();
-    load_tile<kBwdInner, DP>(qs, pl.q, pl.rs3, q0, L, D, vec);
-    load_tile<kBwdInner, DP>(dos, pl.dout, pl.rs1, q0, L, D, vec);
+    load_tile<kBwdInner, DP>(qs, qg, q_rs, q0, lq, D, vec);
+    load_tile<kBwdInner, DP>(dos, dog, do_rs, q0, lq, D, vec);
     cp_async_commit();
     for (int i = threadIdx.x; i < kBwdInner; i += blockDim.x) {
       const int q = q0 + i;
-      lse_s[i] = q < L ? p.lse[stat0 + q] : INFINITY;
-      delta_s[i] = q < L ? p.delta[stat0 + q] : 0.f;
+      lse_s[i] = q < lq ? p.lse[stat0 + q] : INFINITY;
+      delta_s[i] = q < lq ? p.delta[stat0 + q] : 0.f;
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -983,10 +1022,10 @@ attention_bwd_dkv_mma_kernel(const BwdParams p, bool vec) {
         const int q = q0 + qi;
         const int key = i < 2 ? key0 : key1;
         float pr = 0.f;
-        if (key < kend && q < L) {
+        if (key < kend && q < lq) {
           float x = st[n][i] * p.scale;
           if constexpr (kHasBias<BiasT>)
-            x += to_float(bias_bh[(long long)q * L + key]);
+            x += to_float(bias_bh[(long long)q * bias_rs + key]);
           pr = expf(x - lse_s[qi]);
         }
         st[n][i] = pr;
@@ -997,42 +1036,58 @@ attention_bwd_dkv_mma_kernel(const BwdParams p, bool vec) {
     mma_cy<DP, kNT>(dk, dpt, qs, lane);
   }
   if (active) {
-    store_acc<DP>(pl.dq + D, pl.rs3, dk, key0, L, D, p.scale, t);
-    store_acc<DP>(pl.dq + 2 * D, pl.rs3, dv, key0, L, D, 1.f, t);
+    store_acc<DP>(bwd_plane<bf16>(p, bDK, p.grad[1], b, h), p.st[bDK][2],
+                  dk, key0, lk, D, p.scale, t);
+    store_acc<DP>(bwd_plane<bf16>(p, bDV, p.grad[2], b, h), p.st[bDV][2],
+                  dv, key0, lk, D, 1.f, t);
   }
 }
 
-template <int DP, typename BiasT>
-cudaError_t launch_bwd_mma(const BwdParams& p, cudaStream_t stream) {
-  bool vec = p.D % 8 == 0;
-  const void* const bases[3] = {p.qkv, p.o, p.dout};
-  for (const void* ptr : bases)
-    vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  const size_t smem = BwdSmem<DP>::kBytes;
-  auto dq_kern = attention_bwd_dq_mma_kernel<DP, BiasT>;
-  auto dkv_kern = attention_bwd_dkv_mma_kernel<DP, BiasT>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          dkv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((p.L + kBwdRows - 1) / kBwdRows, p.H, p.B);
-  dq_kern<<<grid, kBwdWarps * 32, smem, stream>>>(p, vec);
-  cudaError_t err = cudaGetLastError();
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// dQ over the query tiles, then dK/dV over the key tiles, both of
+// `threads` threads with `smem` bytes; returns the first error
+template <typename DqKernel, typename DkvKernel, typename... Args>
+cudaError_t launch_bwd_pair(const BwdParams& p, DqKernel dq_kern,
+                            DkvKernel dkv_kern, int rows, int threads,
+                            size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(dq_kern, smem);
+  if (err == cudaSuccess) err = allow_smem(dkv_kern, smem);
   if (err != cudaSuccess) return err;
-  dkv_kern<<<grid, kBwdWarps * 32, smem, stream>>>(p, vec);
+  dq_kern<<<dim3((p.lq + rows - 1) / rows, p.H, p.B), threads, smem,
+            stream>>>(p, args...);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_kern<<<dim3((p.lk + rows - 1) / rows, p.H, p.B), threads, smem,
+             stream>>>(p, args...);
   return cudaGetLastError();
 }
 
-template <typename BiasT>
+template <int DP, typename BiasT, typename DsT>
+cudaError_t launch_bwd_mma(const BwdParams& p, cudaStream_t stream) {
+  // 16-byte copies need D, every stride of the tiled operands and their
+  // bases to be multiples of 8 elements (16 bytes)
+  bool vec = p.D % 8 == 0;
+  for (int o : {bQ, bK, bV, bDO}) {
+    vec = vec && reinterpret_cast<uintptr_t>(p.in[o]) % 16 == 0;
+    for (int j = 0; j < 3; ++j) vec = vec && p.st[o][j] % 8 == 0;
+  }
+  return launch_bwd_pair(p, attention_bwd_dq_mma_kernel<DP, BiasT, DsT>,
+                         attention_bwd_dkv_mma_kernel<DP, BiasT>, kBwdRows,
+                         kBwdWarps * 32, BwdSmem<DP>::kBytes, stream, vec);
+}
+
+template <typename BiasT, typename DsT>
 cudaError_t dispatch_bwd_mma(const BwdParams& p, cudaStream_t s) {
   switch ((p.D + 15) / 16) {
 #define VAST_BWD_CASE(N) \
   case N:                \
-    return launch_bwd_mma<16 * N, BiasT>(p, s);
+    return launch_bwd_mma<16 * N, BiasT, DsT>(p, s);
     VAST_BWD_CASE(1) VAST_BWD_CASE(2) VAST_BWD_CASE(3)
     VAST_BWD_CASE(4) VAST_BWD_CASE(5) VAST_BWD_CASE(6)
     VAST_BWD_CASE(7) VAST_BWD_CASE(8)
@@ -1048,10 +1103,10 @@ cudaError_t dispatch_bwd_mma(const BwdParams& p, cudaStream_t s) {
 
 constexpr int kF32BwdRows = kRowsPerWarp * kWarps;   // 64
 
-template <typename BiasT>
+template <typename BiasT, typename DsT>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_dq_fp32_kernel(const BwdParams p) {
-  const int D = p.D, L = p.L, kend = p.kend;
+  const int D = p.D, lq = p.lq, lk = p.lk, kend = p.kend;
   extern __shared__ float smem[];
   float* qs = smem;                          // [64][D]
   float* dos = qs + kF32BwdRows * D;         // [64][D]
@@ -1060,37 +1115,45 @@ attention_bwd_dq_fp32_kernel(const BwdParams p) {
 
   const int q0 = blockIdx.x * kF32BwdRows, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const BwdPlanes<float> pl(p, b, h);
-  const float* kg = pl.q + D;
-  const float* vg = pl.q + 2 * D;
-  const long long stat0 = ((long long)b * p.H + h) * L;
+  const float* qg = bwd_plane<const float>(p, bQ, p.in[bQ], b, h);
+  const float* kg = bwd_plane<const float>(p, bK, p.in[bK], b, h);
+  const float* vg = bwd_plane<const float>(p, bV, p.in[bV], b, h);
+  const float* og = bwd_plane<const float>(p, bO, p.in[bO], b, h);
+  const float* dog = bwd_plane<const float>(p, bDO, p.in[bDO], b, h);
+  const long long q_rs = p.st[bQ][2], k_rs = p.st[bK][2], v_rs = p.st[bV][2];
+  const long long o_rs = p.st[bO][2], do_rs = p.st[bDO][2];
+  const long long stat0 = ((long long)b * p.H + h) * lq;
 
   for (int i = tid; i < kF32BwdRows * D; i += blockDim.x) {
     const int r = i / D, d = i - r * D, q = q0 + r;
-    qs[i] = q < L ? pl.q[q * pl.rs3 + d] : 0.f;
-    dos[i] = q < L ? pl.dout[q * pl.rs1 + d] : 0.f;
+    qs[i] = q < lq ? qg[q * q_rs + d] : 0.f;
+    dos[i] = q < lq ? dog[q * do_rs + d] : 0.f;
   }
   __syncthreads();
   const int wr = warp * kRowsPerWarp;
   const float* qw = qs + wr * D;
   const float* dow = dos + wr * D;
-  float delta[kRowsPerWarp], m[kRowsPerWarp], l[kRowsPerWarp];
+  float delta[kRowsPerWarp], lse[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int q = q0 + wr + r;
     float acc = 0.f;
-    if (q < L)
-      for (int d = lane; d < D; d += 32) acc += dow[r * D + d] * pl.o[q * pl.rs1 + d];
+    if (q < lq)
+      for (int d = lane; d < D; d += 32) acc += dow[r * D + d] * og[q * o_rs + d];
     delta[r] = warp_sum(acc);
-    if (lane == 0 && q < L) p.delta[stat0 + q] = delta[r];
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+    if (lane == 0 && q < lq) p.delta[stat0 + q] = delta[r];
   }
   const BiasT* bias_bh = nullptr;
-  BiasT* dbias_bh = nullptr;
+  long long bias_rs = 0;
   if constexpr (kHasBias<BiasT>) {
-    bias_bh = bias_plane<BiasT>(p, b, h);
-    dbias_bh = dbias_plane<BiasT>(p, b, h);
+    bias_bh = bwd_plane<const BiasT>(p, bBias, p.bias, b, h);
+    bias_rs = p.st[bBias][2];
+  }
+  DsT* dbias_bh = nullptr;
+  long long dbias_rs = 0;
+  if constexpr (kHasBias<DsT>) {
+    dbias_bh = bwd_plane<DsT>(p, bDBias, p.dbias, b, h);
+    dbias_rs = p.st[bDBias][2];
   }
   auto score = [&](const float* kr, int r, int key) {
     float s = 0.f;
@@ -1098,35 +1161,48 @@ attention_bwd_dq_fp32_kernel(const BwdParams p) {
     float x = s * p.scale;
     const int q = q0 + wr + r;
     if constexpr (kHasBias<BiasT>) {
-      if (key < kend && q < L) x += to_float(bias_bh[(long long)q * L + key]);
+      if (key < kend && q < lq) x += to_float(bias_bh[(long long)q * bias_rs + key]);
     }
     return key < kend ? x : -INFINITY;
   };
 
-  // sweep 1: row max and sum
-  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
-    __syncthreads();
-    for (int i = tid; i < kBlockK * D; i += blockDim.x) {
-      const int j = i / D, d = i - j * D, key = k0 + j;
-      ks[j * (D + 1) + d] = key < kend ? kg[key * pl.rs3 + d] : 0.f;
-    }
-    __syncthreads();
-    const int key = k0 + lane;
+  if (p.lse_given) {
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float x = score(ks + lane * (D + 1), r, key);
-      const float m_new = fmaxf(m[r], warp_max(x));
-      const float e = exp_ref(m_new);
-      l[r] = l[r] * expf(m[r] - e) + warp_sum(expf(x - e));
-      m[r] = m_new;
+      const int q = q0 + wr + r;
+      lse[r] = q < lq ? p.lse[stat0 + q] : INFINITY;
     }
-  }
-  float lse[kRowsPerWarp];
+  } else {
+    // sweep 1: row max and sum
+    float m[kRowsPerWarp], l[kRowsPerWarp];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    lse[r] = l[r] > 0.f ? exp_ref(m[r]) + logf(l[r]) : INFINITY;
-    const int q = q0 + wr + r;
-    if (lane == 0 && q < L) p.lse[stat0 + q] = lse[r];
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+    }
+    for (int k0 = 0; k0 < kend; k0 += kBlockK) {
+      __syncthreads();
+      for (int i = tid; i < kBlockK * D; i += blockDim.x) {
+        const int j = i / D, d = i - j * D, key = k0 + j;
+        ks[j * (D + 1) + d] = key < kend ? kg[key * k_rs + d] : 0.f;
+      }
+      __syncthreads();
+      const int key = k0 + lane;
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float x = score(ks + lane * (D + 1), r, key);
+        const float m_new = fmaxf(m[r], warp_max(x));
+        const float e = exp_ref(m_new);
+        l[r] = l[r] * expf(m[r] - e) + warp_sum(expf(x - e));
+        m[r] = m_new;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      lse[r] = row_lse(m[r], l[r]);
+      const int q = q0 + wr + r;
+      if (lane == 0 && q < lq) p.lse[stat0 + q] = lse[r];
+    }
   }
 
   // sweep 2: ds and dq
@@ -1140,8 +1216,8 @@ attention_bwd_dq_fp32_kernel(const BwdParams p) {
     for (int i = tid; i < kBlockK * D; i += blockDim.x) {
       const int j = i / D, d = i - j * D, key = k0 + j;
       const bool valid = key < kend;
-      ks[j * (D + 1) + d] = valid ? kg[key * pl.rs3 + d] : 0.f;
-      vs[j * (D + 1) + d] = valid ? vg[key * pl.rs3 + d] : 0.f;
+      ks[j * (D + 1) + d] = valid ? kg[key * k_rs + d] : 0.f;
+      vs[j * (D + 1) + d] = valid ? vg[key * v_rs + d] : 0.f;
     }
     __syncthreads();
     const int key = k0 + lane;
@@ -1154,8 +1230,9 @@ attention_bwd_dq_fp32_kernel(const BwdParams p) {
       for (int d = 0; d < D; ++d) dpv = fmaf(dow[r * D + d], vr[d], dpv);
       ds[r] = pr * (dpv - delta[r]);
       const int q = q0 + wr + r;
-      if constexpr (kHasBias<BiasT>) {
-        if (q < L && key < L) dbias_bh[(long long)q * L + key] = ds[r];
+      if constexpr (kHasBias<DsT>) {
+        if (q < lq && key < lk)
+          to_out(dbias_bh + (long long)q * dbias_rs + key, ds[r]);
       }
     }
     const int jn = min(kBlockK, kend - k0);
@@ -1175,14 +1252,15 @@ attention_bwd_dq_fp32_kernel(const BwdParams p) {
       }
     }
   }
+  float* dqg = bwd_plane<float>(p, bDQ, p.grad[0], b, h);
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int q = q0 + wr + r;
-    if (q >= L) continue;
+    if (q >= lq) continue;
 #pragma unroll
     for (int c = 0; c < kDimsPerLane; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) pl.dq[q * pl.rs3 + d] = dq[r][c] * p.scale;
+      if (d < D) dqg[q * p.st[bDQ][2] + d] = dq[r][c] * p.scale;
     }
   }
 }
@@ -1190,7 +1268,7 @@ attention_bwd_dq_fp32_kernel(const BwdParams p) {
 template <typename BiasT>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_dkv_fp32_kernel(const BwdParams p) {
-  const int D = p.D, L = p.L, kend = p.kend;
+  const int D = p.D, lq = p.lq, lk = p.lk, kend = p.kend;
   extern __shared__ float smem[];
   float* ks = smem;                          // [64][D]
   float* vs = ks + kF32BwdRows * D;          // [64][D]
@@ -1201,35 +1279,44 @@ attention_bwd_dkv_fp32_kernel(const BwdParams p) {
 
   const int k0 = blockIdx.x * kF32BwdRows, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const BwdPlanes<float> pl(p, b, h);
-  const long long stat0 = ((long long)b * p.H + h) * L;
+  const float* qg = bwd_plane<const float>(p, bQ, p.in[bQ], b, h);
+  const float* kg = bwd_plane<const float>(p, bK, p.in[bK], b, h);
+  const float* vg = bwd_plane<const float>(p, bV, p.in[bV], b, h);
+  const float* dog = bwd_plane<const float>(p, bDO, p.in[bDO], b, h);
+  const long long q_rs = p.st[bQ][2], k_rs = p.st[bK][2], v_rs = p.st[bV][2];
+  const long long do_rs = p.st[bDO][2];
+  const long long stat0 = ((long long)b * p.H + h) * lq;
   for (int i = tid; i < kF32BwdRows * D; i += blockDim.x) {
     const int r = i / D, d = i - r * D, key = k0 + r;
     const bool valid = key < kend;
-    ks[i] = valid ? pl.q[key * pl.rs3 + D + d] : 0.f;
-    vs[i] = valid ? pl.q[key * pl.rs3 + 2 * D + d] : 0.f;
+    ks[i] = valid ? kg[key * k_rs + d] : 0.f;
+    vs[i] = valid ? vg[key * v_rs + d] : 0.f;
   }
   const int wr = warp * kRowsPerWarp;
   const BiasT* bias_bh = nullptr;
-  if constexpr (kHasBias<BiasT>) bias_bh = bias_plane<BiasT>(p, b, h);
+  long long bias_rs = 0;
+  if constexpr (kHasBias<BiasT>) {
+    bias_bh = bwd_plane<const BiasT>(p, bBias, p.bias, b, h);
+    bias_rs = p.st[bBias][2];
+  }
 
   float dk[kRowsPerWarp][kDimsPerLane], dv[kRowsPerWarp][kDimsPerLane];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r)
 #pragma unroll
     for (int c = 0; c < kDimsPerLane; ++c) dk[r][c] = dv[r][c] = 0.f;
-  for (int q0 = 0; q0 < L; q0 += kBlockK) {
+  for (int q0 = 0; q0 < lq; q0 += kBlockK) {
     __syncthreads();
     for (int i = tid; i < kBlockK * D; i += blockDim.x) {
       const int j = i / D, d = i - j * D, q = q0 + j;
-      const bool valid = q < L;
-      qs[j * (D + 1) + d] = valid ? pl.q[q * pl.rs3 + d] : 0.f;
-      dos[j * (D + 1) + d] = valid ? pl.dout[q * pl.rs1 + d] : 0.f;
+      const bool valid = q < lq;
+      qs[j * (D + 1) + d] = valid ? qg[q * q_rs + d] : 0.f;
+      dos[j * (D + 1) + d] = valid ? dog[q * do_rs + d] : 0.f;
     }
     for (int i = tid; i < kBlockK; i += blockDim.x) {
       const int q = q0 + i;
-      lse_s[i] = q < L ? p.lse[stat0 + q] : INFINITY;
-      delta_s[i] = q < L ? p.delta[stat0 + q] : 0.f;
+      lse_s[i] = q < lq ? p.lse[stat0 + q] : INFINITY;
+      delta_s[i] = q < lq ? p.delta[stat0 + q] : 0.f;
     }
     __syncthreads();
     const int q = q0 + lane;
@@ -1247,15 +1334,16 @@ attention_bwd_dkv_fp32_kernel(const BwdParams p) {
         dpv = fmaf(vr[d], dor[d], dpv);
       }
       float x = 0.f;
-      if (key < kend && q < L) {
+      if (key < kend && q < lq) {
         x = s * p.scale;
-        if constexpr (kHasBias<BiasT>) x += to_float(bias_bh[(long long)q * L + key]);
+        if constexpr (kHasBias<BiasT>)
+          x += to_float(bias_bh[(long long)q * bias_rs + key]);
         x = expf(x - lse_s[lane]);
       }
       pr[r] = x;
       ds[r] = x * (dpv - delta_s[lane]);
     }
-    const int in = min(kBlockK, L - q0);
+    const int in = min(kBlockK, lq - q0);
     for (int i = 0; i < in; ++i) {
       float qd[kDimsPerLane], dod[kDimsPerLane];
 #pragma unroll
@@ -1276,42 +1364,31 @@ attention_bwd_dkv_fp32_kernel(const BwdParams p) {
       }
     }
   }
+  float* dkg = bwd_plane<float>(p, bDK, p.grad[1], b, h);
+  float* dvg = bwd_plane<float>(p, bDV, p.grad[2], b, h);
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int key = k0 + wr + r;
-    if (key >= L) continue;
+    if (key >= lk) continue;
 #pragma unroll
     for (int c = 0; c < kDimsPerLane; ++c) {
       const int d = lane + 32 * c;
       if (d < D) {
-        pl.dq[key * pl.rs3 + D + d] = dk[r][c] * p.scale;
-        pl.dq[key * pl.rs3 + 2 * D + d] = dv[r][c];
+        dkg[key * p.st[bDK][2] + d] = dk[r][c] * p.scale;
+        dvg[key * p.st[bDV][2] + d] = dv[r][c];
       }
     }
   }
 }
 
-template <typename BiasT>
+template <typename BiasT, typename DsT>
 cudaError_t launch_bwd_fp32(const BwdParams& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)kF32BwdRows * p.D +
                                        2 * (size_t)kBlockK * (p.D + 1) +
                                        2 * (size_t)kBlockK);
-  auto dq_kern = attention_bwd_dq_fp32_kernel<BiasT>;
-  auto dkv_kern = attention_bwd_dkv_fp32_kernel<BiasT>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          dkv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((p.L + kF32BwdRows - 1) / kF32BwdRows, p.H, p.B);
-  dq_kern<<<grid, kWarps * 32, smem, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dkv_kern<<<grid, kWarps * 32, smem, stream>>>(p);
-  return cudaGetLastError();
+  return launch_bwd_pair(p, attention_bwd_dq_fp32_kernel<BiasT, DsT>,
+                         attention_bwd_dkv_fp32_kernel<BiasT>, kF32BwdRows,
+                         kWarps * 32, smem, stream);
 }
 
 cudaError_t run(const Params& p, int dtype, int bias_dtype, int B, int H,
@@ -1326,6 +1403,32 @@ cudaError_t run(const Params& p, int dtype, int bias_dtype, int B, int H,
     if (!p.bias) return dispatch_mma<NoBias>(p, B, H, s);
     if (bias_dtype == kBf16) return dispatch_mma<__nv_bfloat16>(p, B, H, s);
     if (bias_dtype == kF32) return dispatch_mma<float>(p, B, H, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The backward's (bias type, ds type) pairs: none; a bias in the input
+// type with ds in it (the token-major entry); an fp32 bias with or without
+// ds (the head-major entry)
+cudaError_t run_bwd(const BwdParams& p, int dtype, int bias_dtype,
+                    cudaStream_t s) {
+  if (p.D < 1 || p.D > kMaxD || p.lq < 1 || p.lk < 1 || p.kend < 1 ||
+      p.kend > p.lk || p.B < 1 || p.H < 1 || p.B > 65535 || p.H > 65535 ||
+      (p.dbias && !p.bias))
+    return cudaErrorInvalidValue;
+  const bool ds = p.dbias != nullptr;
+  if (dtype == kF32) {
+    if (!p.bias) return launch_bwd_fp32<NoBias, NoBias>(p, s);
+    if (bias_dtype == kF32)
+      return ds ? launch_bwd_fp32<float, float>(p, s)
+                : launch_bwd_fp32<float, NoBias>(p, s);
+  } else if (dtype == kBf16) {
+    using bf16 = __nv_bfloat16;
+    if (!p.bias) return dispatch_bwd_mma<NoBias, NoBias>(p, s);
+    if (bias_dtype == kBf16 && ds) return dispatch_bwd_mma<bf16, bf16>(p, s);
+    if (bias_dtype == kF32)
+      return ds ? dispatch_bwd_mma<float, float>(p, s)
+                : dispatch_bwd_mma<float, NoBias>(p, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1365,6 +1468,7 @@ extern "C" int vast_tmajor_attention_fwd(const void* qkv, const void* bias,
   p.lq = L;
   p.kend = kend;
   p.d = D;
+  p.heads = H;
   p.scale = scale;
   return (int)run(p, dtype, dtype, B, H, static_cast<cudaStream_t>(stream));
 }
@@ -1373,11 +1477,14 @@ extern "C" int vast_tmajor_attention_fwd(const void* qkv, const void* bias,
 // Lk, D), out (B, H, Lq, D) and bias (B, H, Lq, Lk), each through
 // ``strides``: 15 element strides, (batch, head, row) of q, k, v, out and
 // bias in that order (the last axis of each is contiguous; 0 broadcasts).
-// Keys >= kend are masked.
+// Keys >= kend are masked. ``lse`` (null: not written) receives the
+// logsumexp of each row's scores, (B, H, Lq) fp32 contiguous, +inf for a
+// row with no finite score.
 extern "C" int vast_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, const void* bias,
-                                        void* out, int dtype, int bias_dtype,
-                                        int B, int H, int Lq, int D, int kend,
+                                        void* out, float* lse, int dtype,
+                                        int bias_dtype, int B, int H, int Lq,
+                                        int D, int kend,
                                         const long long* strides, float scale,
                                         void* stream) {
   Params p = {};
@@ -1387,9 +1494,11 @@ extern "C" int vast_flash_attention_fwd(const void* q, const void* k,
   memcpy(p.st, strides, sizeof(p.st));
   p.out = out;
   p.bias = bias;
+  p.lse = lse;
   p.lq = Lq;
   p.kend = kend;
   p.d = D;
+  p.heads = H;
   p.scale = scale;
   return (int)run(p, dtype, bias_dtype, B, H,
                   static_cast<cudaStream_t>(stream));
@@ -1410,17 +1519,81 @@ extern "C" int vast_tmajor_attention_bwd(const void* qkv, const void* o,
                                          int L, int H, int D, int kend,
                                          long long bias_batch_stride,
                                          float scale, void* stream) {
-  if (D < 1 || D > kMaxD || L < 1 || kend < 1 || kend > L || B < 1 ||
-      H < 1 || B > 65535 || H > 65535 || (bias == nullptr) != (dbias == nullptr))
+  if ((bias == nullptr) != (dbias == nullptr) ||
+      (dtype != kF32 && dtype != kBf16))
     return (int)cudaErrorInvalidValue;
-  const BwdParams p = {qkv,   o,     dout, bias, dqkv, dbias, lse, delta,
-                       bias_batch_stride, B, L, H, D, kend, scale};
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return (int)(bias ? launch_bwd_fp32<float>(p, s)
-                      : launch_bwd_fp32<NoBias>(p, s));
-  if (dtype == kBf16)
-    return (int)(bias ? dispatch_bwd_mma<__nv_bfloat16>(p, s)
-                      : dispatch_bwd_mma<NoBias>(p, s));
-  return (int)cudaErrorInvalidValue;
+  const long long es = dtype == kF32 ? 4 : 2, row3 = 3LL * H * D,
+                  row1 = (long long)H * D;
+  BwdParams p = {};
+  for (int j = 0; j < 3; ++j) {
+    p.in[bQ + j] = static_cast<const char*>(qkv) + j * D * es;
+    p.grad[j] = static_cast<char*>(dqkv) + j * D * es;
+    for (int op : {bQ + j, bDQ + j}) {
+      p.st[op][0] = L * row3;
+      p.st[op][1] = 3LL * D;
+      p.st[op][2] = row3;
+    }
+  }
+  p.in[bO] = o;
+  p.in[bDO] = dout;
+  for (int op : {bO, bDO}) {
+    p.st[op][0] = L * row1;
+    p.st[op][1] = D;
+    p.st[op][2] = row1;
+  }
+  p.st[bBias][0] = bias_batch_stride;
+  p.st[bDBias][0] = (long long)H * L * L;
+  for (int op : {bBias, bDBias}) {
+    p.st[op][1] = (long long)L * L;
+    p.st[op][2] = L;
+  }
+  p.bias = bias;
+  p.dbias = dbias;
+  p.lse = lse;
+  p.delta = delta;
+  p.B = B;
+  p.H = H;
+  p.lq = p.lk = L;
+  p.D = D;
+  p.kend = kend;
+  p.scale = scale;
+  p.lse_given = false;
+  return (int)run_bwd(p, dtype, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Backward of the head-major attention (flash_attention_bwd): q, o, dout
+// and dq (B, H, Lq, D), k, v, dk and dv (B, H, Lk, D), bias (broadcast
+// to (B, H, Lq, Lk), fp32) and dbias (B, H, Lq, Lk) fp32, each through
+// ``strides``: 30 element strides, (batch, head, row) of q, k, v, o, dout,
+// dq, dk, dv, bias and dbias in that order (the last axis of each
+// contiguous; 0 broadcasts a bias). ``lse`` is the forward's (B, H, Lq)
+// fp32; ``delta`` (B, H, Lq) fp32 scratch. A null dbias: ds is not
+// written; else it is written up to the last 32-key tile that holds a key
+// < kend, so the caller zero-fills dbias when kend < Lk. Keys >= kend get
+// dk = dv = 0. Two launches (dQ, then dK/dV); returns the first error.
+extern "C" int vast_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* bias, void* dq, void* dk, void* dv,
+    void* dbias, const float* lse, float* delta, int dtype, int B, int H,
+    int Lq, int Lk, int D, int kend, const long long* strides, float scale,
+    void* stream) {
+  BwdParams p = {};
+  const void* in[5] = {q, k, v, o, dout};
+  void* grad[3] = {dq, dk, dv};
+  memcpy(p.in, in, sizeof(p.in));
+  memcpy(p.grad, grad, sizeof(p.grad));
+  memcpy(p.st, strides, sizeof(p.st));
+  p.bias = bias;
+  p.dbias = dbias;
+  p.lse = const_cast<float*>(lse);
+  p.delta = delta;
+  p.B = B;
+  p.H = H;
+  p.lq = Lq;
+  p.lk = Lk;
+  p.D = D;
+  p.kend = kend;
+  p.scale = scale;
+  p.lse_given = true;
+  return (int)run_bwd(p, dtype, kF32, static_cast<cudaStream_t>(stream));
 }

@@ -3,9 +3,10 @@
 Counterpart of ``vast_tpu.models.eva_vit`` for the EVA01 preset only:
 rope-free, fused qkv with q/v biases (k bias zero), plain GELU MLP
 (exact erf in fp32, tanh in bf16: vast_tpu eva_vit.py:75-81), pre-norm
-blocks. The EVA02 and bigE presets (rope, sub-LN, SwiGLU, post-norm) are
-not in ``EVA_PRESETS`` yet; ``VASTConfig`` raises ``NotImplementedError``
-for them.
+blocks. The EVA02, bigE and 448 px presets (rope, sub-LN, SwiGLU,
+post-norm) are not in ``EVA_PRESETS`` yet, and ``VASTConfig`` raises
+``NotImplementedError`` for them; the CLIP towers are in
+``models/clip_vit.py``.
 
 Module and parameter names are the reference torch ones
 (``blocks.{i}.attn.qkv.weight``, ``...q_bias``, ``...v_bias``), so

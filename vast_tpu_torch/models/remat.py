@@ -1,17 +1,18 @@
 """Activation checkpointing of encoder blocks.
 
 Counterpart of ``vast_tpu.models.remat`` (remat.py:49-96): each EVA
-block, BEATs layer and BERT layer runs under
+and CLIP block, BEATs and AST layer and BERT layer runs under
 ``torch.utils.checkpoint.checkpoint`` (non-reentrant), as ``nn.remat``
-wraps them in ``vast_tpu`` (eva_vit.py:365-368, beats.py:290-294,
-bert.py:285-293). Policies:
+wraps them in ``vast_tpu`` (eva_vit.py:365-368, clip_vit.py:102-105,
+beats.py:290-294, ast.py:91-94, bert.py:285-293). Policies:
 
 * ``none``: no checkpoint; the block keeps all its activations;
 * ``full``: save only the block's inputs, recompute everything;
-* ``attn``: also save the output of the token-major attention op
-  (``ops.flash_attention.TMAJOR_OP``), so the backward recomputes the
-  projections, MLP and norms but never re-runs the attention forward
-  kernel (JAX tags that output ``attn_out``);
+* ``attn``: also save the outputs of the attention ops, token-major
+  (``ops.flash_attention.TMAJOR_OP``) and head-major (``FLASH_OP``: its
+  output and its lse), so the backward recomputes the projections, MLP
+  and norms but never re-runs an attention forward kernel (JAX tags
+  that output ``attn_out``);
 * ``dots``: ``attn`` plus the outputs of every ``aten.mm`` / ``addmm``
   (the projection and MLP products; JAX's
   ``dots_with_no_batch_dims_saveable``).
@@ -29,20 +30,21 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from vast_tpu_torch.ops.flash_attention import TMAJOR_OP
+from vast_tpu_torch.ops.flash_attention import FLASH_OP, TMAJOR_OP
 
 POLICIES = ("none", "full", "attn", "dots")
+_ATTN = (TMAJOR_OP, FLASH_OP)
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _save_attn(ctx, op, *args, **kwargs):
-    if op is TMAJOR_OP:
+    if op in _ATTN:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _save_dots(ctx, op, *args, **kwargs):
-    if op is TMAJOR_OP or op in _DOTS:
+    if op in _ATTN or op in _DOTS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 

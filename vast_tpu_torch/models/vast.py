@@ -3,13 +3,15 @@
 Counterpart of ``vast_tpu.models.vast`` for the retrieval slices:
 on-device preprocessing (uint8 frames -> normalized pixels, with the
 random crop and flip when training; waveform -> kaldi fbank clips, a
-random clip per segment when training), EVA01 over the frames, BEATs
-over the fbank, the BERT text encoder, the poolers and projection heads,
+random clip per segment when training), a vision tower over the frames
+(EVA01, or a CLIP ViT: ``vision_encoder_type``), an audio tower over the
+fbank (BEATs, or AST: ``audio_encoder_type``), the BERT text encoder,
+the poolers and projection heads,
 the feature DAG (``get_feature``) for the keys ``ret%tva`` needs, the ITM
 scores of the rerank (``compute_slice_scores(_grouped)``), and the ITC +
 ITM losses of ``forward_ret(compute_loss=True)`` (vast.py:564-623). The
-captioning / QA heads come in a later slice and raise
-``NotImplementedError``.
+other towers (EVA02, Swin, VideoSwin) and the captioning / QA heads come
+in later slices and raise ``NotImplementedError``.
 
 Randomness: a training forward takes the step's CPU ``torch.Generator``
 (``generator``); None is the deterministic (eval) forward. The order of
@@ -21,8 +23,9 @@ draw).
 The module tree carries the reference torch state-dict names
 (``vision_encoder.visual.*``, ``audio_encoder.*``,
 ``multimodal_encoder.bert.*``, ``itm_head.linear1``,
-``contra_head_t.linear``, ``hidden_trans_vision_multimodal.0`` ...), so a
-released VAST ``.pt`` loads with no converter.
+``contra_head_t.linear``, ``hidden_trans_vision_multimodal.0`` ...; AST
+as ``audio_embeddings.*`` + ``audio_encoder.*``), so a released VAST
+``.pt`` loads with no converter.
 """
 
 from __future__ import annotations
@@ -37,12 +40,15 @@ from torch import nn
 from vast_tpu_torch.config import parse_task_string
 from vast_tpu_torch.device import resolve_device
 from vast_tpu_torch.models import layers
+from vast_tpu_torch.models.ast import AstConfig, AstModel
 from vast_tpu_torch.models.beats import BeatsConfig, BeatsModel
 from vast_tpu_torch.models.bert import BertConfig, BertForMaskedLM
-from vast_tpu_torch.models.eva_vit import (EVA_PRESETS, EvaVisionTransformer,
-                                           EvaVitConfig)
+from vast_tpu_torch.models.clip_vit import (CLIP_PRESETS,
+                                            ClipVisionTransformer,
+                                            ClipVitConfig)
+from vast_tpu_torch.models.eva_vit import EVA_PRESETS, EvaVisionTransformer
 from vast_tpu_torch.ops.activations import gelu
-from vast_tpu_torch.ops.fbank import kaldi_fbank
+from vast_tpu_torch.ops.fbank import ast_fbank, kaldi_fbank
 from vast_tpu_torch.ops.image import (CLIP_MEAN, CLIP_STD, preprocess_frames,
                                       yuv420_to_rgb)
 
@@ -83,23 +89,32 @@ class VASTConfig:
         return dict(dtype=self.dtype, param_dtype=self.param_dtype,
                     remat=self.checkpointing, remat_policy=self.remat_policy)
 
-    def resolved_vision_cfg(self) -> EvaVitConfig:
+    def resolved_vision_cfg(self):
         if self.vision_cfg is not None:
             return self.vision_cfg
-        if self.vision_encoder_type not in EVA_PRESETS:
-            raise NotImplementedError(
-                f"vision encoder {self.vision_encoder_type} is not ported")
-        return dataclasses.replace(EVA_PRESETS[self.vision_encoder_type],
+        t = self.vision_encoder_type
+        presets = CLIP_PRESETS if t.startswith("clip") else EVA_PRESETS
+        if t not in presets:
+            raise NotImplementedError(f"vision encoder {t} is not ported")
+        return dataclasses.replace(presets[t],
                                    image_size=self.vision_resolution,
                                    **self._sub())
 
-    def resolved_audio_cfg(self) -> BeatsConfig:
+    def resolved_audio_cfg(self):
         if self.audio_cfg is not None:
             return self.audio_cfg
-        if not self.audio_encoder_type.startswith("beats"):
-            raise NotImplementedError(
-                f"audio encoder {self.audio_encoder_type} is not ported")
-        return BeatsConfig(**self._sub())
+        t = self.audio_encoder_type
+        if t.startswith("beats"):
+            return BeatsConfig(**self._sub())
+        if t.startswith("ast"):
+            return AstConfig(audio_melbins=self.audio_melbins,
+                             audio_target_length=self.audio_target_length,
+                             **self._sub())
+        raise NotImplementedError(f"audio encoder {t} is not ported")
+
+    @property
+    def audio_is_ast(self) -> bool:
+        return self.audio_encoder_type.startswith("ast")
 
     def resolved_bert_cfg(self) -> BertConfig:
         return self.bert_cfg or BertConfig(**self._sub())
@@ -172,11 +187,20 @@ class VASTModel(nn.Module):
         bc = c.resolved_bert_cfg()
         fk = dict(device=dev, dtype=c.pdtype)
 
-        self.vision_encoder = nn.ModuleDict(
-            {"visual": EvaVisionTransformer(vc, dev)})
-        self.audio_encoder = BeatsModel(ac, dev)
+        vision = (ClipVisionTransformer if isinstance(vc, ClipVitConfig)
+                  else EvaVisionTransformer)
+        self.vision_encoder = nn.ModuleDict({"visual": vision(vc, dev)})
+        if isinstance(ac, AstConfig):
+            # the reference's two top-level AST modules (vast_ckpt.py:184)
+            ast = AstModel(ac, dev)
+            self.audio_embeddings = ast.audio_embeddings
+            self.audio_encoder = ast.audio_encoder
+            ad = ac.hidden_size
+        else:
+            self.audio_encoder = BeatsModel(ac, dev)
+            ad = ac.encoder_embed_dim
         self.multimodal_encoder = BertForMaskedLM(bc, dev)
-        vd, ad, md = vc.width, ac.encoder_embed_dim, bc.hidden_size
+        vd, md = vc.width, bc.hidden_size
         self.multimodal_dim = md
 
         d = c.contra_dim
@@ -219,7 +243,10 @@ class VASTModel(nn.Module):
         b, n = spectrograms.shape[:2]
         frozen = self.cfg.frozen_audio
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
-            out = self.audio_encoder(spectrograms.flatten(0, 1))
+            x = spectrograms.flatten(0, 1)
+            if self.cfg.audio_is_ast:
+                x = self.audio_embeddings(x)
+            out = self.audio_encoder(x)
         return out.view(b, n, *out.shape[1:])
 
     # ---------------- fusion-space inputs (gm.py:476-525) ----------------
@@ -249,14 +276,22 @@ class VASTModel(nn.Module):
     def _preprocess_audio(self, batch, generator=None):
         """waveform (B, S) at int16 scale -> (B, n, T, M) fbank clips:
         fbank, pad to a clip multiple, one clip of each of n even segments,
-        normalize (data/audio_mapper.py:55-88). The clip is the centre one
-        of its segment, or with ``generator`` (training) a uniformly
-        random one (vast.py:420-427)."""
+        normalize (data/audio_mapper.py:46-88). BEATs takes the fbank of
+        the int16-scale waveform (povey window); AST that of the [-1, 1]
+        waveform minus its whole-clip mean (hanning window), each with its
+        own stats (vast.py:396-411). The clip is the centre one of its
+        segment, or with ``generator`` (training) a uniformly random one
+        (vast.py:420-427)."""
         c = self.cfg
         wav = batch["audio_waveforms"]
         n, t = c.max_audio_sample_num, c.audio_target_length
-        fb = kaldi_fbank(wav, num_mel_bins=c.audio_melbins)
-        mean, std = AUDIO_STATS["beats"]
+        if c.audio_is_ast:
+            w = wav * (1.0 / 32768.0)
+            fb = ast_fbank(w - w.mean(dim=-1, keepdim=True),
+                           num_mel_bins=c.audio_melbins)
+        else:
+            fb = kaldi_fbank(wav, num_mel_bins=c.audio_melbins)
+        mean, std = AUDIO_STATS["ast" if c.audio_is_ast else "beats"]
         fb = (fb - mean) / (2.0 * std)
         frames = fb.shape[-2]
         total = max(1, -(-frames // t))
@@ -326,8 +361,11 @@ class VASTModel(nn.Module):
         elif key == "feat_va":
             vo = self.get_feature(batch, "vision_output", cache, generator)
             ao = self.get_feature(batch, "audio_output", cache, generator)
-            pooled = torch.cat([vo[:, :, 0].mean(dim=1),       # CLS per frame
-                                ao.mean(dim=2).mean(dim=1)], dim=1)
+            # the CLS token per frame; BEATs' token mean, AST's CLS token
+            # (vast.py:331-340)
+            pa = (ao[:, :, 0] if self.cfg.audio_is_ast
+                  else ao.mean(dim=2)).mean(dim=1)
+            pooled = torch.cat([vo[:, :, 0].mean(dim=1), pa], dim=1)
             val = _l2norm(self.contra_head_va(pooled))
         else:
             raise NotImplementedError(

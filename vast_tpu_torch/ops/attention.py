@@ -11,11 +11,13 @@ it routes the same on every device:
   + softmax in fp32, as ``vast_tpu`` does on these shapes
   (attention.py:234-244). BERT's caption self-attention (40 x 40) and its
   cross-attention of one caption over the condition tokens are such;
-* every other shape goes through the head-major kernel
-  (``ops.flash_attention.flash_attention``), as ``vast_tpu`` sends it to
-  its Pallas ``flash_attention``. On the slice that is BERT's grouped
-  rerank, whose T texts of one candidate fold into one query of 40 T rows
-  over that candidate's K/V: from T = 8 on, Lk < 8 Lq. ``vast_tpu`` also
+* every other shape goes through the head-major kernels
+  (``ops.flash_attention.flash_attention``, differentiable), as
+  ``vast_tpu`` sends it to its Pallas ``flash_attention``. That is every
+  CLIP and AST self-attention (577 and 257 tokens at their full sizes),
+  and BERT's grouped rerank, whose T texts of one candidate fold into
+  one query of 40 T rows over that candidate's K/V: from T = 8 on, Lk <
+  8 Lq. ``vast_tpu`` also
   keeps shapes whose TPU tile padding would waste more than 2.5x on the
   plain route; the CUDA kernel pads nothing in memory, so that test has
   no counterpart.

@@ -90,3 +90,11 @@ def kaldi_fbank(waveform, *, sample_rate: int = 16000,
 def beats_fbank(waveform_int16_scale):
     """BEATs preset (data/audio_mapper.py:55-62): 128 bins, 16 kHz."""
     return kaldi_fbank(waveform_int16_scale, num_mel_bins=128)
+
+
+def ast_fbank(waveform, sample_rate: int = 16000, num_mel_bins: int = 64):
+    """AST preset (data/audio_mapper.py:46-52): the hanning window. Its
+    ``htk_compat`` only moves the energy column, which VAST does not use
+    (vast_tpu ops/fbank.py:95-99), so it has no counterpart here."""
+    return kaldi_fbank(waveform, sample_rate=sample_rate,
+                       num_mel_bins=num_mel_bins, window_type="hanning")

@@ -9,16 +9,20 @@ from ``csrc/flash_attention.cu``:
   differentiable, its gradient being
 * :func:`self_attention_tmajor_bwd`, which replaces
   ``_tmajor_bwd_kernel`` (:795) and ``_tmajor_bwd_kernel_bias`` (:841);
-* :func:`flash_attention` (head-major q, k, v) replaces
-  ``_single_kernel_nolse`` (:87), the inference forward of
-  ``flash_attention`` (:156). The logsumexp output of ``_single_kernel``
-  and the head-major backward come with the other encoders.
+* :func:`flash_attention` (head-major q, k, v) replaces the forward
+  kernels of ``flash_attention`` (:156): ``_single_kernel_nolse`` (:87)
+  and ``_looped_kernel_nolse`` (:137) without a gradient to record,
+  ``_single_kernel`` (:52) and ``_looped_kernel`` (:94), which add the
+  lse, with one; it is differentiable, its gradient being
+* :func:`flash_attention_bwd`, which replaces the kernels of
+  ``flash_attention_bwd`` (:462): the fused ``_bwd_fused_kernel(_nods)``
+  (:321, :363) and the tiled ``_bwd_dkv_kernel`` (:372) and
+  ``_bwd_dq_kernel(_nods)`` (:413, :451).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 it does not take; it uses its plain version (``_..._plain``) only for
-CPU tensors. The head-major forward has no backward yet and raises on
-CUDA when asked for a gradient. ``LAUNCHES`` counts kernel
-launches, so a run can show that its path went through the kernels.
+CPU tensors. ``LAUNCHES`` counts kernel launches, so a run can show that
+its path went through the kernels.
 
 The TPU mechanisms around the Pallas kernels (head packing, VMEM-sized
 batch groups, 16/128 padding of L and of D, shard_map) have no
@@ -36,10 +40,19 @@ import torch
 # kernel launches by variant; tests and chip_smoke.py reset and read them
 LAUNCHES = {"tmajor_attention_fwd": 0, "tmajor_attention_fwd_bias": 0,
             "tmajor_attention_bwd": 0, "tmajor_attention_bwd_bias": 0,
-            "flash_attention_fwd": 0}
+            "flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
+            "flash_attention_bwd": 0, "flash_attention_bwd_dbias": 0}
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 def _tmajor_probs_plain(qkv, bias, heads, lk_true, scale):
@@ -130,11 +143,9 @@ def _tmajor_attention(qkv, bias, heads, lk_true, scale):
     bias_stride = 0 if bias is None or bias.shape[0] == 1 else bias.stride(0)
     with torch.cuda.device(qkv.device):
         err = _kernel("vast_tmajor_attention_fwd")(
-            ctypes.c_void_p(qkv.data_ptr()),
-            ctypes.c_void_p(None if bias is None else bias.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), _DTYPE_CODES[qkv.dtype],
+            _ptr(qkv), _ptr(bias), _ptr(out), _DTYPE_CODES[qkv.dtype],
             b, l, heads, d, lk_true or l, bias_stride, float(scale),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            _stream())
     if err:
         raise RuntimeError(f"tmajor attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -273,16 +284,11 @@ def self_attention_tmajor_bwd(qkv, o, do, bias=None, *, heads: int,
     lse = torch.empty((b, heads, l), dtype=torch.float32, device=dev)
     delta = torch.empty_like(lse)
     bias_stride = 0 if bias is None or bias.shape[0] == 1 else bias.stride(0)
-
-    def ptr(t):
-        return ctypes.c_void_p(None if t is None else t.data_ptr())
-
     with torch.cuda.device(dev):
         err = _kernel("vast_tmajor_attention_bwd")(
-            ptr(qkv), ptr(o), ptr(do), ptr(bias), ptr(dqkv), ptr(dbias),
-            ptr(lse), ptr(delta), _DTYPE_CODES[qkv.dtype], b, l, heads, d,
-            lk_true or l, bias_stride, float(scale),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            _ptr(qkv), _ptr(o), _ptr(do), _ptr(bias), _ptr(dqkv),
+            _ptr(dbias), _ptr(lse), _ptr(delta), _DTYPE_CODES[qkv.dtype], b,
+            l, heads, d, lk_true or l, bias_stride, float(scale), _stream())
     if err:
         raise RuntimeError(f"tmajor attention backward launch failed: CUDA "
                            f"error {err}")
@@ -295,34 +301,85 @@ def self_attention_tmajor_bwd(qkv, o, do, bias=None, *, heads: int,
     return dqkv, dbias
 
 
-def _flash_attention_plain(q, k, v, bias=None, *, scale: float = 1.0,
-                           lk_true: int = 0):
-    """The same function in plain PyTorch, computed in fp32 from the
-    inputs; returns q's dtype. A row with no finite score gives zeros."""
+def _flash_scores_plain(q, k, bias, scale, lk_true):
+    """The scaled, biased and masked scores (B, H, Lq, Lk) in fp32."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
     if lk_true:
         s[..., lk_true:] = float("-inf")
+    return s
+
+
+def _flash_attention_plain(q, k, v, bias=None, *, scale: float = 1.0,
+                           lk_true: int = 0, return_lse: bool = False):
+    """The same function in plain PyTorch, computed in fp32 from the
+    inputs; returns q's dtype. A row with no finite score gives zeros.
+    With ``return_lse`` also the lse (B, H, Lq) fp32: m + log(l), as
+    vast_tpu's kernel writes it (flash_attention.py:84), and +inf for a
+    row with no finite score."""
+    s = _flash_scores_plain(q, k, bias, scale, lk_true)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p / torch.where(l == 0, 1.0, l), v.float())
-    return o.to(q.dtype)
+    o = torch.matmul(p / torch.where(l == 0, 1.0, l), v.float()).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.where(l > 0, m + torch.log(l), float("inf"))[..., 0]
 
 
-def flash_attention(q, k, v, bias=None, *, scale: float = 1.0,
-                    lk_true: int = 0):
-    """Attention over head-major (B, H, L, D) tensors.
+def _flash_bwd_parts_plain(q, k, v, bias, o, lse, do, scale, lk_true):
+    """p = exp(s - lse) from the saved lse, the cotangent do and ds = p
+    (do . v^T - delta), delta = rowsum(do . o), (B, H, Lq, .) in fp32."""
+    s = _flash_scores_plain(q, k, bias, scale, lk_true)
+    p = torch.exp(s - lse.float()[..., None])
+    dof = do.float()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, v.float().transpose(-1, -2)) - delta)
+    return p, dof, ds
 
-    q (B, H, Lq, D), k and v (B, H, Lk, D); returns (B, H, Lq, D) in q's
-    dtype and q's memory layout. ``scale`` multiplies the fp32 scores (the
-    JAX function takes q already scaled, i.e. scale 1); ``bias``, 4-D and
-    broadcastable to (B, H, Lq, Lk), in fp32 or q's dtype, is added after
-    the scale; keys at and beyond ``lk_true`` (when non-zero) are masked.
-    Any strides are taken as long as the last axis is contiguous: the
-    kernel reads BERT's token-major projections as they are.
-    """
+
+def _flash_attention_bwd_plain(q, k, v, bias, o, lse, do, *,
+                               scale: float = 1.0, lk_true: int = 0,
+                               return_dbias: bool = False):
+    """The gradient in plain PyTorch, in fp32 from the inputs, as the
+    Pallas kernels write it (flash_attention.py:335-360): p from the
+    saved lse, ds the cotangent of the score before the scale. Returns
+    dq, dk, dv in the inputs' dtype, and with ``return_dbias`` the raw ds
+    (B, H, Lq, Lk) fp32."""
+    p, dof, ds = _flash_bwd_parts_plain(q, k, v, bias, o, lse, do, scale,
+                                        lk_true)
+    dq = (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+    dk = (torch.matmul(ds.transpose(-1, -2), q.float()) * scale).to(k.dtype)
+    dv = torch.matmul(p.transpose(-1, -2), dof).to(v.dtype)
+    return (dq, dk, dv, ds) if return_dbias else (dq, dk, dv)
+
+
+def _flash_attention_bwd_abs_terms(q, k, v, bias, o, lse, do, *,
+                                   scale: float = 1.0, lk_true: int = 0):
+    """For each output of the head-major backward, the sum of |terms|
+    that make it, in fp32. ds = p (dp - delta) is itself a difference of
+    two sums of D products, so its terms are dsa = p (|do| |v|^T +
+    |delta|), which bounds its rounding where dp and delta cancel; then
+    dsa |k| s for dq, dsa^T |q| s for dk, |p|^T |do| for dv and dsa for
+    dbias. The kernel rounds p or ds to bf16 (relative 2^-8) before the
+    last product, so it errs by at most 2^-8 of these there; the checks
+    on the card derive their tolerances from them."""
+    p, dof, _ = _flash_bwd_parts_plain(q, k, v, bias, o, lse, do, scale,
+                                       lk_true)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    dsa = p * (torch.matmul(dof.abs(), v.float().abs().transpose(-1, -2))
+               + delta.abs())
+    return {"dq": torch.matmul(dsa, k.float().abs()) * scale,
+            "dk": torch.matmul(dsa.transpose(-1, -2), q.float().abs())
+            * scale,
+            "dv": torch.matmul(p.transpose(-1, -2), dof.abs()),
+            "dbias": dsa}
+
+
+def _check_flash(q, k, v, bias, lk_true):
+    """(B, H, Lq, Lk, D) of operands the head-major kernels take; raises
+    on anything else."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q, k, v must be (B, H, L, D) with equal k and v "
                          f"shapes, got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -344,44 +401,209 @@ def flash_attention(q, k, v, bias=None, *, scale: float = 1.0,
         if bias.dim() != 4 or bias.shape[-1] != lk:
             raise ValueError(f"bias {tuple(bias.shape)} is not 4-D over "
                              f"{lk} keys")
-        bias = bias.expand(b, h, lq, lk)       # raises if not broadcastable
+        bias.expand(b, h, lq, lk)              # raises if not broadcastable
         if bias.device != q.device:
             raise ValueError("bias and q are on different devices")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k and v are on different devices")
-    if q.device.type == "cpu":
-        return _flash_attention_plain(q, k, v, bias, scale=scale,
-                                      lk_true=lk_true)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "the head-major kernel has no backward yet (vast_tpu's "
-            "flash_attention_bwd, Pallas rows 7-9)")
+    return b, h, lq, lk, d
+
+
+def _empty_like_layout(t, dtype=None):
+    """An empty tensor of ``t``'s shape whose memory order follows ``t``'s
+    strides (the last axis innermost): a head-major view of token-major
+    projections gets a token-major buffer, so the output projection and
+    autograd read it without a copy."""
+    order = sorted(range(t.dim() - 1), key=lambda i: -t.stride(i))
+    return torch.empty_permuted(t.shape, order + [t.dim() - 1],
+                                dtype=dtype or t.dtype, device=t.device)
+
+
+def _strides(*tensors):
+    """(batch, head, row) element strides of each tensor, zeros for None,
+    as a C array for the kernels."""
+    st = [s for t in tensors
+          for s in ((0, 0, 0) if t is None else t.stride()[:3])]
+    return (ctypes.c_longlong * len(st))(*st)
+
+
+def flash_attention(q, k, v, bias=None, *, scale: float = 1.0,
+                    lk_true: int = 0, return_lse: bool = False):
+    """Attention over head-major (B, H, L, D) tensors, differentiable.
+
+    q (B, H, Lq, D), k and v (B, H, Lk, D); returns (B, H, Lq, D) in q's
+    dtype, its memory in the order of q's strides, and with
+    ``return_lse`` also the lse (B, H, Lq) fp32. ``scale`` multiplies the
+    fp32 scores (the JAX function takes q already scaled, i.e. scale 1);
+    ``bias``, 4-D and broadcastable to (B, H, Lq, Lk), in fp32 or q's
+    dtype, is added after the scale; keys at and beyond ``lk_true`` (when
+    non-zero) are masked. Any strides are taken as long as the last axis
+    is contiguous: the kernels read BERT's token-major projections and
+    CLIP's packed in_proj output as they are.
+
+    One ``torch.library`` op, ``vast::flash_attention`` (``FLASH_OP``),
+    the counterpart of vast_tpu's ``_flash_fwd`` custom VJP
+    (ops/attention.py:121-150), so that a selective checkpoint policy can
+    name it (models/remat.py). Without a gradient to record it runs the
+    forward without the lse (JAX's primal); with one, the forward with
+    the lse, and its backward is :func:`flash_attention_bwd` from the
+    saved lse. A bias that requires no gradient (a mask) gets none and ds
+    is never written; a learned bias gets ds summed over its broadcast
+    axes (attention.py:136-143).
+    """
+    _check_flash(q, k, v, bias, lk_true)
+    need_lse = return_lse or (torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, bias)))
+    o, lse = FLASH_OP(q, k, v, bias, float(scale), lk_true, need_lse)
+    return (o, lse) if return_lse else o
+
+
+@torch.library.custom_op(
+    "vast::flash_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale, "
+           "int lk_true, bool need_lse) -> (Tensor, Tensor)")
+def _flash_attention_op(q, k, v, bias, scale, lk_true, need_lse):
+    """The forward on checked operands: the plain version on the CPU, the
+    kernel on CUDA. The lse is empty unless ``need_lse``."""
+    if q.device.type == "cpu":
+        if need_lse:
+            return _flash_attention_plain(q, k, v, bias, scale=scale,
+                                          lk_true=lk_true, return_lse=True)
+        return (_flash_attention_plain(q, k, v, bias, scale=scale,
+                                       lk_true=lk_true),
+                q.new_empty(0, dtype=torch.float32))
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if bias is not None:
+        bias = bias.expand(b, h, lq, lk)
     operands = (q, k, v) if bias is None else (q, k, v, bias)
     if any(t.stride(-1) != 1 for t in operands):
         raise ValueError("the last axis of q, k, v and bias must be "
                          "contiguous")
     if bias is not None and bias.dtype not in (torch.float32, q.dtype):
         raise TypeError(f"bias dtype {bias.dtype}: float32 or {q.dtype}")
-    out = torch.empty_like(q)                  # q's layout
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    strides += [0, 0, 0] if bias is None else list(bias.stride()[:3])
+    out = _empty_like_layout(q)
+    lse = torch.empty((b, h, lq) if need_lse else (0,), dtype=torch.float32,
+                      device=q.device)
     with torch.cuda.device(q.device):
         err = _kernel("vast_flash_attention_fwd")(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v)),
-            ctypes.c_void_p(None if bias is None else bias.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), _DTYPE_CODES[q.dtype],
+            _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out),
+            _ptr(lse if need_lse else None), _DTYPE_CODES[q.dtype],
             _DTYPE_CODES[q.dtype if bias is None else bias.dtype],
-            b, h, lq, d, lk_true or lk, (ctypes.c_longlong * 15)(*strides),
-            float(scale),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            b, h, lq, d, lk_true or lk, _strides(q, k, v, out, bias),
+            float(scale), _stream())
     if err:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["flash_attention_fwd"] += 1
-    return out
+    LAUNCHES["flash_attention_fwd_lse" if need_lse
+             else "flash_attention_fwd"] += 1
+    return out, lse
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, bias, scale, lk_true, need_lse):
+    b, h, lq, _ = q.shape
+    return (_empty_like_layout(q),
+            q.new_empty((b, h, lq) if need_lse else (0,),
+                        dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, bias, scale, lk_true, _ = inputs
+    o, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, bias, o, lse)
+    ctx.args = dict(scale=scale, lk_true=lk_true)
+
+
+def _flash_backward(ctx, grad, _):
+    q, k, v, bias, o, lse = ctx.saved_tensors
+    bias_grad = bias is not None and ctx.needs_input_grad[3]
+    do = grad.to(q.dtype)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    res = flash_attention_bwd(q, k, v, bias, o, lse, do,
+                              return_dbias=bias_grad, **ctx.args)
+    dbias = None
+    if bias_grad:
+        ds = res[3]
+        axes = tuple(i for i in range(4)
+                     if bias.shape[i] == 1 and ds.shape[i] != 1)
+        dbias = (ds.sum(dim=axes, keepdim=True) if axes else ds
+                 ).to(bias.dtype)
+    return res[0], res[1], res[2], dbias, None, None, None
+
+
+_flash_attention_op.register_autograd(_flash_backward,
+                                      setup_context=_flash_setup)
+
+FLASH_OP = torch.ops.vast.flash_attention.default
+
+
+def flash_attention_bwd(q, k, v, bias, o, lse, do, *, scale: float,
+                        lk_true: int = 0, return_dbias: bool = False):
+    """Gradient of :func:`flash_attention` w.r.t. q, k and v (and the
+    bias's raw ds), the counterpart of vast_tpu's ``flash_attention_bwd``
+    (flash_attention.py:462).
+
+    q, k, v and the bias as the forward took them, ``o`` its output,
+    ``lse`` its lse (B, H, Lq) fp32 and ``do`` the output's cotangent
+    (B, H, Lq, D) in q's dtype, any strides with a contiguous last axis.
+    p = exp(s - lse) from the saved lse, delta = rowsum(do . o) and ds =
+    p (do . v^T - delta). Returns dq, dk, dv in the input dtype, each in
+    the memory order of its input's strides, and with ``return_dbias``
+    also ds (B, H, Lq, Lk) fp32 (the caller reduces it over the bias's
+    broadcast axes). Keys at and beyond ``lk_true`` get zero gradients.
+    """
+    b, h, lq, lk, d = _check_flash(q, k, v, bias, lk_true)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (b, h, lq, d) or t.dtype != q.dtype \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be {(b, h, lq, d)} {q.dtype} on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    if tuple(lse.shape) != (b, h, lq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be {(b, h, lq)} float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if return_dbias and bias is None:
+        raise ValueError("return_dbias needs a bias")
+    if q.device.type == "cpu":
+        return _flash_attention_bwd_plain(q, k, v, bias, o, lse, do,
+                                          scale=scale, lk_true=lk_true,
+                                          return_dbias=return_dbias)
+    if bias is not None:
+        # the kernel reads an fp32 bias (a mask bias is one already); a
+        # cast of the unbroadcast bias keeps its broadcast strides
+        bias = bias.float().expand(b, h, lq, lk)
+    operands = [t for t in (q, k, v, o, do, bias) if t is not None]
+    if any(t.stride(-1) != 1 for t in operands):
+        raise ValueError("the last axis of q, k, v, o, do and bias must be "
+                         "contiguous")
+    dev = q.device
+    dq, dk, dv = (_empty_like_layout(t) for t in (q, k, v))
+    dbias = None
+    if return_dbias:
+        # keys past lk_true's last tile are not written by the kernel
+        alloc = torch.zeros if 0 < lk_true < lk else torch.empty
+        dbias = alloc((b, h, lq, lk), dtype=torch.float32, device=dev)
+    lse = lse.contiguous()
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(dev):
+        err = _kernel("vast_flash_attention_bwd")(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(bias),
+            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(lse),
+            _ptr(delta), _DTYPE_CODES[q.dtype], b, h, lq, lk, d,
+            lk_true or lk,
+            _strides(q, k, v, o, do, dq, dk, dv, bias, dbias),
+            float(scale), _stream())
+    if err:
+        raise RuntimeError(f"flash attention backward launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["flash_attention_bwd_dbias" if return_dbias
+             else "flash_attention_bwd"] += 1
+    return (dq, dk, dv, dbias) if return_dbias else (dq, dk, dv)
 
 
 _ARGTYPES = {
@@ -397,8 +619,16 @@ _ARGTYPES = {
         ctypes.c_void_p],
     "vast_flash_attention_fwd": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+        ctypes.c_void_p],
+    "vast_flash_attention_bwd": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p],
 }
 

@@ -27,8 +27,10 @@ decay still moves it.
 
 The no-decay rule is ``vast_tpu``'s, which reads the JAX leaf name: only
 ``bias`` and LayerNorm ``scale`` are exempt (optimizer.py:27-36). In the
-port's module tree those are every LayerNorm's weight and bias and the
-bias of every Linear and Conv2d; ``q_bias``/``v_bias``, BEATs'
+port's module tree those are every LayerNorm's weight and bias, the
+bias of every Linear and Conv2d, and what a module lists in its
+``no_decay_params`` (CLIP's ``in_proj_bias``, JAX ``in_proj/bias``);
+``q_bias``/``v_bias``, BEATs'
 ``pos_conv`` bias (JAX ``pos_conv_bias``), BERT's
 ``cls.predictions.bias`` (JAX ``decoder_bias``), embeddings and
 ``contra_temp`` are decayed.
@@ -57,6 +59,8 @@ def _moment_dtype(name):
 
 def _no_decay(module: nn.Module, pname: str) -> bool:
     if isinstance(module, nn.LayerNorm):
+        return True
+    if pname in getattr(module, "no_decay_params", ()):
         return True
     return pname == "bias" and isinstance(module, (nn.Linear, nn.Conv2d))
 
