@@ -68,10 +68,21 @@ exits non-zero with no result line:
 10. train_clip_ast - phase 7 for that model (clip_lr on CLIP's tower):
               exactly 24 + 12 lse forwards and as many backwards per step,
               nothing else launched; then one profiled step.
+11. tmajor_variants - the token-major layout probe
+              (``vast_tpu_torch.scripts.bench_tmajor_variants``) at its full
+              shape (B 256, Lp 272, H 16, D 88, lk_true 257, bf16): its
+              ``run`` with the counters zeroed (exactly one launch per call
+              of each variant's wrapper), each variant's fwd and fwd+bwd
+              times, bound and SDPA time; cur, dma and sect in turns at its
+              shape and at EVA's slice shape, with the profiler's device
+              times; then the two kernels of its own (attention_dma
+              through the copy engine, attention_sect) in bf16 and fp32
+              against their plain versions and against cur.
 
 Then the ``{"kernels": [...]}`` line (each row's launches from its path's
 counted run: the slice for forwards, the train step for lse forwards and
-backwards; 0 for the rows no path reaches) and, last, the ``{"ok": true,
+backwards, the probe's run for its two kernels; 0 for the rows no path
+reaches) and, last, the ``{"ok": true,
 ...}`` line. Imports nothing of JAX or of ``vast_tpu``.
 """
 
@@ -108,6 +119,7 @@ CA_RERANK_TEXTS = N_CLIPS * CA_TOP_K // N_CLIPS     # 16: Lq 640
 PEAKS = {"NVIDIA H100 80GB HBM3": (989e12, 67e12, 3.35e12)}
 
 PALLAS = "vast_tpu/ops/flash_attention.py"
+PROBE = "scripts/bench_tmajor_variants.py"
 # one row per (kernel, shape): the Pallas kernel replaced, the layout of
 # the inputs and the shapes a path gives the kernel ("at"); "path" names
 # the phase whose counted run gives the row's launches (None: no path
@@ -184,6 +196,15 @@ KERNELS = [
          replaces=f"{PALLAS}:413", replaces_also=[f"{PALLAS}:372"],
          layout="hmajor_bwd", views="token_major", b=2, lq=577, lk=577,
          h=16, d=64, scale=0.125, bias=True),
+    # the token-major layout probe's two kernels on its data (phase
+    # tmajor_variants; lk is its lk_true): the fused layout through the
+    # copy engine, and the section-major layout
+    dict(name="attention_dma", at="probe", path="tmajor_variants",
+         replaces=f"{PROBE}:78", layout="probe", views="fused", b=256,
+         lq=272, lk=257, h=16, d=88, scale=1.0, bias=False),
+    dict(name="attention_sect", at="probe", path="tmajor_variants",
+         replaces=f"{PROBE}:118", layout="probe", views="section_major",
+         b=256, lq=272, lk=257, h=16, d=88, scale=1.0, bias=False),
 ]
 GRADS = ("dq", "dk", "dv", "dbias")
 SOURCE = "vast_tpu_torch/csrc/flash_attention.cu"
@@ -324,8 +345,12 @@ def fwd_case(torch, spec, dtype, gen):
         as_out=lambda o: o)
 
 
-def fwd_kernel_row(torch, spec, dtype, gen):
-    case = fwd_case(torch, spec, dtype, gen)
+def fwd_kernel_row(torch, spec, dtype, gen, case=None):
+    """A forward kernel against its plain version, and the times of both
+    and of the library call, on ``case`` (default: :func:`fwd_case`'s).
+    ``case["p_roundings"]``: how many of the two round the softmax weights
+    to bf16 (1: the kernel alone)."""
+    case = case or fwd_case(torch, spec, dtype, gen)
     out = case["run"]()
     torch.cuda.synchronize()
     ref = case["plain"]()
@@ -344,9 +369,10 @@ def fwd_kernel_row(torch, spec, dtype, gen):
         # |v| in the output, and both round the output to bf16 once (one
         # ulp, <= 2^-7 x max |out|)
         v_max = case["v"].float().abs().max().item()
-        tol = ref_max * 2 ** -7 + v_max * 2 ** -8
+        rounds = case.get("p_roundings", 1)
+        tol = ref_max * 2 ** -7 + v_max * 2 ** -8 * rounds
         why = ("one bf16 ulp of max |out| (2^-7) plus bf16 rounding of p "
-               "(2^-8 x max |v|)")
+               "(2^-8 x max |v|" + (", on each side)" if rounds > 1 else ")"))
         # each of the two roundings errs by at most 2^-8 relative, less in
         # rms; a dropped or misweighted key costs percents
         rms_tol = 2 ** -6
@@ -525,11 +551,46 @@ def hmajor_bwd_row(torch, spec, dtype, gen):
                 flops=10.0 * b * h * lq * lk * d)
 
 
-def phase_kernels(torch, device_name):
+def bound(torch, device_name, nbytes_, flops, dtype):
+    """The least time the card could take, ms, and what bounds it: the
+    bytes over the memory rate, or the operations over the peak rate of
+    ``dtype``."""
     bf16_peak, fp32_peak, hbm = peaks_for(device_name)
+    peak = bf16_peak if dtype == torch.bfloat16 else fp32_peak
+    t_bytes, t_ops = nbytes_ / hbm * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_row(torch, device_name, phase, spec, dtype, r):
+    """The emitted row of one kernel measurement ``r`` at ``spec``."""
+    bound_ms, bound_by = bound(torch, device_name, r["bytes"], r["flops"],
+                               dtype)
+    row = {
+        "phase": phase, "name": spec["name"], "at": spec["at"],
+        "replaces": spec["replaces"],
+        "dtype": str(dtype).replace("torch.", ""),
+        "shape": {k: spec[k] for k in ("b", "lq", "lk", "h", "d")}
+        | {"bias": "per-sample" if spec["bias"] else None,
+           "views": spec.get("views")},
+        "errors": r["errors"],
+        "max_abs_err": max(e["max_abs_err"] for e in r["errors"].values()),
+        "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "library_ms": r["library_ms"], "library_note": r["library_note"],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes": r["bytes"], "flops": r["flops"],
+    }
+    if "library_max_abs_err" in r:
+        row["library_max_abs_err"] = r["library_max_abs_err"]
+    return row
+
+
+def phase_kernels(torch, device_name):
+    """Every row of KERNELS but the probe's (phase tmajor_variants)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
     for i, spec in enumerate(KERNELS):
+        if spec["layout"] == "probe":
+            continue
         for dtype in (torch.bfloat16, torch.float32):
             if spec["layout"] == "tmajor_bwd":
                 r = tmajor_bwd_row(torch, spec, dtype, gen)
@@ -537,31 +598,145 @@ def phase_kernels(torch, device_name):
                 r = hmajor_bwd_row(torch, spec, dtype, gen)
             else:
                 r = fwd_kernel_row(torch, spec, dtype, gen)
-            peak = bf16_peak if dtype == torch.bfloat16 else fp32_peak
-            t_bytes, t_ops = r["bytes"] / hbm * 1e3, r["flops"] / peak * 1e3
-            row = {
-                "phase": "kernels", "name": spec["name"], "at": spec["at"],
-                "replaces": spec["replaces"],
-                "dtype": str(dtype).replace("torch.", ""),
-                "shape": {k: spec[k] for k in ("b", "lq", "lk", "h", "d")}
-                | {"bias": "per-sample" if spec["bias"] else None,
-                   "views": spec.get("views")},
-                "errors": r["errors"],
-                "max_abs_err": max(e["max_abs_err"]
-                                   for e in r["errors"].values()),
-                "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-                "library_ms": r["library_ms"],
-                "library_note": r["library_note"],
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": r["bytes"], "flops": r["flops"],
-            }
-            if "library_max_abs_err" in r:
-                row["library_max_abs_err"] = r["library_max_abs_err"]
+            row = kernel_row(torch, device_name, "kernels", spec, dtype, r)
             emit(row)
             rows[(i, dtype)] = row
             torch.cuda.empty_cache()
     return rows
+
+
+def probe_case(torch, spec, inputs, dtype):
+    """A probe kernel's case for :func:`fwd_kernel_row` on the probe's data
+    in ``dtype``: the wrapper, its plain version (which rounds p / l to
+    bf16 as the kernel rounds p) and SDPA on the same q, k, v views over
+    the first lk_true keys at scale 1, a yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    from vast_tpu_torch.scripts import bench_tmajor_variants as tv
+
+    b, lq, lk, h, d = (spec[k] for k in ("b", "lq", "lk", "h", "d"))
+    sect = spec.get("views") == "section_major"
+    x = inputs["sect" if sect else "fused"].to(dtype)
+    q, k, v = tv.qkv_views(x, h, section_major=sect)
+    kernel = getattr(tv, spec["name"])
+    plain = getattr(tv, "_" + spec["name"] + "_plain")
+    return dict(
+        inputs=[x], v=v, p_roundings=2,
+        run=lambda: kernel(x, heads=h, lk_true=lk),
+        plain=lambda: plain(x, heads=h, lk_true=lk),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k[:, :, :lk], v[:, :, :lk], scale=1.0),
+        as_out=lambda o: o.transpose(1, 2).reshape(b, lq, h * d))
+
+
+def probe_turns(torch, tv, inputs, heads, lk):
+    """The layouts' forwards in turns (cur, dma, sect, sect, dma, cur,
+    cur, dma, sect; each :func:`time_ms`) at the probe's shape and at
+    EVA's slice shape (B 64, L 257, no mask: the probe's first rows), so
+    that row 1's cp.async body and the copy engine's are compared within
+    one call on one card; and each one's device time by the profiler
+    (CUPTI) over 10 calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vast_tpu_torch.ops import flash_attention as fa
+
+    for b, l, lk_true in ((tv.B, tv.LP, lk), (64, 257, 0)):
+        fused = inputs["fused"][:b, :l].contiguous()
+        sect = inputs["sect"][:b, :l].contiguous()
+        fns = {"cur": lambda: fa.self_attention_tmajor(
+                   fused, heads=heads, lk_true=lk_true),
+               "dma": lambda: tv.attention_dma(fused, heads=heads,
+                                               lk_true=lk_true),
+               "sect": lambda: tv.attention_sect(sect, heads=heads,
+                                                 lk_true=lk_true)}
+        turns = {k: [] for k in fns}
+        for k in ("cur", "dma", "sect", "sect", "dma", "cur", "cur", "dma",
+                  "sect"):
+            turns[k].append(time_ms(torch, fns[k]))
+        device_us = {}
+        for k, fn in fns.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            device_us[k] = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 10
+        emit({"phase": "tmajor_variants_turns", "b": b, "l": l,
+              "lk_true": lk_true, "ms_in_turns": turns,
+              "device_us_per_call": device_us})
+
+
+def phase_tmajor_variants(torch, device_name):
+    """The port's layout probe at its full shape: its ``run`` with the
+    launch counters zeroed just before and read just after (one launch
+    per wrapper call: its dma and sect kernels, cur's and pad128's
+    token-major forward and backward), then per variant the bound and
+    SDPA's time, the layouts in turns (:func:`probe_turns`), then the
+    rows of its two kernels (bf16 and fp32, against their plain versions
+    and against cur). Returns those rows and the run's launches."""
+    import torch.nn.functional as F
+
+    from vast_tpu_torch.ops import flash_attention as fa
+    from vast_tpu_torch.scripts import bench_tmajor_variants as tv
+
+    heads, lk = tv.H, tv.LK_TRUE
+    t0 = time.perf_counter()
+    inputs = tv.make_inputs()                 # the probe's data, on the card
+    torch.cuda.synchronize()
+    inputs_s = time.perf_counter() - t0
+    zero_launches(fa)
+    records = tv.run(heads=heads, lk_true=lk, inputs=inputs,
+                     emit=lambda rec: emit({"phase": "tmajor_variants"} | rec))
+    launches = dict(fa.LAUNCHES)
+    check(all("error" not in r for r in records),
+          f"probe variants failed: {records}")
+    calls = {r["variant"]: r["calls"] for r in records}
+    want = {k: 0 for k in launches} | {
+        "attention_dma": calls["dma"]["fwd"],
+        "attention_sect": calls["sect"]["fwd"],
+        "tmajor_attention_fwd": calls["cur"]["fwd"] + calls["pad128"]["fwd"],
+        "tmajor_attention_bwd": calls["cur"]["bwd"] + calls["pad128"]["bwd"]}
+    check(launches == want, f"probe launches {launches} != one per call "
+          f"{want}")
+
+    for rec in records:
+        layout = {"cur": "fused", "dma": "fused"}.get(rec["variant"],
+                                                      rec["variant"])
+        x = inputs[layout]
+        q, k, v = tv.qkv_views(x, heads, section_major=layout == "sect")
+        b, _, lp, d = q.shape
+        bound_ms, bound_by = bound(
+            torch, device_name, nbytes(x) + b * lp * heads * d * 2,
+            4.0 * b * heads * lp * lk * d, torch.bfloat16)
+        sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k[:, :, :lk], v[:, :, :lk], scale=1.0))
+        emit({"phase": "tmajor_variants_summary"} | rec
+             | {"bound_ms": bound_ms, "bound_by": bound_by,
+                "sdpa_ms": sdpa_ms})
+    probe_turns(torch, tv, inputs, heads, lk)
+
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cur_small = fa.self_attention_tmajor(
+            inputs["fused"].to(dtype), heads=heads, lk_true=lk)[:2].float()
+        for i, spec in enumerate(KERNELS):
+            if spec["layout"] != "probe":
+                continue
+            case = probe_case(torch, spec, inputs, dtype)
+            r = fwd_kernel_row(torch, spec, dtype, None, case)
+            cur_err = (case["run"]()[:2].float()
+                       - cur_small).abs().max().item()
+            check(cur_err <= tv.CROSS_ATOL, f"{spec['name']} {dtype}: first "
+                  f"two rows {cur_err} from cur's > {tv.CROSS_ATOL}")
+            row = kernel_row(torch, device_name, "tmajor_variants_kernels",
+                             spec, dtype, r) | {"cur_max_abs_err": cur_err}
+            emit(row)
+            rows[(i, dtype)] = row
+            torch.cuda.empty_cache()
+    emit({"phase": "tmajor_variants_time", "inputs_s": inputs_s,
+          "seconds": time.perf_counter() - t0})
+    return rows, launches
 
 
 def tiny_bert(**remat):
@@ -1230,6 +1405,9 @@ def main():
     name = phase_device(torch)
     phase_build()
     rows = phase_kernels(torch, name)
+    probe_rows, probe_launches = phase_tmajor_variants(torch, name)
+    rows |= probe_rows
+    torch.cuda.empty_cache()
     phase_tiny(torch, np)
     launches, model, batches, run_cfg = phase_slice(torch, np)
     phase_profile(torch, model, batches, run_cfg)
@@ -1260,6 +1438,8 @@ def main():
         ("flash_attention_fwd_lse", "ast"): ca_lse_by_tower["audio"],
         ("flash_attention_bwd", "clip_l14_336"): ca_bwd_by_lq[577],
         ("flash_attention_bwd", "ast"): ca_bwd_by_lq[257],
+        ("attention_dma", "probe"): probe_launches["attention_dma"],
+        ("attention_sect", "probe"): probe_launches["attention_sect"],
     }
     emit({"kernels": kernels_line(
         [rows[(i, torch.bfloat16)] for i in range(len(KERNELS))],

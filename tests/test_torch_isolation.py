@@ -61,7 +61,8 @@ def test_importing_the_port_loads_no_vast_tpu_module():
             "vast_tpu_torch.convert.from_jax, "
             "vast_tpu_torch.training.step, "
             "vast_tpu_torch.training.optimizer, "
-            "vast_tpu_torch.models.remat; "
+            "vast_tpu_torch.models.remat, "
+            "vast_tpu_torch.scripts.bench_tmajor_variants; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] == 'vast_tpu'))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

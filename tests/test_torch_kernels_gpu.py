@@ -13,7 +13,11 @@ CLIP-L/14-336's 577 x 16 x 64 read out of its packed projection, AST's
 and the edges of the kernels' tiling: L of 1 and of tiles plus one, D
 from 1 to 128, lk_true, shared and broadcast biases, strided views, and
 rows whose keys are all masked; for the head-major kernels the lse
-forward and the backward (with and without a bias and its ds).
+forward and the backward (with and without a bias and its ds); and the
+token-major layout probe's two kernels (attention_dma through the copy
+engine, attention_sect) at the probe's shape (256 x 272 x 16 x 88,
+lk_true 257) and a ragged one, and attention_dma's refusal of rows the
+copy engine cannot read.
 """
 
 import pytest
@@ -394,3 +398,100 @@ def test_flash_grad_on_cuda_goes_through_the_kernels(cuda):
         fa.flash_attention(q.clone().requires_grad_(True), k, v)
     launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
     assert launched == {k: int(k == "flash_attention_fwd") for k in before}
+
+
+VARIANT_CASES = {
+    # name: (B, L, H, D, lk_true)
+    # the layout probe's shape: EVA01-g's flagship attention, 32 clips x 8
+    # frames, 257 tokens padded to 272
+    "probe": (256, 272, 16, 88, 257),
+    "ragged": (3, 257, 16, 88, 200),
+}
+
+
+def probe_tolerance(ref_max, v_max, dtype):
+    """The probe kernels' max abs error against their plain versions. bf16:
+    each side rounds every softmax weight to bf16 once (the kernel p before
+    the division by l, the plain version p / l), <= 2^-8 of max |v| each,
+    and rounds the output once (one ulp, 2^-7 of max |out| between them).
+    fp32: another summation order over <= 257 keys."""
+    if dtype == torch.bfloat16:
+        return ref_max * 2 ** -7 + v_max * 2 ** -7
+    return 2e-5 * max(ref_max, 1.0)
+
+
+def variant_qkv(case, dtype, cuda):
+    """The same values as a fused per-head [q|k|v] qkv and section-major;
+    q scaled by D^-0.5, as the probe's callers bake the scale into q."""
+    b, l, h, d, _ = VARIANT_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(b, l, h, 3, d, device=cuda, generator=gen)
+    x[:, :, :, 0] *= d ** -0.5
+    x = x.to(dtype)
+    return (x.reshape(b, l, h * 3 * d),
+            x.transpose(2, 3).reshape(b, l, 3 * h * d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(VARIANT_CASES))
+@pytest.mark.parametrize("kernel", ["attention_dma", "attention_sect"])
+def test_tmajor_variant_kernel_matches_plain(cuda, kernel, case, dtype):
+    from vast_tpu_torch.scripts import bench_tmajor_variants as tv
+
+    b, l, h, d, lk_true = VARIANT_CASES[case]
+    fused, sect = variant_qkv(case, dtype, cuda)
+    qkv = fused if kernel == "attention_dma" else sect
+    before = dict(fa.LAUNCHES)
+    out = getattr(tv, kernel)(qkv, heads=h, lk_true=lk_true)
+    torch.cuda.synchronize()
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: int(k == kernel) for k in before}
+    assert out.dtype == dtype and tuple(out.shape) == (b, l, h * d)
+    plain = getattr(tv, "_" + kernel + "_plain")
+    ref = plain(qkv, heads=h, lk_true=lk_true).float()
+    diff = out.float() - ref
+    err = diff.abs().max().item()
+    ref_max = ref.abs().max().item()
+    v_max = fused.view(b, l, h, 3, d)[..., 2, :].float().abs().max().item()
+    assert err <= probe_tolerance(ref_max, v_max, dtype), (err, ref_max)
+    if dtype == torch.bfloat16:
+        rms = (diff.square().mean() / ref.square().mean()).sqrt().item()
+        assert rms <= 2 ** -6, rms
+    # the other layout of the same values, through the other kernel
+    other = tv.attention_sect(sect, heads=h, lk_true=lk_true) \
+        if kernel == "attention_dma" else \
+        tv.attention_dma(fused, heads=h, lk_true=lk_true)
+    assert (other.float() - out.float()).abs().max().item() <= 2 * err + 1e-6
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 12), (torch.float32, 6)],
+                         ids=["bf16_d12", "fp32_d6"])
+def test_dma_kernel_raises_on_rows_the_copy_engine_cannot_read(cuda, dtype,
+                                                               d):
+    """D x itemsize = 24 bytes, not a multiple of 16: the copy engine
+    cannot read the strips, so attention_dma raises and launches nothing
+    (it does not fall back to another kernel); attention_sect's kernel
+    reads that layout with plain loads."""
+    from vast_tpu_torch.scripts import bench_tmajor_variants as tv
+
+    b, l, h = 2, 40, 3
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    qkv = torch.randn(b, l, h * 3 * d, device=cuda, generator=gen).to(dtype)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(RuntimeError, match="copy engine"):
+        tv.attention_dma(qkv, heads=h)
+    assert fa.LAUNCHES == before
+    # D x itemsize a multiple of 16, the base 2 elements past a 16-byte
+    # boundary: refused too
+    with pytest.raises(RuntimeError, match="copy engine"):
+        tv.attention_dma(torch.zeros(b * l * h * 3 * 16 + 2, device=cuda,
+                                     dtype=dtype)[2:].view(b, l, h * 3 * 16),
+                         heads=h)
+    assert fa.LAUNCHES == before
+    out = tv.attention_sect(qkv, heads=h)
+    torch.cuda.synchronize()
+    ref = tv._attention_sect_plain(qkv, heads=h).float()
+    v_max = qkv.view(b, l, 3, h, d)[:, :, 2].float().abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= probe_tolerance(
+        ref.abs().max().item(), v_max, dtype)

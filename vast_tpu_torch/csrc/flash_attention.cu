@@ -11,11 +11,15 @@
 //   the backward kernels, listed and described at their kernels below:
 //   _tmajor_bwd_kernel(_bias) (:795, :841) and flash_attention_bwd's
 //   fused and tiled kernels (:321, :363, :372, :413, :451)
+// and the two of scripts/bench_tmajor_variants.py, the token-major layout
+// probe: attention_dma (:78) and _sect_kernel (:118), described at their
+// entries at the end of this file.
 // One forward kernel body serves every forward: it reads q, k, v, the output and the
 // bias through (batch, head, row) element strides, so the token-major fused
 // qkv layout and the head-major layout differ only in the strides the two
 // C entry points pass; one backward body serves every backward the same
-// way.
+// way. The body takes its tiles from a loader: threads issuing cp.async
+// through the strides, or (attention_dma's counterpart) the copy engine.
 //
 // Contract. Per (batch b, head h):
 //   s = (q . k^T) * scale  [+ bias[b, h]]   in fp32,
@@ -41,7 +45,8 @@
 // memory and the bias is read exactly once. D is padded nowhere in device
 // memory: loads and stores are masked at D and at the sequence ends, and
 // the padding to the tensor-core tile lives in shared memory only. What it
-// does not do yet: TMA and wgmma, and the query tiles of one head each
+// does not do yet: wgmma; the copy engine (TMA) anywhere but attention_dma's
+// entry, whose loader is below; and the query tiles of one head each
 // re-read its K/V (from L2). Those are later work.
 //
 // Two forward kernels:
@@ -61,6 +66,7 @@
 //   to TF32). 8 warps x 8 query rows; in q . k^T each lane owns one key
 //   of a 32-key tile, in p . v each lane owns head dims lane + 32c.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -213,20 +219,51 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+// The bf16 forward's loader through the operands' strides: every thread
+// issues cp.async copies (load_tile), rows past the sequence ends and
+// columns past D zero. A loader brings the q tile with the first k/v tile
+// (first), one k/v tile into a buffer while the previous one is computed
+// (next), and waits for tile `it` (wait; `more`: a later one is in flight).
+// The copy engine's loader, TmaTiles, is at attention_dma's counterpart.
+template <int DP>
+struct CpAsyncTiles {
+  const __nv_bfloat16 *qg, *kg, *vg;    // the block's (b, h) planes
+  long long q_rs, k_rs, v_rs;
+  int lq, kend, d;
+  bool vec;
+
+  __device__ __forceinline__ void first(__nv_bfloat16* qs, __nv_bfloat16* ks,
+                                        __nv_bfloat16* vs, int q0) const {
+    load_tile<kMmaBlockQ, DP>(qs, qg, q_rs, q0, lq, d, vec);
+    next(ks, vs, 0, 0);
+  }
+  __device__ __forceinline__ void next(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                       int k0, int /*stage*/) const {
+    load_tile<kMmaBlockK, DP>(ks, kg, k_rs, k0, kend, d, vec);
+    load_tile<kMmaBlockK, DP>(vs, vg, v_rs, k0, kend, d, vec);
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void wait(int /*it*/, bool more) const {
+    if (more) cp_async_wait<1>(); else cp_async_wait<0>();
+  }
+};
+
 // Fragment layouts of mma.m16n8k16 (PTX ISA), g = lane / 4, t = lane % 4:
 //   A (16 x 16, row): a0 (g, 2t..2t+1) a1 (g+8, 2t..) a2 (g, 2t+8..)
 //                     a3 (g+8, 2t+8..)
 //   B (16 x 8, col):  b0 (k 2t..2t+1, n g) b1 (k 2t+8.., n g)
 //   C (16 x 8):       c0,c1 (g, 2t, 2t+1) c2,c3 (g+8, 2t, 2t+1)
-template <int DP, typename BiasT>
-__global__ void __launch_bounds__(kMmaWarps * 32, kMmaBlocksPerSm)
-attention_fwd_mma_kernel(const Params p, bool vec) {
+// The block's body over shared memory `smem` (MmaSmem<DP>::kBytes), its
+// tiles from `tiles`.
+template <int DP, typename BiasT, typename Tiles>
+__device__ __forceinline__ void attention_fwd_mma(const Params& p,
+                                                  const Tiles& tiles,
+                                                  unsigned char* smem) {
   using S = MmaSmem<DP>;
   constexpr int kSteps = DP / 16;               // k-steps of q . k^T
   constexpr int kScoreTiles = kMmaBlockK / 8;   // n-tiles of the scores
   constexpr int kOutTiles = DP / 8;             // n-tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   // buffer j of k at kv + 2j * tile, of v at kv + (2j + 1) * tile
   __nv_bfloat16* kv = qs + kMmaBlockQ * S::kLd;
   constexpr int kTile = kMmaBlockK * S::kLd;
@@ -237,19 +274,9 @@ attention_fwd_mma_kernel(const Params p, bool vec) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int lq = p.lq, kend = p.kend, D = p.d;
-  const long long k_rs = p.st[kK][2], v_rs = p.st[kV][2];
-  const auto* qg =
-      plane<const __nv_bfloat16>(p.in[kQ], p.st[kQ][0], p.st[kQ][1], b, h);
-  const auto* kg =
-      plane<const __nv_bfloat16>(p.in[kK], p.st[kK][0], p.st[kK][1], b, h);
-  const auto* vg =
-      plane<const __nv_bfloat16>(p.in[kV], p.st[kV][0], p.st[kV][1], b, h);
 
   // the q tile and the first k/v tile, in flight together
-  load_tile<kMmaBlockQ, DP>(qs, qg, p.st[kQ][2], q0, lq, D, vec);
-  load_tile<kMmaBlockK, DP>(kv, kg, k_rs, 0, kend, D, vec);
-  load_tile<kMmaBlockK, DP>(kv + kTile, vg, v_rs, 0, kend, D, vec);
-  cp_async_commit();
+  tiles.first(qs, kv, kv + kTile, q0);
   const int wr = warp * 16;                     // the warp's first row
   // a warp whose rows all lie past Lq only helps load the tiles
   const bool active = q0 + wr < lq;
@@ -270,16 +297,12 @@ attention_fwd_mma_kernel(const Params p, bool vec) {
   const int n_tiles = (kend + kMmaBlockK - 1) / kMmaBlockK;
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * kMmaBlockK;
-    if (it + 1 < n_tiles) {       // the next tile loads while this one runs
+    const bool more = it + 1 < n_tiles;
+    if (more) {                   // the next tile loads while this one runs
       __nv_bfloat16* nxt = kv + 2 * ((it + 1) & 1) * kTile;
-      load_tile<kMmaBlockK, DP>(nxt, kg, k_rs, k0 + kMmaBlockK, kend, D, vec);
-      load_tile<kMmaBlockK, DP>(nxt + kTile, vg, v_rs, k0 + kMmaBlockK, kend,
-                                D, vec);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+      tiles.next(nxt, nxt + kTile, k0 + kMmaBlockK, (it + 1) & 1);
     }
+    tiles.wait(it, more);
     __syncthreads();              // tile `it` (and q) visible to all warps
     const __nv_bfloat16* ks = kv + 2 * (it & 1) * kTile;
     const __nv_bfloat16* vs = ks + kTile;
@@ -398,6 +421,19 @@ attention_fwd_mma_kernel(const Params p, bool vec) {
 }
 
 template <int DP, typename BiasT>
+__global__ void __launch_bounds__(kMmaWarps * 32, kMmaBlocksPerSm)
+attention_fwd_mma_kernel(const Params p, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const CpAsyncTiles<DP> tiles{
+      plane<const __nv_bfloat16>(p.in[kQ], p.st[kQ][0], p.st[kQ][1], b, h),
+      plane<const __nv_bfloat16>(p.in[kK], p.st[kK][0], p.st[kK][1], b, h),
+      plane<const __nv_bfloat16>(p.in[kV], p.st[kV][0], p.st[kV][1], b, h),
+      p.st[kQ][2], p.st[kK][2], p.st[kV][2], p.lq, p.kend, p.d, vec};
+  attention_fwd_mma<DP, BiasT>(p, tiles, smem_raw);
+}
+
+template <int DP, typename BiasT>
 cudaError_t launch_mma(const Params& p, int B, int H, cudaStream_t stream) {
   // 16-byte copies need D, every stride of q/k/v and their bases to be
   // multiples of 8 elements (16 bytes)
@@ -456,14 +492,52 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename BiasT>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_fwd_fp32_kernel(const Params p) {
+// The fp32 forward's loader through the operands' strides: plain loads by
+// every thread, zero past the sequence ends. A loader brings the q tile
+// (q; visible after the next __syncthreads) and a k/v tile (kv; `it`
+// counts the tiles), and gives the k tile's row stride (k_ld): d + 1 here,
+// odd, so that the 32 lanes, each on its own key, read 32 banks. The copy
+// engine's loader, TmaF32Tiles, is at attention_dma's counterpart.
+struct PlainF32Tiles {
+  const float *qg, *kg, *vg;            // the block's (b, h) planes
+  long long q_rs, k_rs, v_rs;
+  int lq, kend, d;
+
+  __device__ __forceinline__ int k_ld() const { return d + 1; }
+  __device__ __forceinline__ void q(float* qs, int q0) const {
+    for (int i = threadIdx.x; i < kBlockQ * d; i += blockDim.x) {
+      const int r = i / d, c = i - r * d;
+      const int row = q0 + r;
+      qs[i] = row < lq ? qg[(long long)row * q_rs + c] : 0.f;
+    }
+  }
+  __device__ __forceinline__ void kv(float* ks, float* vs, int k0,
+                                     int /*it*/) const {
+    for (int i = threadIdx.x; i < kBlockK * d; i += blockDim.x) {
+      const int j = i / d, c = i - j * d;
+      const int key = k0 + j;
+      float kx = 0.f, vx = 0.f;
+      if (key < kend) {
+        kx = kg[(long long)key * k_rs + c];
+        vx = vg[(long long)key * v_rs + c];
+      }
+      ks[j * (d + 1) + c] = kx;
+      vs[j * d + c] = vx;
+    }
+  }
+};
+
+// The block's body over shared memory `smem`: q [kBlockQ][D], then k
+// [kBlockK][k_ld], then v [kBlockK][D]; its tiles from `tiles`.
+template <typename BiasT, typename Tiles>
+__device__ __forceinline__ void attention_fwd_fp32(const Params& p,
+                                                   const Tiles& tiles,
+                                                   float* smem) {
   const int D = p.d, lq = p.lq, kend = p.kend;
-  extern __shared__ float smem[];
-  float* qs = smem;                       // [kBlockQ][D]
-  float* ks = qs + kBlockQ * D;           // [kBlockK][D + 1], odd stride
-  float* vs = ks + kBlockK * (D + 1);     // [kBlockK][D]
+  const int kld = tiles.k_ld();
+  float* qs = smem;
+  float* ks = qs + kBlockQ * D;
+  float* vs = ks + kBlockK * kld;
 
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
@@ -471,19 +545,8 @@ attention_fwd_fp32_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const float* qg =
-      plane<const float>(p.in[kQ], p.st[kQ][0], p.st[kQ][1], b, h);
-  const float* kg =
-      plane<const float>(p.in[kK], p.st[kK][0], p.st[kK][1], b, h);
-  const float* vg =
-      plane<const float>(p.in[kV], p.st[kV][0], p.st[kV][1], b, h);
-  const long long q_rs = p.st[kQ][2], k_rs = p.st[kK][2], v_rs = p.st[kV][2];
 
-  for (int i = tid; i < kBlockQ * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D;
-    const int q = q0 + r;
-    qs[i] = q < lq ? qg[(long long)q * q_rs + d] : 0.f;
-  }
+  tiles.q(qs, q0);
 
   float m[kRowsPerWarp], l[kRowsPerWarp], o[kRowsPerWarp][kDimsPerLane];
 #pragma unroll
@@ -501,19 +564,9 @@ attention_fwd_fp32_kernel(const Params p) {
   }
   const float* qw = qs + warp * kRowsPerWarp * D;
 
-  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
+  for (int k0 = 0, it = 0; k0 < kend; k0 += kBlockK, ++it) {
     __syncthreads();  // the previous tile is consumed (and q is loaded)
-    for (int i = tid; i < kBlockK * D; i += blockDim.x) {
-      const int j = i / D, d = i - j * D;
-      const int key = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (key < kend) {
-        kx = kg[(long long)key * k_rs + d];
-        vx = vg[(long long)key * v_rs + d];
-      }
-      ks[j * (D + 1) + d] = kx;
-      vs[j * D + d] = vx;
-    }
+    tiles.kv(ks, vs, k0, it);
     __syncthreads();
 
     const int key = k0 + lane;
@@ -521,7 +574,7 @@ attention_fwd_fp32_kernel(const Params p) {
     float s[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
-    const float* kr = ks + lane * (D + 1);
+    const float* kr = ks + lane * kld;
     for (int d = 0; d < D; ++d) {
       const float kd = kr[d];
 #pragma unroll
@@ -581,6 +634,19 @@ attention_fwd_fp32_kernel(const Params p) {
       if (d < D) orow[d] = o[r][c] * inv;
     }
   }
+}
+
+template <typename BiasT>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_fwd_fp32_kernel(const Params p) {
+  extern __shared__ float smem[];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const PlainF32Tiles tiles{
+      plane<const float>(p.in[kQ], p.st[kQ][0], p.st[kQ][1], b, h),
+      plane<const float>(p.in[kK], p.st[kK][0], p.st[kK][1], b, h),
+      plane<const float>(p.in[kV], p.st[kV][0], p.st[kV][1], b, h),
+      p.st[kQ][2], p.st[kK][2], p.st[kV][2], p.lq, p.kend, p.d};
+  attention_fwd_fp32<BiasT>(p, tiles, smem);
 }
 
 template <typename BiasT>
@@ -1433,6 +1499,306 @@ cudaError_t run_bwd(const BwdParams& p, int dtype, int bias_dtype,
   return cudaErrorInvalidValue;
 }
 
+// The Params of a token-major qkv (B, L, 3*H*D) whose head h has q, k and
+// v at elements h * head + j * part (j = 0, 1, 2) of each row, and of the
+// output (B, L, H*D). Fused per-head [q|k|v]: head 3D, part D; the
+// section-major [Q_all|K_all|V_all]: head D, part H*D.
+Params tmajor_params(const void* qkv, void* out, int dtype, int L, int H,
+                     int D, int kend, float scale, long long head,
+                     long long part) {
+  const long long es = dtype == kF32 ? 4 : 2, row = 3LL * H * D;
+  Params p = {};
+  for (int o = kQ; o <= kV; ++o) {
+    p.in[o] = static_cast<const char*>(qkv) + o * part * es;
+    p.st[o][0] = L * row;
+    p.st[o][1] = head;
+    p.st[o][2] = row;
+  }
+  p.st[kO][0] = (long long)L * H * D;
+  p.st[kO][1] = D;
+  p.st[kO][2] = (long long)H * D;
+  p.out = out;
+  p.lq = L;
+  p.kend = kend;
+  p.d = D;
+  p.heads = H;
+  p.scale = scale;
+  return p;
+}
+
+// ---------------------------------------------------------------------
+// The copy engine (TMA): attention_dma's counterpart
+// ---------------------------------------------------------------------
+//
+// Replaces scripts/bench_tmajor_variants.py attention_dma (:78, inline
+// body :87, pallas_call :102). There each (group of 4 batch rows, head)
+// grid step leaves qkv in HBM and copies one head's misaligned [q|k|v]
+// strip (Lp x 3*88) into VMEM with make_async_copy and a DMA semaphore
+// (:90-94), then computes softmax(q . k^T masked to lk_true) . v, unscaled
+// (_softmax_av :62). The TPU's DMA engine refused those lane offsets and
+// the kernel ran only in interpret mode; Hopper's copy engine takes any
+// 16-byte-aligned strip: head h's q, k and v start at 2 * (3h + j) * 88
+// bytes of a 8448-byte row (bf16), each 176 bytes long.
+//
+// Here the fused qkv is a 4-D tensor for the copy engine, (d, section
+// 3h + j, row, batch) innermost first, and one box is one section of
+// kTmaRows rows, kLd wide: the columns past D read as zeros, so a box lands
+// as the padded tile the mma body reads, and rows past L read as zeros
+// too. One thread issues the boxes of a tile; they complete on an mbarrier
+// that was told the tile's bytes (expect_tx), the counterpart of the DMA
+// semaphore. No thread loads q, k or v itself. The block is the cp.async
+// forward's (a query tile of 128 rows of one (batch row, head), keys in
+// tiles of 64 through two buffers with an online softmax, so any L fits);
+// while tile i is computed, tile i + 1 is in flight. Bound: bytes, as the
+// forward (qkv read once, the output written once).
+// fp32 (off the probe's path): the CUDA-core body, each k/v tile through
+// one barrier and waited for at once; its k rows lie D apart (the box),
+// not D + 1, so the lanes' reads of 32 keys share banks.
+
+constexpr int kTmaRows = kMmaBlockK;   // rows of one bf16 box (<= 256)
+static_assert(kMmaBlockQ % kTmaRows == 0, "q tile of whole boxes");
+static_assert(kBlockQ % kBlockK == 0, "fp32 q tile of whole boxes");
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// the copy engine writes shared memory at 128-byte aligned addresses
+__device__ __forceinline__ unsigned char* align_128(unsigned char* ptr) {
+  return ptr + ((128u - (smem_u32(ptr) & 127u)) & 127u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// two barriers of one arrival each, ready for the copy engine
+__device__ __forceinline__ void mbar_init_pair(uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// arrive, and expect `bytes` from the copy engine in the current phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred ready;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 ready, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, ready;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// the box of `map` at coordinates (c0, c1, c2, c3), innermost first, into
+// shared memory at dst; its bytes complete on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The bf16 loader of the copy engine (the interface of CpAsyncTiles): the
+// first tile and q land on bar[0], then tile `it` on bar[it & 1], the
+// phase of parity (it >> 1) & 1. Buffer `stage` is refilled only after the
+// __syncthreads that ends its previous tile's computation.
+template <int DP>
+struct TmaTiles {
+  static constexpr int kLd = MmaSmem<DP>::kLd;
+  static constexpr unsigned kBoxBytes =
+      kTmaRows * kLd * sizeof(__nv_bfloat16);
+  const CUtensorMap* map;
+  uint64_t* bar;
+  int h, b;
+
+  __device__ __forceinline__ void kv(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                     int k0, uint64_t* at) const {
+    tma_load_4d(ks, map, at, 0, 3 * h + 1, k0, b);
+    tma_load_4d(vs, map, at, 0, 3 * h + 2, k0, b);
+  }
+  __device__ __forceinline__ void first(__nv_bfloat16* qs, __nv_bfloat16* ks,
+                                        __nv_bfloat16* vs, int q0) const {
+    if (threadIdx.x != 0) return;
+    mbar_arrive_expect_tx(bar, (kMmaBlockQ / kTmaRows + 2) * kBoxBytes);
+    for (int r = 0; r < kMmaBlockQ; r += kTmaRows)
+      tma_load_4d(qs + r * kLd, map, bar, 0, 3 * h, q0 + r, b);
+    kv(ks, vs, 0, bar);
+  }
+  __device__ __forceinline__ void next(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                       int k0, int stage) const {
+    if (threadIdx.x != 0) return;
+    mbar_arrive_expect_tx(bar + stage, 2 * kBoxBytes);
+    kv(ks, vs, k0, bar + stage);
+  }
+  __device__ __forceinline__ void wait(int it, bool /*more*/) const {
+    mbar_wait(bar + (it & 1), (it >> 1) & 1);
+  }
+};
+
+// The fp32 loader of the copy engine (the interface of PlainF32Tiles): q
+// on bar[0], each k/v tile on bar[1], both waited for at once.
+struct TmaF32Tiles {
+  const CUtensorMap* map;
+  uint64_t* bar;
+  int h, b, d;
+
+  __device__ __forceinline__ int k_ld() const { return d; }
+  __device__ __forceinline__ void q(float* qs, int q0) const {
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar, kBlockQ * d * sizeof(float));
+      for (int r = 0; r < kBlockQ; r += kBlockK)
+        tma_load_4d(qs + r * d, map, bar, 0, 3 * h, q0 + r, b);
+    }
+    mbar_wait(bar, 0);
+  }
+  __device__ __forceinline__ void kv(float* ks, float* vs, int k0,
+                                     int it) const {
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar + 1, 2 * kBlockK * d * sizeof(float));
+      tma_load_4d(ks, map, bar + 1, 0, 3 * h + 1, k0, b);
+      tma_load_4d(vs, map, bar + 1, 0, 3 * h + 2, k0, b);
+    }
+    mbar_wait(bar + 1, it & 1);
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaWarps * 32, kMmaBlocksPerSm)
+attention_fwd_tma_kernel(const Params p,
+                         const __grid_constant__ CUtensorMap map) {
+  extern __shared__ __align__(128) unsigned char tma_smem[];
+  unsigned char* smem = align_128(tma_smem);
+  auto* bar = reinterpret_cast<uint64_t*>(smem + MmaSmem<DP>::kBytes);
+  mbar_init_pair(bar);
+  const TmaTiles<DP> tiles{&map, bar, (int)blockIdx.y, (int)blockIdx.z};
+  attention_fwd_mma<DP, NoBias>(p, tiles, smem);
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+attention_fwd_tma_fp32_kernel(const Params p,
+                              const __grid_constant__ CUtensorMap map) {
+  extern __shared__ __align__(128) unsigned char tma_smem[];
+  unsigned char* smem = align_128(tma_smem);
+  auto* bar = reinterpret_cast<uint64_t*>(
+      smem + sizeof(float) * (kBlockQ + 2 * kBlockK) * p.d);
+  mbar_init_pair(bar);
+  const TmaF32Tiles tiles{&map, bar, (int)blockIdx.y, (int)blockIdx.z, p.d};
+  attention_fwd_fp32<NoBias>(p, tiles, reinterpret_cast<float*>(smem));
+}
+
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, asked of the driver through the runtime, so that
+// the library links the CUDA runtime alone; null if the driver has none
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The copy engine's map of a fused qkv (B, L, 3*H*D): (d, section, row,
+// batch), boxes of box_d x 1 x box_rows x 1 (box_d > D reads zeros)
+cudaError_t encode_qkv_map(CUtensorMap* map, const void* qkv, int dtype,
+                           int B, int L, int H, int D, int box_d,
+                           int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t es = dtype == kF32 ? 4 : 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, 3ull * H, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {D * es, 3ull * H * D * es,
+                                 3ull * H * D * es * L};
+  const cuuint32_t box[4] = {(cuuint32_t)box_d, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, dtype == kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(qkv), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DP>
+cudaError_t launch_tma(const Params& p, const void* qkv, int B, int H,
+                       cudaStream_t stream) {
+  CUtensorMap map;
+  cudaError_t err = encode_qkv_map(&map, qkv, kBf16, B, p.lq, H, p.d,
+                                   MmaSmem<DP>::kLd, kTmaRows);
+  auto kern = attention_fwd_tma_kernel<DP>;
+  const size_t smem = MmaSmem<DP>::kBytes + 2 * sizeof(uint64_t) + 128;
+  if (err == cudaSuccess) err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.lq + kMmaBlockQ - 1) / kMmaBlockQ, H, B);
+  kern<<<grid, kMmaWarps * 32, smem, stream>>>(p, map);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tma_fp32(const Params& p, const void* qkv, int B, int H,
+                            cudaStream_t stream) {
+  CUtensorMap map;
+  cudaError_t err = encode_qkv_map(&map, qkv, kF32, B, p.lq, H, p.d, p.d,
+                                   kBlockK);
+  const size_t smem =
+      sizeof(float) * (kBlockQ + 2 * kBlockK) * p.d + 2 * sizeof(uint64_t) +
+      128;
+  if (err == cudaSuccess) err = allow_smem(attention_fwd_tma_fp32_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.lq + kBlockQ - 1) / kBlockQ, H, B);
+  attention_fwd_tma_fp32_kernel<<<grid, kWarps * 32, smem, stream>>>(p, map);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_tma(const Params& p, const void* qkv, int B, int H,
+                         cudaStream_t s) {
+  switch ((p.d + 15) / 16) {
+#define VAST_TMA_CASE(N) \
+  case N:                \
+    return launch_tma<16 * N>(p, qkv, B, H, s);
+    VAST_TMA_CASE(1) VAST_TMA_CASE(2) VAST_TMA_CASE(3)
+    VAST_TMA_CASE(4) VAST_TMA_CASE(5) VAST_TMA_CASE(6)
+    VAST_TMA_CASE(7) VAST_TMA_CASE(8)
+#undef VAST_TMA_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. dtype codes: 0 = float32,
@@ -1449,27 +1815,51 @@ extern "C" int vast_tmajor_attention_fwd(const void* qkv, const void* bias,
                                          float scale, void* stream) {
   if (kend > L || (dtype != kF32 && dtype != kBf16))
     return (int)cudaErrorInvalidValue;
-  const long long es = dtype == kF32 ? 4 : 2, row = 3LL * H * D;
-  Params p = {};
-  for (int o = kQ; o <= kV; ++o) {
-    p.in[o] = static_cast<const char*>(qkv) + o * D * es;
-    p.st[o][0] = L * row;
-    p.st[o][1] = 3LL * D;
-    p.st[o][2] = row;
-  }
-  p.st[kO][0] = (long long)L * H * D;
-  p.st[kO][1] = D;
-  p.st[kO][2] = (long long)H * D;
+  Params p = tmajor_params(qkv, out, dtype, L, H, D, kend, scale, 3LL * D, D);
   p.st[kBias][0] = bias_batch_stride;
   p.st[kBias][1] = (long long)L * L;
   p.st[kBias][2] = L;
-  p.out = out;
   p.bias = bias;
-  p.lq = L;
-  p.kend = kend;
-  p.d = D;
-  p.heads = H;
-  p.scale = scale;
+  return (int)run(p, dtype, dtype, B, H, static_cast<cudaStream_t>(stream));
+}
+
+// The token-major layout probe (scripts/bench_tmajor_variants.py), its two
+// Pallas kernels. Both: qkv (B, L, 3*H*D), out (B, L, H*D) in qkv's type,
+// scale 1, keys >= kend masked (kend = L: none), every query row computed.
+
+// Row 10, attention_dma (:78): the fused per-head [q|k|v] layout, each
+// head's strips brought into shared memory by the copy engine (see "The
+// copy engine" above). Returns cudaErrorInvalidValue, and launches
+// nothing, where the copy engine cannot read the strips: D * esize or the
+// row stride not a multiple of 16 bytes, qkv not 16-byte aligned, or D >
+// 128; cudaErrorNotSupported where the driver has no tensor maps.
+extern "C" int vast_tmajor_dma_attention_fwd(const void* qkv, void* out,
+                                             int dtype, int B, int L, int H,
+                                             int D, int kend, void* stream) {
+  if (dtype != kF32 && dtype != kBf16) return (int)cudaErrorInvalidValue;
+  const long long es = dtype == kF32 ? 4 : 2;
+  if (D < 1 || D > kMaxD || (D * es) % 16 || (3LL * H * D * es) % 16 ||
+      reinterpret_cast<uintptr_t>(qkv) % 16 || L < 1 || kend < 1 ||
+      kend > L || B < 1 || H < 1 || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Params p =
+      tmajor_params(qkv, out, dtype, L, H, D, kend, 1.f, 3LL * D, D);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == kF32 ? launch_tma_fp32(p, qkv, B, H, s)
+                             : dispatch_tma(p, qkv, B, H, s));
+}
+
+// Row 11, _sect_kernel (:118): the section-major layout [Q_all | K_all |
+// V_all], head i's q at i*D, k at H*D + i*D, v at 2*H*D + i*D, read by the
+// strided forward of rows 1, 2, 5 and 6 at those offsets. Its own entry,
+// so that its launches count apart.
+extern "C" int vast_tmajor_sect_attention_fwd(const void* qkv, void* out,
+                                              int dtype, int B, int L, int H,
+                                              int D, int kend, void* stream) {
+  if (kend > L || (dtype != kF32 && dtype != kBf16))
+    return (int)cudaErrorInvalidValue;
+  const Params p = tmajor_params(qkv, out, dtype, L, H, D, kend, 1.f, D,
+                                 (long long)H * D);
   return (int)run(p, dtype, dtype, B, H, static_cast<cudaStream_t>(stream));
 }
 

@@ -22,7 +22,10 @@ from ``csrc/flash_attention.cu``:
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 it does not take; it uses its plain version (``_..._plain``) only for
 CPU tensors. ``LAUNCHES`` counts kernel launches, so a run can show that
-its path went through the kernels.
+its path went through the kernels. The two kernels of the token-major
+layout probe (``attention_dma``, ``attention_sect``) are built from the
+same source; their wrappers are in
+``vast_tpu_torch/scripts/bench_tmajor_variants.py`` and count here too.
 
 The TPU mechanisms around the Pallas kernels (head packing, VMEM-sized
 batch groups, 16/128 padding of L and of D, shard_map) have no
@@ -41,7 +44,9 @@ import torch
 LAUNCHES = {"tmajor_attention_fwd": 0, "tmajor_attention_fwd_bias": 0,
             "tmajor_attention_bwd": 0, "tmajor_attention_bwd_bias": 0,
             "flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
-            "flash_attention_bwd": 0, "flash_attention_bwd_dbias": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_dbias": 0,
+            # the token-major layout probe (scripts/bench_tmajor_variants.py)
+            "attention_dma": 0, "attention_sect": 0}
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -606,6 +611,9 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, *, scale: float,
     return (dq, dk, dv, dbias) if return_dbias else (dq, dk, dv)
 
 
+# qkv, out, dtype, B, L, H, D, kend, stream
+_PROBE_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
 _ARGTYPES = {
     "vast_tmajor_attention_fwd": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -630,6 +638,8 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p],
+    "vast_tmajor_dma_attention_fwd": _PROBE_ARGS,
+    "vast_tmajor_sect_attention_fwd": _PROBE_ARGS,
 }
 
 
