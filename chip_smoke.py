@@ -22,7 +22,12 @@ exits non-zero with no result line:
               heads x 577 x 64, read out of the packed projection), AST's
               (8 x 12 x 257 x 64), the CLIP + AST rerank's 640 queries
               over 4873 keys; and shapes no path reaches (the lse variant
-              at 4873 keys, the backward with a bias's ds).
+              at 4873 keys, the backward with a bias's ds). A bf16
+              head-major forward must take the Hopper body (wgmma fed by
+              the copy engine: one flash_attention_fwd_sm90 launch), an
+              fp32 one the CUDA-core body; each head-major forward row
+              also gives the profiler's device time per launch
+              (device_ms).
 4. tiny     - a tiny fp32 VASTModel on the GPU (kernels) against the same
               weights on the CPU (plain versions): ret%tva features, and
               grouped ITM scores at a shape that takes the head-major
@@ -58,16 +63,19 @@ exits non-zero with no result line:
 8. tiny_clip_ast  - phase 4 for a tiny CLIP + AST model whose towers have
               257 tokens, so that their attention takes the head-major
               kernels: features, then one 'attn' train step (the lse
-              forward and the backward, 4 launches each).
+              forward and the backward, 4 launches each; fp32, so not
+              the Hopper body).
 9. slice_clip_ast - phase 5 for CLIP-L/14-336 (24 layers, 8 frames at
               336 px) + AST (12 layers, 1024 fbank frames) + BERT, bf16,
               top k 16, so that every text reranks every clip: exactly 48
               head-major forwards in CLIP, 24 in AST and 48 in the rerank
               (4 calls x 12 layers, 640 queries over 4873 keys) per run,
-              and no token-major launch.
+              every one through the Hopper body, and no token-major
+              launch.
 10. train_clip_ast - phase 7 for that model (clip_lr on CLIP's tower):
-              exactly 24 + 12 lse forwards and as many backwards per step,
-              nothing else launched; then one profiled step.
+              exactly 24 + 12 lse forwards (all through the Hopper body)
+              and as many backwards per step, nothing else launched; then
+              one profiled step.
 11. tmajor_variants - the token-major layout probe
               (``vast_tpu_torch.scripts.bench_tmajor_variants``) at its full
               shape (B 256, Lp 272, H 16, D 88, lk_true 257, bf16): its
@@ -78,11 +86,17 @@ exits non-zero with no result line:
               times; then the two kernels of its own (attention_dma
               through the copy engine, attention_sect) in bf16 and fp32
               against their plain versions and against cur.
+12. hmajor_turns - the head-major forward's two bf16 bodies in turns
+              (sm90, mma, mma, sm90; the mma.sync body's C entry called
+              directly, a yardstick only) at CLIP 577^2, AST 257^2, the
+              flagship rerank and the CLIP + AST rerank, with and without
+              the lse: CUDA-event times and the profiler's device time per
+              launch of each, and SDPA's time.
 
 Then the ``{"kernels": [...]}`` line (each row's launches from its path's
 counted run: the slice for forwards, the train step for lse forwards and
 backwards, the probe's run for its two kernels; 0 for the rows no path
-reaches) and, last, the ``{"ok": true,
+reaches; each row names its bf16 body) and, last, the ``{"ok": true,
 ...}`` line. Imports nothing of JAX or of ``vast_tpu``.
 """
 
@@ -208,6 +222,18 @@ KERNELS = [
 ]
 GRADS = ("dq", "dk", "dv", "dbias")
 SOURCE = "vast_tpu_torch/csrc/flash_attention.cu"
+# the bf16 body of each row's layout (the kernels line names it)
+BODIES = {
+    "tmajor": "attention_fwd_mma_kernel (mma.sync, cp.async)",
+    "hmajor": "attention_fwd_sm90_kernel (wgmma, copy engine)",
+    "tmajor_bwd": "attention_bwd_dq_mma_kernel + attention_bwd_dkv_mma_kernel"
+                  " (mma.sync)",
+    "probe": {"attention_dma": "attention_fwd_tma_kernel (mma.sync, copy "
+                               "engine)",
+              "attention_sect": "attention_fwd_mma_kernel (mma.sync, "
+                                "cp.async)"},
+}
+BODIES["hmajor_bwd"] = BODIES["tmajor_bwd"]
 
 
 def emit(obj):
@@ -245,6 +271,26 @@ def time_ms(torch, fn, reps=20, rounds=5, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, calls=10):
+    """The profiler's (CUPTI) device time per kernel launch of ``fn`` (one
+    launch a call), ms, over ``calls`` calls: the mean over the launches
+    the profiler recorded, since it recorded fewer than were made in some
+    runs on the H100 (a fifth of CLIP's in one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = sum(e.count for e in kernels)
+    check(seen > 0, "the profiler recorded no kernel")
+    return sum(e.self_device_time_total for e in kernels) / seen / 1e3
 
 
 def phase_device(torch):
@@ -350,9 +396,19 @@ def fwd_kernel_row(torch, spec, dtype, gen, case=None):
     and of the library call, on ``case`` (default: :func:`fwd_case`'s).
     ``case["p_roundings"]``: how many of the two round the softmax weights
     to bf16 (1: the kernel alone)."""
+    from vast_tpu_torch.ops import flash_attention as fa
+
     case = case or fwd_case(torch, spec, dtype, gen)
+    sm90_before = fa.LAUNCHES["flash_attention_fwd_sm90"]
     out = case["run"]()
     torch.cuda.synchronize()
+    sm90 = fa.LAUNCHES["flash_attention_fwd_sm90"] - sm90_before
+    label = f"{spec['name']} at {spec['at']} {dtype}"
+    if spec["layout"] == "hmajor":
+        # q, k, v as the path lays them out: bf16 takes the Hopper body
+        want = int(dtype == torch.bfloat16)
+        check(sm90 == want, f"{label}: {sm90} launches of the Hopper body, "
+              f"want {want}")
     ref = case["plain"]()
     lse = ref_lse = None
     if spec.get("lse"):
@@ -383,7 +439,6 @@ def fwd_kernel_row(torch, spec, dtype, gen, case=None):
         why = f"fp32 with another summation order over <= {spec['lk']} keys"
         rms_tol = 1e-5
         rms_why = "fp32: rounding noise is ~1e-7 relative"
-    label = f"{spec['name']} at {spec['at']} {dtype}"
     check(math.isfinite(err) and err <= tol,
           f"{label}: max abs err {err} > {tol}")
     check(math.isfinite(rms_rel) and rms_rel <= rms_tol,
@@ -406,11 +461,16 @@ def fwd_kernel_row(torch, spec, dtype, gen, case=None):
                - ref).abs().max().item()
     del ref, diff, ref_lse
     flops = 4.0 * spec["b"] * spec["h"] * spec["lq"] * spec["lk"] * spec["d"]
-    return dict(errors=errors, max_abs_err=err, library_max_abs_err=lib_err,
-                kernel_ms=time_ms(torch, case["run"]),
-                plain_ms=time_ms(torch, case["plain"]),
-                library_ms=time_ms(torch, case["library"]), library_note=None,
-                bytes=nbytes(*case["inputs"], out, lse), flops=flops)
+    r = dict(errors=errors, max_abs_err=err, library_max_abs_err=lib_err,
+             kernel_ms=time_ms(torch, case["run"]),
+             plain_ms=time_ms(torch, case["plain"]),
+             library_ms=time_ms(torch, case["library"]), library_note=None,
+             bytes=nbytes(*case["inputs"], out, lse), flops=flops)
+    if spec["layout"] == "hmajor":
+        # the op alone launches no other kernel: device time per launch
+        r["device_ms"] = device_ms(torch, case["run"])
+        r["sm90_launches"] = sm90
+    return r
 
 
 def grad_errors(torch, got, ref, scales, dtype, label):
@@ -579,8 +639,9 @@ def kernel_row(torch, device_name, phase, spec, dtype, r):
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": r["bytes"], "flops": r["flops"],
     }
-    if "library_max_abs_err" in r:
-        row["library_max_abs_err"] = r["library_max_abs_err"]
+    for key in ("library_max_abs_err", "device_ms", "sm90_launches"):
+        if key in r:
+            row[key] = r[key]
     return row
 
 
@@ -603,6 +664,47 @@ def phase_kernels(torch, device_name):
             rows[(i, dtype)] = row
             torch.cuda.empty_cache()
     return rows
+
+
+def phase_hmajor_turns(torch):
+    """The head-major forward's two bf16 bodies in turns (sm90, mma, mma,
+    sm90; each :func:`time_ms`) at each path shape of KERNELS, with and
+    without the lse, and the profiler's device time per launch of each:
+    the Hopper body against the mma.sync one, whose C entry is called
+    directly as a yardstick (the op takes it only for operands the copy
+    engine cannot read), within one call on one card."""
+    import torch.nn.functional as F
+
+    from vast_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    entries = {"sm90": "vast_flash_attention_fwd_sm90",
+               "mma": "vast_flash_attention_fwd"}
+    for spec in KERNELS:
+        if spec["name"] != "flash_attention_fwd":
+            continue
+        q, k, v, _, _ = hmajor_inputs(torch, spec, torch.bfloat16, gen)
+        scale = spec["scale"]
+        for lse in (False, True):
+            fns = {body: (lambda e=entry: fa._flash_fwd_launch(
+                e, q, k, v, None, scale, 0, lse)) for body, entry in
+                entries.items()}
+            outs = {body: fn()[0].float() for body, fn in fns.items()}
+            turns = {body: [] for body in fns}
+            for body in ("sm90", "mma", "mma", "sm90"):
+                turns[body].append(time_ms(torch, fns[body]))
+            emit({"phase": "hmajor_turns", "at": spec["at"], "lse": lse,
+                  "shape": {key: spec[key] for key in
+                            ("b", "lq", "lk", "h", "d", "views")},
+                  "ms_in_turns": turns,
+                  "device_ms": {body: device_ms(torch, fn)
+                                for body, fn in fns.items()},
+                  "sdpa_ms": time_ms(torch, lambda: (
+                      F.scaled_dot_product_attention(q, k, v, scale=scale))),
+                  "bodies_max_abs_diff": (outs["sm90"] - outs["mma"]
+                                          ).abs().max().item()})
+        del q, k, v, outs
+        torch.cuda.empty_cache()
 
 
 def probe_case(torch, spec, inputs, dtype):
@@ -1165,6 +1267,9 @@ def phase_slice(torch, np):
     check(n_flash >= 12 and n_flash % 12 == 0,
           f"head-major kernel launched {n_flash} times (12 per rerank call "
           f"with >= 8 texts on a candidate, at least one such call)")
+    check(launches["flash_attention_fwd_sm90"] == n_flash,
+          f"{launches['flash_attention_fwd_sm90']} of {n_flash} head-major "
+          f"forwards took the Hopper body: want all")
     emit(row)
     return launches, model, batches, run_cfg
 
@@ -1180,7 +1285,9 @@ def phase_slice_clip_ast(torch, np):
     row, launches, by_stage, model, batches, _ = run_slice(
         torch, np, "slice_clip_ast", VASTConfig(dtype=torch.bfloat16, **CA),
         CA_TOP_K, 336, CA_COND_TOKENS)
-    want = {k: 0 for k in launches} | {"flash_attention_fwd": 120}
+    # every head-major forward through the Hopper body
+    want = {k: 0 for k in launches} | {"flash_attention_fwd": 120,
+                                       "flash_attention_fwd_sm90": 120}
     check(launches == want and by_stage == {"vision": 48, "audio": 24,
                                             "rerank": 48},
           f"launches {launches}, by stage {by_stage}: want {want} and "
@@ -1357,16 +1464,23 @@ def phase_train(torch, np):
 
 def phase_train_clip_ast(torch, np):
     """The CLIP-L/14-336 + AST train step: 24 CLIP and 12 AST lse forwards
-    and backwards per step (BERT's attention takes the plain route)."""
+    (all through the Hopper body) and backwards per step (BERT's attention
+    takes the plain route)."""
     launches, lse_by_tower, bwd_by_lq = run_train(
         torch, np, "train_clip_ast", CA, 336,
-        {"flash_attention_fwd_lse": 36, "flash_attention_bwd": 36})
+        {"flash_attention_fwd_lse": 36, "flash_attention_fwd_sm90": 36,
+         "flash_attention_bwd": 36})
     n = TRAIN_STEPS
     check(lse_by_tower == {"vision": 24 * n, "audio": 12 * n}
           and bwd_by_lq == {577: 24 * n, 257: 12 * n},
           f"lse forwards by tower {lse_by_tower} and backwards by query "
           f"length {bwd_by_lq} over {n} steps")
     return lse_by_tower, bwd_by_lq
+
+
+def body_of(spec):
+    body = BODIES[spec["layout"]]
+    return body[spec["name"]] if isinstance(body, dict) else body
 
 
 def kernels_line(bf16_rows, launches_at):
@@ -1386,7 +1500,8 @@ def kernels_line(bf16_rows, launches_at):
             "path": spec["path"], "launches": launches_at.get(key, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "body": body_of(spec), "device_ms": r.get("device_ms")})
     return line
 
 
@@ -1405,6 +1520,7 @@ def main():
     name = phase_device(torch)
     phase_build()
     rows = phase_kernels(torch, name)
+    phase_hmajor_turns(torch)
     probe_rows, probe_launches = phase_tmajor_variants(torch, name)
     rows |= probe_rows
     torch.cuda.empty_cache()

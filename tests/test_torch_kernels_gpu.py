@@ -17,7 +17,11 @@ forward and the backward (with and without a bias and its ds); and the
 token-major layout probe's two kernels (attention_dma through the copy
 engine, attention_sect) at the probe's shape (256 x 272 x 16 x 88,
 lk_true 257) and a ragged one, and attention_dma's refusal of rows the
-copy engine cannot read.
+copy engine cannot read; the head-major forward's Hopper body (wgmma fed
+by the copy engine) at D 16 to 128, Lq 1 to 577, Lk 1 to 4873, lk_true,
+packed, token-major and contiguous views, fp32 and bf16 biases broadcast
+over heads or the batch, with and without the lse, and its entry's
+refusal of layouts the copy engine cannot read.
 """
 
 import pytest
@@ -495,3 +499,124 @@ def test_dma_kernel_raises_on_rows_the_copy_engine_cannot_read(cuda, dtype,
     v_max = qkv.view(b, l, 3, h, d)[:, :, 2].float().abs().max().item()
     assert (out.float() - ref).abs().max().item() <= probe_tolerance(
         ref.abs().max().item(), v_max, dtype)
+
+
+SM90_CASES = {
+    # name: (B, H, Lq, Lk, D, lk_true, bias kind, layout, lse)
+    "d16_lq1_lk1": (1, 2, 1, 1, 16, 0, None, "contiguous", False),
+    "d64_lq65_lk130_lse": (2, 3, 65, 130, 64, 0, None, "token_major", True),
+    "clip_packed_577": (2, 16, 577, 577, 64, 0, None, "packed", False),
+    "clip_packed_577_lse": (2, 16, 577, 577, 64, 0, None, "packed", True),
+    "d88_lk_true": (2, 3, 65, 130, 88, 100, None, "token_major", True),
+    "d128_4873_keys": (1, 2, 577, 4873, 128, 0, None, "contiguous", True),
+    "rerank_4873_lk_true": (1, 4, 65, 4873, 64, 4800, None, "token_major",
+                            False),
+    # an fp32 mask over heads (head stride 0) and a bf16 bias over the
+    # batch (batch stride 0), each with a row of no finite score
+    "f32_bias_heads_broadcast": (2, 4, 65, 130, 64, 0, "f32_heads",
+                                 "token_major", True),
+    "bf16_bias_batch_broadcast": (2, 3, 577, 130, 16, 0, "bf16_batch",
+                                  "contiguous", True),
+}
+
+
+@pytest.mark.parametrize("case", list(SM90_CASES))
+def test_hopper_forward_matches_plain(cuda, case):
+    """bf16 head-major forwards the copy engine can read take the Hopper
+    body (one flash_attention_fwd_sm90 launch) and match the plain
+    version: the output within one bf16 ulp of max |out| plus 2^-8 x max
+    |v| (the kernel rounds p), rms 2^-6; the lse within fp32 rounding; a
+    row with no finite score gives zeros and lse +inf."""
+    b, h, lq, lk, d, lk_true, kind, layout, lse = SM90_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen).to(
+            torch.bfloat16)
+
+    if layout == "packed":
+        q, k, v = (t.transpose(1, 2) for t in randn(b, lq, 3, h, d).unbind(2))
+    elif layout == "token_major":
+        q, k, v = (randn(b, n, h, d).transpose(1, 2) for n in (lq, lk, lk))
+    else:
+        q, k, v = (randn(b, h, n, d) for n in (lq, lk, lk))
+    bias = None
+    if kind:
+        shape = (b, 1) if kind == "f32_heads" else (1, h)
+        bias = torch.randn(*shape, lq, lk, device=cuda, generator=gen)
+        bias[0, 0, min(3, lq - 1)] = float("-inf")
+        if kind == "bf16_batch":
+            bias = bias.to(torch.bfloat16)
+    assert fa._sm90_fwd_ok(q, k, v)
+    key = "flash_attention_fwd_lse" if lse else "flash_attention_fwd"
+    before = dict(fa.LAUNCHES)
+    res = fa.flash_attention(q, k, v, bias, scale=d ** -0.5, lk_true=lk_true,
+                             return_lse=lse)
+    torch.cuda.synchronize()
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in before}
+    assert launched == {n: int(n in (key, "flash_attention_fwd_sm90"))
+                        for n in before}
+    ref = fa._flash_attention_plain(q, k, v, bias, scale=d ** -0.5,
+                                    lk_true=lk_true, return_lse=lse)
+    out, ref = (res[0], ref[0]) if lse else (res, ref)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (b, h, lq, d)
+    ref = ref.float()
+    diff = out.float() - ref
+    err = diff.abs().max().item()
+    ref_max = ref.abs().max().item()
+    v_max = v.float().abs().max().item()
+    assert err <= ref_max * 2 ** -7 + v_max * 2 ** -8, (err, ref_max)
+    rms = (diff.square().mean() / ref.square().mean()).sqrt().item()
+    assert rms <= 2 ** -6, rms
+    if kind:
+        assert out[0, 0, min(3, lq - 1)].abs().max().item() == 0.0
+    if lse:
+        got, want = res[1], fa._flash_attention_plain(
+            q, k, v, bias, scale=d ** -0.5, lk_true=lk_true,
+            return_lse=True)[1]
+        finite = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), finite)
+        assert torch.equal(got[~finite], want[~finite])      # +inf
+        lerr = (got - want)[finite].abs().max().item()
+        assert lerr <= 1e-5 * max(want[finite].abs().max().item(), 1.0), lerr
+
+
+@pytest.mark.parametrize("layout", ["base_offset", "d33", "fp32"])
+def test_hopper_entry_refuses_what_the_copy_engine_cannot_read(cuda, layout):
+    """Called directly, the Hopper entry refuses operands the copy engine
+    cannot read (a q one element past a 16-byte boundary, D 33, fp32)
+    with cudaErrorInvalidValue (1) and launches nothing: its output keeps
+    its fill. The op sends them to the mma.sync / CUDA-core bodies, which
+    match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    b, h, lq, lk = 2, 3, 65, 130
+    d = 33 if layout == "d33" else 64
+    dtype = torch.float32 if layout == "fp32" else torch.bfloat16
+    k, v = (torch.randn(b, h, lk, d, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    q = torch.randn(b * h * lq * d + 1, device=cuda, generator=gen).to(dtype)
+    q = q[1:] if layout == "base_offset" else q[:-1]
+    q = q.view(b, h, lq, d)
+    assert not fa._sm90_fwd_ok(q, k, v)
+    out = torch.full((b, h, lq, d), float("nan"), device=cuda, dtype=dtype)
+    err = fa._kernel("vast_flash_attention_fwd_sm90")(
+        *fa._flash_fwd_args(q, k, v, None, out, None, d ** -0.5, 0))
+    torch.cuda.synchronize()
+    assert err == 1
+    assert bool(out.isnan().all())
+    with pytest.raises(RuntimeError, match="vast_flash_attention_fwd_sm90"):
+        fa._flash_fwd_launch("vast_flash_attention_fwd_sm90", q, k, v, None,
+                             d ** -0.5, 0, False)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in before}
+    assert launched == {n: int(n == "flash_attention_fwd") for n in before}
+    ref = fa._flash_attention_plain(q, k, v, scale=d ** -0.5).float()
+    err = (got.float() - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    if dtype == torch.bfloat16:
+        assert err <= ref_max * 2 ** -7 + v.float().abs().max().item() \
+            * 2 ** -8, (err, ref_max)
+    else:
+        assert err <= 2e-5 * max(ref_max, 1.0), (err, ref_max)

@@ -7,7 +7,10 @@
 //                             head-major forward without the lse output)
 //   _single_kernel           (:52, the same with the lse output)
 //   _looped_kernel_nolse / _looped_kernel (:137 / :94, the same at
-//                             Lk > 4096: every Lk streams alike here)
+//                             Lk > 4096: every Lk streams alike here);
+//                             in bf16 these four have a body of their own
+//                             for Hopper, wgmma fed by the copy engine
+//                             ("The head-major forward for Hopper" below)
 //   the backward kernels, listed and described at their kernels below:
 //   _tmajor_bwd_kernel(_bias) (:795, :841) and flash_attention_bwd's
 //   fused and tiled kernels (:321, :363, :372, :413, :451)
@@ -44,13 +47,17 @@
 // online softmax, so neither the scores nor the probabilities reach device
 // memory and the bias is read exactly once. D is padded nowhere in device
 // memory: loads and stores are masked at D and at the sequence ends, and
-// the padding to the tensor-core tile lives in shared memory only. What it
-// does not do yet: wgmma; the copy engine (TMA) anywhere but attention_dma's
-// entry, whose loader is below; and the query tiles of one head each
+// the padding to the tensor-core tile lives in shared memory only. The
+// head-major bf16 forward (vast_tpu's :52, :87, :94, :137) runs on wgmma
+// with every tile brought by the copy engine (its section below says what
+// bounds it at each path shape and what its design does about it). The
+// other bodies still use mma.sync and threads' cp.async, the copy engine
+// only at attention_dma's entry; and the query tiles of one head each
 // re-read its K/V (from L2). Those are later work.
 //
-// Two forward kernels:
-// * bf16 (the main path): tensor cores through mma.sync m16n8k16, bf16
+// Two forward kernels besides the Hopper one:
+// * bf16 (the token-major forward, and head-major operands the copy
+//   engine cannot read): tensor cores through mma.sync m16n8k16, bf16
 //   operands and fp32 accumulators. 8 warps x 16 query rows; key tiles of
 //   64, double-buffered: cp.async brings tile i+1 (16 bytes a thread, when
 //   D and every stride are multiples of 8; plain one-value stores
@@ -73,6 +80,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <climits>
 #include <initializer_list>
 #include <type_traits>
 
@@ -1799,6 +1807,632 @@ cudaError_t dispatch_tma(const Params& p, const void* qkv, int B, int H,
   }
 }
 
+// ---------------------------------------------------------------------
+// The head-major forward for Hopper: wgmma and the copy engine
+// ---------------------------------------------------------------------
+//
+// Replaces the head-major forward kernels of vast_tpu/ops/flash_attention.py,
+// _single_kernel (:52) and _single_kernel_nolse (:87) at Lk <= 4096,
+// _looped_kernel (:94) and _looped_kernel_nolse (:137) above: one body for
+// all four (the lse is one more store), taken by every bf16 head-major
+// forward whose q, k and v the copy engine can read
+// (vast_flash_attention_fwd_sm90's rule, at its entry below). The others,
+// and fp32, take attention_fwd_mma / attention_fwd_fp32 through
+// vast_flash_attention_fwd. The contract is that entry's (top of file).
+//
+// What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): CLIP-L/14-336's
+// attention (64 x 16 heads x 577^2 x 64) lies at the ridge, 0.0903 ms by
+// bytes (q, k, v read once, o written once) against 0.088 ms by
+// operations; AST's (8 x 12 x 257^2) is bound by bytes; the reranks (4 x
+// 12 heads, 320 x 2312 and 640 x 4873) by operations. At D 64 a score's
+// exp2 on the special-function units (16 a clock an SM) takes as long as
+// its 256 tensor-core operations, so the softmax is as long as the two
+// products, and whatever else a thread issues per score adds to it.
+// What the design does about it: both products run on wgmma, q, k and v
+// read by the tensor cores straight from shared memory and p from
+// registers, so no thread loads an operand fragment; every tile comes
+// through the copy engine, issued by one producer thread, so the consumers
+// spend no instruction on addresses; the scale folded into the exp2's
+// fma, so a score costs one fma, one max and one exp2 besides the sum and
+// the bf16 pack; one block an SM, two consumer warpgroups of 64 query rows
+// whose products and softmaxes interleave on the SM (they share nothing
+// but the tiles), setmaxnreg moving the producer's registers to them (24
+// and 240 a thread; ptxas fits their code in the 168 of the launch with
+// no spill), so that the 64 x 128 scores, p and the output stay in
+// registers; persistent blocks, so that a block's next work tile is
+// loaded while it finishes this one: CLIP's work tiles have only 5 key
+// tiles each, and a block that started cold paid the first loads' latency
+// on each of them.
+//
+// Layout. Each of q, k, v is a 4-D tensor for the copy engine: d, then
+// batch, head and row ordered by their strides, so CLIP's packed views,
+// the token-major views and contiguous tensors are read as they lie. A box
+// is 64 columns (128 bytes) by a tile's rows in 128-byte swizzle, the
+// layout wgmma reads: columns past D read as zeros, and so do rows past Lq
+// (q) or past kend (k, v); D > 64 is two boxes, each a [rows][64] tile of
+// its own. Key tiles of kSm90BlockK go through a ring of stages, each with
+// a full barrier (the copy engine's bytes) and an empty one (every
+// consumer thread). The last tile's keys at and past kend are masked to
+// -inf in registers; rows past Lq are not stored.
+// Tried and slower on the H100: ping-pong between the consumer
+// warpgroups, and this tile's softmax under the last tile's p . v (with
+// the first and last tiles peeled, so that ptxas serializes no wgmma).
+// Later levers, not here: a split over keys for the reranks' few blocks,
+// cluster multicast of k/v.
+
+constexpr int kSm90Consumers = 2;                 // warpgroups of 64 rows
+constexpr int kSm90BlockQ = 64 * kSm90Consumers;  // query rows of a block
+constexpr int kSm90BlockK = 128;                  // keys of a tile
+constexpr int kSm90Threads = 128 * (kSm90Consumers + 1);   // + producer
+constexpr int kSm90Box = 64;                      // columns of a box
+constexpr int kSm90RowBytes = kSm90Box * 2;       // one swizzled row
+constexpr int kSm90ProducerRegs = 24, kSm90ConsumerRegs = 240;
+static_assert(kSm90ProducerRegs + kSm90Consumers * kSm90ConsumerRegs ==
+                  (kSm90Consumers + 1) * 168,
+              "the 64K registers of an SM, 168 a thread at launch");
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.69314718055994531f;
+
+// A block's shared memory, each tile 1024-byte aligned (whole swizzle
+// atoms of 8 rows x 128 bytes): q, then each stage's k and v, then the
+// barriers (full and empty per stage, then q's full and empty). A tile of
+// R rows is DP / 64 column blocks of R x 128 bytes.
+template <int DP>
+struct Sm90Smem {
+  static constexpr int kBlocks = DP / kSm90Box;
+  static constexpr int kStages = 3;   // the copy engine up to 2 tiles ahead
+  static constexpr unsigned kQBytes = kSm90BlockQ * DP * 2;
+  static constexpr unsigned kKvBytes = kSm90BlockK * DP * 2;   // k or v
+  static constexpr unsigned kBarOffset = kQBytes + 2 * kStages * kKvBytes;
+  static constexpr size_t kBytes = kBarOffset + (2 * kStages + 2) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
+
+// where the batch, head and row axes of an operand lie among its map's
+// dimensions 1-3
+struct Sm90Slot {
+  int b, h, r;
+};
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* ptr) {
+  return ptr + ((1024u - (smem_u32(ptr) & 1023u)) & 1023u);
+}
+
+// mbar_wait, but a wait still unmet after about 10 s of the SM's clock
+// (a lost arrival: a fault of this file) traps, so that the launch fails
+// instead of holding the card
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
+                                                  unsigned parity) {
+  const long long t0 = clock64();
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred ready;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 ready, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, ready;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// the box of `map` at column d0 and (batch b, head h, row r), each at its
+// slot; its bytes complete on `bar`
+__device__ __forceinline__ void tma_load_at(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, Sm90Slot s, int d0,
+                                            int b, int h, int r) {
+  tma_load_4d(dst, map, bar, d0, s.b == 1 ? b : s.h == 1 ? h : r,
+              s.b == 2 ? b : s.h == 2 ? h : r,
+              s.b == 3 ? b : s.h == 3 ? h : r);
+}
+
+// A wgmma operand in shared memory in 128-byte swizzle (the copy engine's,
+// from a 1024-byte aligned tile): sbo, the bytes between groups of 8 rows
+// of 128 bytes; lbo, between 64-column blocks along M or N of an MN-major
+// operand (a K-major one ignores it).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile, unsigned lbo,
+                                               unsigned sbo) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFFu) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFFu) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFFu) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N of the warpgroup's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// the compiler moves no read or write of d across this point (an
+// accumulator is written by a wgmma until its wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d[0..63] (+)= a . b over 16 of the reduction: a 64 x 16 tile and b a
+// 16 x 128 tile, both in shared memory and K-major (descriptors a and
+// b); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[0..31] (+)= a . b over 16 keys: a 64 x 16 from registers (the layout
+// of an m64nNk16 accumulator's 16 columns), b a 16 x 64 tile in shared
+// memory, MN-major (its 64 columns contiguous: the transpose bit);
+// scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// The online softmax of one key tile's scores s (a wgmma accumulator: see
+// sm90_consumer) for the thread's rows row0 and row0 + 8, in log2 units:
+// keys >= kend masked (the last tile's: they read as zeros, or are keys
+// past lk_true), the running max m and this lane's part of the sum l
+// updated, the output's rescale factors returned in alpha, and p left in
+// s in fp32. Without a bias and at a positive scale, the scale is folded
+// into the exponent (max and mask commute with it): one fma and one exp2 a
+// score.
+template <typename BiasT>
+__device__ __forceinline__ void sm90_softmax(
+    float (&s)[64], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    const Params& p, const BiasT* bias_bh, long long bias_rs, int k0,
+    int row0, int t, float scale2) {
+  const int kend = p.kend;
+  const bool fold = !kHasBias<BiasT> && scale2 > 0.f;
+  if (!fold) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] *= scale2;
+  }
+  if constexpr (kHasBias<BiasT>) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + 8 * j + 2 * t + (i & 1);
+        const int row = i < 2 ? row0 : row0 + 8;
+        if (key < kend && row < p.lq)
+          s[4 * j + i] +=
+              to_float(bias_bh[(long long)row * bias_rs + key]) * kLog2e;
+      }
+  }
+  if (k0 + kSm90BlockK > kend) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (k0 + 8 * j + 2 * t + (i & 1) >= kend) s[4 * j + i] = -INFINITY;
+  }
+  const float f = fold ? scale2 : 1.f;      // s x f: the scores in log2 units
+  float mx[2] = {-INFINITY, -INFINITY};     // over the quad sharing a row
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float ne[2], sum[2] = {0.f, 0.f};         // ne: minus the reference
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r] * f);
+    ne[r] = -exp_ref(mn);
+    alpha[r] = ex2(m[r] + ne[r]);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[4 * j + i] = ex2(fmaf(s[4 * j + i], f, ne[i >> 1]));
+      sum[i >> 1] += s[4 * j + i];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+}
+
+// p (fp32, in s) in bf16 pairs as the A fragments of p . v: two 8-key
+// column groups of the accumulator make one 16-key step
+__device__ __forceinline__ void pack_p(const float (&s)[64],
+                                       uint32_t (&pa)[kSm90BlockK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    pa[j / 2][(j & 1) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+}
+
+// One consumer warpgroup `wg`: its 64 query rows of one work tile (query
+// rows q0.., head h, batch row b) over every key tile. Accumulator layout
+// of an m64nNk16 wgmma (PTX ISA), for the thread of warp w, lane l (g = l
+// / 4, t = l % 4) of the warpgroup: d[4j + i] holds row 16w + g (+8 for i
+// >= 2), column 8j + 2t (+1 for odd i); so the scores of keys
+// 16kk..16kk+15, packed to bf16 pairs, are the A fragment of p . v's
+// 16-key step kk as they lie. Per key tile: s = q . k^T, its softmax, o +=
+// p . v, then the stage is released; q is released after the last q .
+// k^T. The ring's stages go on from tile `ring` (the key tiles of the
+// block's earlier work tiles); q's barrier is in phase `qphase`.
+template <int DP, typename BiasT>
+__device__ __forceinline__ void sm90_consumer(
+    const Params& p, const unsigned char* qs, const unsigned char* kv,
+    uint64_t* full, uint64_t* empty, uint64_t* qfull, uint64_t* qempty,
+    int wg, int q0, int h, int b, int n_tiles, int ring, unsigned qphase) {
+  using S = Sm90Smem<DP>;
+  constexpr int kBlocks = S::kBlocks;
+  constexpr int kSteps = kSm90BlockK / 16;      // 16-key steps of p . v
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int row0 = q0 + 64 * wg + 16 * warp + (lane >> 2), row1 = row0 + 8;
+  const int lq = p.lq, D = p.d;
+  const float scale2 = p.scale * kLog2e;        // scores in log2 units
+  const BiasT* bias_bh = nullptr;
+  long long bias_rs = 0;
+  if constexpr (kHasBias<BiasT>) {
+    bias_bh = plane<const BiasT>(p.bias, p.st[kBias][0], p.st[kBias][1], b, h);
+    bias_rs = p.st[kBias][2];
+  }
+
+  float o[kBlocks][32], s[64];
+#pragma unroll
+  for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  uint32_t pa[kSteps][4];                  // p in bf16, A of p . v
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  const unsigned char* qw = qs + 64 * wg * kSm90RowBytes;   // the 64 rows
+
+  // s = q . k^T of stage st in DP / 16 steps; within a 128-byte row a
+  // step moves the descriptors 32 bytes (the swizzle acts on the address
+  // bits, so the atoms' rows stay where they are)
+  auto scores = [&](int st) {
+    const unsigned char* ks = kv + 2 * st * S::kKvBytes;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      wgmma_m64n128k16_ss(
+          s, wgmma_desc(qw + c * kSm90BlockQ * kSm90RowBytes + off, 16, 1024),
+          wgmma_desc(ks + c * kSm90BlockK * kSm90RowBytes + off, 16, 1024),
+          kk > 0);
+    }
+    wgmma_commit();
+  };
+  // o += p . v of stage st: 16 keys a step, v's [key][64] tiles MN-major;
+  // a step is two whole swizzle atoms (16 rows of 128 bytes) further
+  auto values = [&](int st) {
+    const unsigned char* vs = kv + (2 * st + 1) * S::kKvBytes;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+      for (int c = 0; c < kBlocks; ++c)
+        wgmma_m64n64k16_rs(
+            o[c], pa[kk],
+            wgmma_desc(vs + (c * kSm90BlockK + 16 * kk) * kSm90RowBytes,
+                       kSm90BlockK * kSm90RowBytes, 1024),
+            1);
+    wgmma_commit();
+  };
+  mbar_wait_or_trap(qfull, qphase);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = (ring + it) % S::kStages;
+    mbar_wait_or_trap(full + st, ((ring + it) / S::kStages) & 1);
+    __syncwarp();                   // the warp converged for wgmma
+    wgmma_fence();
+    scores(st);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (it == n_tiles - 1) mbar_arrive(qempty);   // the next q may come
+    sm90_softmax<BiasT>(s, m, l, alpha, p, bias_bh, bias_rs,
+                        it * kSm90BlockK, row0, t, scale2);
+#pragma unroll
+    for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[c][4 * j] *= alpha[0];
+        o[c][4 * j + 1] *= alpha[0];
+        o[c][4 * j + 2] *= alpha[1];
+        o[c][4 * j + 3] *= alpha[1];
+      }
+    pack_p(s, pa);
+    wgmma_fence();
+    values(st);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kBlocks; ++c) fence_regs(o[c]);
+    mbar_arrive(empty + st);        // stage st may be refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  // a row with no finite score has l == 0 and gives zeros
+  const float inv0 = l[0] > 0.f ? 1.f / l[0] : 0.f;
+  const float inv1 = l[1] > 0.f ? 1.f / l[1] : 0.f;
+  if (p.lse && t == 0) {
+    float* lse_bh = p.lse + ((long long)b * p.heads + h) * lq;
+    if (row0 < lq) lse_bh[row0] = row_lse(m[0] * kLn2, l[0]);
+    if (row1 < lq) lse_bh[row1] = row_lse(m[1] * kLn2, l[1]);
+  }
+  auto* og = plane<__nv_bfloat16>(p.out, p.st[kO][0], p.st[kO][1], b, h);
+  const long long o_rs = p.st[kO][2];
+#pragma unroll
+  for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = c * kSm90Box + 8 * j + 2 * t;   // D is even: d + 1 < D too
+      if (d >= D) continue;
+      if (row0 < lq)
+        *reinterpret_cast<__nv_bfloat162*>(og + row0 * o_rs + d) =
+            __floats2bfloat162_rn(o[c][4 * j] * inv0, o[c][4 * j + 1] * inv0);
+      if (row1 < lq)
+        *reinterpret_cast<__nv_bfloat162*>(og + row1 * o_rs + d) =
+            __floats2bfloat162_rn(o[c][4 * j + 2] * inv1,
+                                  o[c][4 * j + 3] * inv1);
+    }
+}
+
+// Persistent: a block per SM takes work tiles w = blockIdx.x, + gridDim.x,
+// ... (query tile fastest, then head, then batch row: w's query tile is w
+// % n_qtiles), so that the copy engine brings the next work tile's q and
+// first key tiles while the consumers finish this one's last tile and
+// store its output. Warpgroups 0 .. kSm90Consumers - 1 consume; the last
+// one produces, one thread issuing every copy: each work tile's q once the
+// consumers have released the last one, then its key tiles' k and v into
+// the ring's stages, which run on across work tiles, as the consumers
+// release them.
+template <int DP, typename BiasT>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+attention_fwd_sm90_kernel(const Params p,
+                          const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const Sm90Slot sq, const Sm90Slot sk,
+                          const Sm90Slot sv, int n_qtiles, int n_work) {
+  using S = Sm90Smem<DP>;
+  extern __shared__ __align__(1024) unsigned char sm90_smem[];
+  unsigned char* qs = align_1024(sm90_smem);
+  unsigned char* kv = qs + S::kQBytes;  // stage s: k, then v, at 2s kKvBytes
+  auto* full = reinterpret_cast<uint64_t*>(qs + S::kBarOffset);
+  uint64_t* empty = full + S::kStages;
+  uint64_t* qfull = empty + S::kStages;
+  uint64_t* qempty = qfull + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128 * kSm90Consumers);
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 128 * kSm90Consumers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_tiles = (p.kend + kSm90BlockK - 1) / kSm90BlockK;
+  const int wg = threadIdx.x / 128;
+  if (wg == kSm90Consumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ProducerRegs));
+    if (threadIdx.x != 128 * kSm90Consumers) return;
+    int ring = 0;
+    for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+      const int q0 = w % n_qtiles * kSm90BlockQ, h = w / n_qtiles % p.heads,
+                b = w / n_qtiles / p.heads;
+      if (n > 0) mbar_wait_or_trap(qempty, (n - 1) & 1);
+      mbar_arrive_expect_tx(qfull, S::kQBytes);
+      for (int c = 0; c < S::kBlocks; ++c)
+        tma_load_at(qs + c * kSm90BlockQ * kSm90RowBytes, &qmap, qfull, sq,
+                    c * kSm90Box, b, h, q0);
+      for (int it = 0; it < n_tiles; ++it, ++ring) {
+        const int st = ring % S::kStages;
+        mbar_wait_or_trap(empty + st, ((ring / S::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + st, 2 * S::kKvBytes);
+        unsigned char* ks = kv + 2 * st * S::kKvBytes;
+        for (int c = 0; c < S::kBlocks; ++c) {
+          const int at = c * kSm90BlockK * kSm90RowBytes;
+          tma_load_at(ks + at, &kmap, full + st, sk, c * kSm90Box, b, h,
+                      it * kSm90BlockK);
+          tma_load_at(ks + S::kKvBytes + at, &vmap, full + st, sv,
+                      c * kSm90Box, b, h, it * kSm90BlockK);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ConsumerRegs));
+    for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+      const int q0 = w % n_qtiles * kSm90BlockQ, h = w / n_qtiles % p.heads,
+                b = w / n_qtiles / p.heads;
+      sm90_consumer<DP, BiasT>(p, qs, kv, full, empty, qfull, qempty, wg, q0,
+                               h, b, n_tiles, n * n_tiles, n & 1);
+    }
+  }
+}
+
+// The copy engine's map of a head-major bf16 operand (batch, head, row, d)
+// with element strides st (batch, head, row; d contiguous): dimensions d,
+// then the other three in the order of their strides, boxes of 64 columns
+// by box_rows rows (zeros past D and past `rows`) in 128-byte swizzle;
+// *slot receives where batch, head and row lie among dimensions 1-3.
+cudaError_t encode_hmajor_map(CUtensorMap* map, Sm90Slot* slot,
+                              const void* base, const long long st[3], int B,
+                              int H, int rows, int D, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t extent[3] = {(cuuint64_t)B, (cuuint64_t)H,
+                                (cuuint64_t)rows};
+  int order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && st[order[j - 1]] > st[order[j]]; --j) {
+      const int x = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = x;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)D}, strides[3];
+  cuuint32_t box[4] = {kSm90Box};
+  int at[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = extent[order[i]];
+    strides[i] = (cuuint64_t)st[order[i]] * sizeof(__nv_bfloat16);
+    box[i + 1] = order[i] == 2 ? box_rows : 1;
+    at[order[i]] = i + 1;
+  }
+  *slot = Sm90Slot{at[0], at[1], at[2]};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DP, typename BiasT>
+cudaError_t launch_sm90(const Params& p, int B, int H, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  Sm90Slot slots[3];
+  const int rows[3] = {p.lq, p.kend, p.kend};
+  const int box_rows[3] = {kSm90BlockQ, kSm90BlockK, kSm90BlockK};
+  for (int o = kQ; o <= kV; ++o) {
+    const cudaError_t err = encode_hmajor_map(
+        &maps[o], &slots[o], p.in[o], p.st[o], B, H, rows[o], p.d,
+        box_rows[o]);
+    if (err != cudaSuccess) return err;
+  }
+  auto kern = attention_fwd_sm90_kernel<DP, BiasT>;
+  const size_t smem = Sm90Smem<DP>::kBytes;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  int device, n_sm;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  // a persistent block an SM (the registers of all 384 threads fill it)
+  const int n_qtiles = (p.lq + kSm90BlockQ - 1) / kSm90BlockQ;
+  const long long n_work = (long long)n_qtiles * H * B;
+  if (n_work > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<(int)(n_work < n_sm ? n_work : n_sm), kSm90Threads, smem, stream>>>(
+      p, maps[kQ], maps[kK], maps[kV], slots[kQ], slots[kK], slots[kV],
+      n_qtiles, (int)n_work);
+  return cudaGetLastError();
+}
+
+template <typename BiasT>
+cudaError_t dispatch_sm90(const Params& p, int B, int H, cudaStream_t s) {
+  return p.d <= 64 ? launch_sm90<64, BiasT>(p, B, H, s)
+                   : launch_sm90<128, BiasT>(p, B, H, s);
+}
+
+// The copy engine reads q, k and v, and the epilogue writes bf16 pairs:
+// bf16, D a multiple of 8 (16 bytes) up to 128, every stride of q, k and
+// v a positive multiple of 8 elements, their bases 16-byte aligned; the
+// output's strides even and its base 4-byte aligned.
+bool sm90_takes(const Params& p, int dtype) {
+  if (dtype != kBf16 || p.d < 8 || p.d > kMaxD || p.d % 8) return false;
+  for (int o = kQ; o <= kV; ++o) {
+    if (reinterpret_cast<uintptr_t>(p.in[o]) % 16) return false;
+    for (int j = 0; j < 3; ++j)
+      if (p.st[o][j] <= 0 || p.st[o][j] % 8) return false;
+  }
+  for (int j = 0; j < 3; ++j)
+    if (p.st[kO][j] % 2) return false;
+  return reinterpret_cast<uintptr_t>(p.out) % 4 == 0;
+}
+
+cudaError_t run_sm90(const Params& p, int dtype, int bias_dtype, int B, int H,
+                     cudaStream_t s) {
+  if (!sm90_takes(p, dtype) || p.lq < 1 || p.kend < 1 || B < 1 || H < 1 ||
+      B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  if (!p.bias) return dispatch_sm90<NoBias>(p, B, H, s);
+  if (bias_dtype == kBf16) return dispatch_sm90<__nv_bfloat16>(p, B, H, s);
+  if (bias_dtype == kF32) return dispatch_sm90<float>(p, B, H, s);
+  return cudaErrorInvalidValue;
+}
+
+// The Params of the head-major entries (their arguments, described there)
+Params hmajor_params(const void* q, const void* k, const void* v,
+                     const void* bias, void* out, float* lse, int H, int Lq,
+                     int D, int kend, const long long* strides, float scale) {
+  Params p = {};
+  p.in[kQ] = q;
+  p.in[kK] = k;
+  p.in[kV] = v;
+  memcpy(p.st, strides, sizeof(p.st));
+  p.out = out;
+  p.bias = bias;
+  p.lse = lse;
+  p.lq = Lq;
+  p.kend = kend;
+  p.d = D;
+  p.heads = H;
+  p.scale = scale;
+  return p;
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. dtype codes: 0 = float32,
@@ -1877,21 +2511,27 @@ extern "C" int vast_flash_attention_fwd(const void* q, const void* k,
                                         int D, int kend,
                                         const long long* strides, float scale,
                                         void* stream) {
-  Params p = {};
-  p.in[kQ] = q;
-  p.in[kK] = k;
-  p.in[kV] = v;
-  memcpy(p.st, strides, sizeof(p.st));
-  p.out = out;
-  p.bias = bias;
-  p.lse = lse;
-  p.lq = Lq;
-  p.kend = kend;
-  p.d = D;
-  p.heads = H;
-  p.scale = scale;
-  return (int)run(p, dtype, bias_dtype, B, H,
-                  static_cast<cudaStream_t>(stream));
+  return (int)run(hmajor_params(q, k, v, bias, out, lse, H, Lq, D, kend,
+                                strides, scale),
+                  dtype, bias_dtype, B, H, static_cast<cudaStream_t>(stream));
+}
+
+// The same function, the same arguments, on the Hopper body (wgmma and the
+// copy engine; see "The head-major forward for Hopper" above). Returns
+// cudaErrorInvalidValue, and launches nothing, for operands that body does
+// not take: any dtype but bf16, D not a multiple of 8 or above 128, a
+// stride of q, k or v that is 0 or not a multiple of 8 elements, a base of
+// q, k or v not 16-byte aligned, an odd stride of out or an out not
+// 4-byte aligned; cudaErrorNotSupported where the driver has no tensor
+// maps.
+extern "C" int vast_flash_attention_fwd_sm90(
+    const void* q, const void* k, const void* v, const void* bias, void* out,
+    float* lse, int dtype, int bias_dtype, int B, int H, int Lq, int D,
+    int kend, const long long* strides, float scale, void* stream) {
+  return (int)run_sm90(hmajor_params(q, k, v, bias, out, lse, H, Lq, D, kend,
+                                     strides, scale),
+                       dtype, bias_dtype, B, H,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // Backward of the token-major attention (self_attention_tmajor_bwd): from

@@ -13,7 +13,9 @@ from ``csrc/flash_attention.cu``:
   kernels of ``flash_attention`` (:156): ``_single_kernel_nolse`` (:87)
   and ``_looped_kernel_nolse`` (:137) without a gradient to record,
   ``_single_kernel`` (:52) and ``_looped_kernel`` (:94), which add the
-  lse, with one; it is differentiable, its gradient being
+  lse, with one; in bf16 through the Hopper body (wgmma fed by the copy
+  engine) wherever the copy engine can read q, k and v
+  (:func:`_sm90_fwd_ok`); it is differentiable, its gradient being
 * :func:`flash_attention_bwd`, which replaces the kernels of
   ``flash_attention_bwd`` (:462): the fused ``_bwd_fused_kernel(_nods)``
   (:321, :363) and the tiled ``_bwd_dkv_kernel`` (:372) and
@@ -44,6 +46,8 @@ import torch
 LAUNCHES = {"tmajor_attention_fwd": 0, "tmajor_attention_fwd_bias": 0,
             "tmajor_attention_bwd": 0, "tmajor_attention_bwd_bias": 0,
             "flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
+            # of those two, the launches of the Hopper body (wgmma + TMA)
+            "flash_attention_fwd_sm90": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_dbias": 0,
             # the token-major layout probe (scripts/bench_tmajor_variants.py)
             "attention_dma": 0, "attention_sect": 0}
@@ -465,20 +469,40 @@ def flash_attention(q, k, v, bias=None, *, scale: float = 1.0,
     return (o, lse) if return_lse else o
 
 
-@torch.library.custom_op(
-    "vast::flash_attention", mutates_args=(),
-    schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale, "
-           "int lk_true, bool need_lse) -> (Tensor, Tensor)")
-def _flash_attention_op(q, k, v, bias, scale, lk_true, need_lse):
-    """The forward on checked operands: the plain version on the CPU, the
-    kernel on CUDA. The lse is empty unless ``need_lse``."""
-    if q.device.type == "cpu":
-        if need_lse:
-            return _flash_attention_plain(q, k, v, bias, scale=scale,
-                                          lk_true=lk_true, return_lse=True)
-        return (_flash_attention_plain(q, k, v, bias, scale=scale,
-                                       lk_true=lk_true),
-                q.new_empty(0, dtype=torch.float32))
+def _sm90_fwd_ok(q, k, v):
+    """Whether the Hopper body (``vast_flash_attention_fwd_sm90``: wgmma,
+    every tile brought by the copy engine) takes these operands: bf16, D
+    a multiple of 8 up to 128, every batch, head and row stride of q, k
+    and v a non-zero multiple of 8 elements (16 bytes), every base
+    16-byte aligned. Decided from dtype, shape, strides and data_ptr
+    alone, before any launch; the C entry checks the same and refuses
+    the rest."""
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16 or d % 8 or d > MAX_HEAD_DIM:
+        return False
+    return all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+               and all(s != 0 and s % 8 == 0 for s in t.stride()[:3])
+               for t in (q, k, v))
+
+
+def _flash_fwd_args(q, k, v, bias, out, lse, scale, lk_true):
+    """The arguments of either head-major forward entry
+    (``vast_flash_attention_fwd`` or ``..._sm90``) for these tensors; a
+    ``bias`` broadcast to (B, H, Lq, Lk) already, ``lse`` None for
+    none."""
+    b, h, lq, d = q.shape
+    return (_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse),
+            _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[q.dtype if bias is None else bias.dtype],
+            b, h, lq, d, lk_true or k.shape[2], _strides(q, k, v, out, bias),
+            float(scale), _stream())
+
+
+def _flash_fwd_launch(symbol, q, k, v, bias, scale, lk_true, need_lse):
+    """One launch of the head-major forward entry ``symbol`` on CUDA
+    operands: (out, lse), the lse empty unless ``need_lse``. Raises if
+    the entry refuses the operands or the launch fails. Counts nothing:
+    the op counts its launches."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if bias is not None:
@@ -493,17 +517,40 @@ def _flash_attention_op(q, k, v, bias, scale, lk_true, need_lse):
     lse = torch.empty((b, h, lq) if need_lse else (0,), dtype=torch.float32,
                       device=q.device)
     with torch.cuda.device(q.device):
-        err = _kernel("vast_flash_attention_fwd")(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out),
-            _ptr(lse if need_lse else None), _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[q.dtype if bias is None else bias.dtype],
-            b, h, lq, d, lk_true or lk, _strides(q, k, v, out, bias),
-            float(scale), _stream())
+        err = _kernel(symbol)(*_flash_fwd_args(
+            q, k, v, bias, out, lse if need_lse else None, scale, lk_true))
     if err:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash attention kernel launch failed "
+                           f"({symbol}): CUDA error {err}")
+    return out, lse
+
+
+@torch.library.custom_op(
+    "vast::flash_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale, "
+           "int lk_true, bool need_lse) -> (Tensor, Tensor)")
+def _flash_attention_op(q, k, v, bias, scale, lk_true, need_lse):
+    """The forward on checked operands: the plain version on the CPU, a
+    kernel on CUDA. The lse is empty unless ``need_lse``. Operands that
+    the copy engine can read in bf16 (:func:`_sm90_fwd_ok`) take the
+    Hopper body, the rest (fp32, D not a multiple of 8, odd strides) the
+    mma.sync / CUDA-core bodies; decided before the launch, and a failed
+    launch raises: neither falls back to the other."""
+    if q.device.type == "cpu":
+        if need_lse:
+            return _flash_attention_plain(q, k, v, bias, scale=scale,
+                                          lk_true=lk_true, return_lse=True)
+        return (_flash_attention_plain(q, k, v, bias, scale=scale,
+                                       lk_true=lk_true),
+                q.new_empty(0, dtype=torch.float32))
+    sm90 = _sm90_fwd_ok(q, k, v)
+    out, lse = _flash_fwd_launch(
+        "vast_flash_attention_fwd_sm90" if sm90 else
+        "vast_flash_attention_fwd", q, k, v, bias, scale, lk_true, need_lse)
     LAUNCHES["flash_attention_fwd_lse" if need_lse
              else "flash_attention_fwd"] += 1
+    if sm90:
+        LAUNCHES["flash_attention_fwd_sm90"] += 1
     return out, lse
 
 
@@ -614,6 +661,10 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, *, scale: float,
 # qkv, out, dtype, B, L, H, D, kend, stream
 _PROBE_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
     ctypes.c_void_p]
+# q, k, v, bias, out, lse, dtype, bias_dtype, B, H, Lq, D, kend, strides,
+# scale, stream: both head-major forward entries
+_HMAJOR_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
 _ARGTYPES = {
     "vast_tmajor_attention_fwd": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -625,12 +676,8 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
         ctypes.c_void_p],
-    "vast_flash_attention_fwd": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-        ctypes.c_void_p],
+    "vast_flash_attention_fwd": _HMAJOR_FWD_ARGS,
+    "vast_flash_attention_fwd_sm90": _HMAJOR_FWD_ARGS,
     "vast_flash_attention_bwd": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
