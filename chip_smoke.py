@@ -27,7 +27,12 @@ exits non-zero with no result line:
               the copy engine: one flash_attention_fwd_sm90 launch), an
               fp32 one the CUDA-core body; each head-major forward row
               also gives the profiler's device time per launch
-              (device_ms).
+              (device_ms). A bf16 backward (token-major or head-major)
+              must take the Hopper backward (wgmma fed by the copy engine:
+              one tmajor_attention_bwd_sm90 or flash_attention_bwd_sm90
+              launch), an fp32 one the CUDA-core body; each backward row
+              gives the profiler's device time per call, and of its dQ and
+              dK/dV kernels apart.
 4. tiny     - a tiny fp32 VASTModel on the GPU (kernels) against the same
               weights on the CPU (plain versions): ret%tva features, and
               grouped ITM scores at a shape that takes the head-major
@@ -57,9 +62,10 @@ exits non-zero with no result line:
               issue each block, peak memory, losses, the global gradient
               norm, which LR groups moved, and exact launch counts per
               step over the first block (40 EVA and 12 BEATs attention
-              forwards, as many backwards: the forward is not re-run in
-              the recompute). One more step under torch.profiler gives
-              the idle share and the top kernels.
+              forwards, as many backwards, all 52 on the Hopper backward:
+              the forward is not re-run in the recompute). One more step
+              under torch.profiler gives the idle share and the top
+              kernels.
 8. tiny_clip_ast  - phase 4 for a tiny CLIP + AST model whose towers have
               257 tokens, so that their attention takes the head-major
               kernels: features, then one 'attn' train step (the lse
@@ -73,14 +79,15 @@ exits non-zero with no result line:
               every one through the Hopper body, and no token-major
               launch.
 10. train_clip_ast - phase 7 for that model (clip_lr on CLIP's tower):
-              exactly 24 + 12 lse forwards (all through the Hopper body)
-              and as many backwards per step, nothing else launched; then
+              exactly 24 + 12 lse forwards and as many backwards per step,
+              all through the Hopper bodies, nothing else launched; then
               one profiled step.
 11. tmajor_variants - the token-major layout probe
               (``vast_tpu_torch.scripts.bench_tmajor_variants``) at its full
               shape (B 256, Lp 272, H 16, D 88, lk_true 257, bf16): its
               ``run`` with the counters zeroed (exactly one launch per call
-              of each variant's wrapper), each variant's fwd and fwd+bwd
+              of each variant's wrapper, cur's and pad128's backwards on
+              the Hopper backward), each variant's fwd and fwd+bwd
               times, bound and SDPA time; cur, dma and sect in turns at its
               shape and at EVA's slice shape, with the profiler's device
               times; then the two kernels of its own (attention_dma
@@ -92,6 +99,14 @@ exits non-zero with no result line:
               flagship rerank and the CLIP + AST rerank, with and without
               the lse: CUDA-event times and the profiler's device time per
               launch of each, and SDPA's time.
+13. bwd_turns - the backward's two bf16 bodies in turns (sm90, mma, mma,
+              sm90; the mma.sync body's C entries called directly, a
+              yardstick only) at EVA01-g's and BEATs' (bias and ds)
+              token-major shapes, CLIP-L/14-336's packed one, AST's and
+              the 640 x 4873 one: CUDA-event times, the profiler's device
+              time per launch of the dQ kernel and of the dK/dV kernel
+              apart, SDPA's backward alone, and the largest difference
+              between the two bodies' gradients.
 
 Then the ``{"kernels": [...]}`` line (each row's launches from its path's
 counted run: the slice for forwards, the train step for lse forwards and
@@ -226,8 +241,8 @@ SOURCE = "vast_tpu_torch/csrc/flash_attention.cu"
 BODIES = {
     "tmajor": "attention_fwd_mma_kernel (mma.sync, cp.async)",
     "hmajor": "attention_fwd_sm90_kernel (wgmma, copy engine)",
-    "tmajor_bwd": "attention_bwd_dq_mma_kernel + attention_bwd_dkv_mma_kernel"
-                  " (mma.sync)",
+    "tmajor_bwd": "attention_bwd_dq_sm90_kernel + "
+                  "attention_bwd_dkv_sm90_kernel (wgmma, copy engine)",
     "probe": {"attention_dma": "attention_fwd_tma_kernel (mma.sync, copy "
                                "engine)",
               "attention_sect": "attention_fwd_mma_kernel (mma.sync, "
@@ -273,24 +288,41 @@ def time_ms(torch, fn, reps=20, rounds=5, warmup=5):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, calls=10):
-    """The profiler's (CUPTI) device time per kernel launch of ``fn`` (one
-    launch a call), ms, over ``calls`` calls: the mean over the launches
-    the profiler recorded, since it recorded fewer than were made in some
-    runs on the H100 (a fifth of CLIP's in one)."""
+def profiled_kernels(torch, fn, calls=10, tries=3):
+    """The profiler's (CUPTI) records of the kernels of ``calls`` calls of
+    ``fn``, by name; a session that recorded no kernel at all (which
+    happened on the H100 now and then, as did sessions that recorded only
+    some launches) is run again, up to ``tries`` sessions, and [] if none
+    recorded one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            return kernels
+    return []
+
+
+def mean_device_ms(kernels):
+    """Device ms per launch over ``kernels`` (profiler records): the mean
+    over the launches recorded; None (not measured) for none."""
     seen = sum(e.count for e in kernels)
-    check(seen > 0, "the profiler recorded no kernel")
-    return sum(e.self_device_time_total for e in kernels) / seen / 1e3
+    return sum(e.self_device_time_total for e in kernels) / seen / 1e3 \
+        if seen else None
+
+
+def device_ms(torch, fn, calls=10):
+    """The profiler's device time per kernel launch of ``fn`` (one launch
+    a call), ms, over ``calls`` calls (:func:`profiled_kernels`); None
+    where the profiler recorded none."""
+    return mean_device_ms(profiled_kernels(torch, fn, calls))
 
 
 def phase_device(torch):
@@ -498,14 +530,16 @@ def grad_errors(torch, got, ref, scales, dtype, label):
 
 
 def sdpa_backward_ms(torch, q, k, v, bias, do, scale):
-    """SDPA's backward alone on the same values (head-major leaves), or
-    None and why where the backend gives no bias gradient."""
+    """SDPA's backward alone on the same values (head-major leaves; a bias
+    as its additive mask, in q's type as SDPA asks: the head-major rows'
+    fp32 bias rounded to bf16), or None and why where the backend gives no
+    bias gradient."""
     import torch.nn.functional as F
 
     inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
     mask = None
     if bias is not None:
-        mask = bias.detach().clone().requires_grad_(True)
+        mask = bias.detach().to(q.dtype, copy=True).requires_grad_(True)
         inputs.append(mask)
     try:
         out = F.scaled_dot_product_attention(*inputs[:3], attn_mask=mask,
@@ -527,8 +561,38 @@ def split_grads(torch, res, heads, bias):
     return out
 
 
-def tmajor_bwd_row(torch, spec, dtype, gen):
-    """The token-major backward against its plain version."""
+def bwd_device_ms(torch, fn, calls=10):
+    """The profiler's device time per launch of each kernel of ``fn`` (a
+    backward: its dQ kernel, then its dK/dV kernel), ms, by kernel ("dq",
+    "dkv"), over ``calls`` calls, as :func:`device_ms`; each None where
+    the profiler recorded none."""
+    kernels = profiled_kernels(torch, fn, calls)
+    return {part: mean_device_ms([e for e in kernels
+                                  if f"attention_bwd_{part}_" in e.key])
+            for part in ("dq", "dkv")}
+
+
+def total_ms(by_kernel):
+    """The sum of :func:`bwd_device_ms`'s times; None if one is None."""
+    return None if None in by_kernel.values() else sum(by_kernel.values())
+
+
+def check_sm90_bwd(torch, fa, key, fn, dtype, label):
+    """``fn()`` (one backward), checking that it launched the Hopper body
+    (one ``key`` launch) in bf16 and not in fp32; returns its result."""
+    before = fa.LAUNCHES[key]
+    res = fn()
+    torch.cuda.synchronize()
+    sm90 = fa.LAUNCHES[key] - before
+    want = int(dtype == torch.bfloat16)
+    check(sm90 == want, f"{label}: {sm90} launches of the Hopper backward, "
+          f"want {want}")
+    return res
+
+
+def tmajor_bwd_inputs(torch, spec, dtype, gen):
+    """qkv, bias, the forward's output o and a cotangent do at a token-major
+    backward row's shape."""
     from vast_tpu_torch.ops import flash_attention as fa
 
     b, l, h, d = (spec[k] for k in ("b", "lq", "h", "d"))
@@ -542,6 +606,16 @@ def tmajor_bwd_row(torch, spec, dtype, gen):
         bias = torch.randn(b, h, l, l, device="cuda", generator=gen).to(dtype)
     o = fa._self_attention_tmajor_plain(qkv, bias, heads=h, scale=scale)
     do = torch.randn(b, l, h * d, device="cuda", generator=gen).to(dtype)
+    return qkv, bias, o, do
+
+
+def tmajor_bwd_row(torch, spec, dtype, gen):
+    """The token-major backward against its plain version."""
+    from vast_tpu_torch.ops import flash_attention as fa
+
+    b, l, h, d = (spec[k] for k in ("b", "lq", "h", "d"))
+    scale = spec["scale"]
+    qkv, bias, o, do = tmajor_bwd_inputs(torch, spec, dtype, gen)
 
     def run():
         return fa.self_attention_tmajor_bwd(qkv, o, do, bias, heads=h,
@@ -551,20 +625,24 @@ def tmajor_bwd_row(torch, spec, dtype, gen):
         return fa._self_attention_tmajor_bwd_plain(qkv, o, do, bias,
                                                    heads=h, scale=scale)
 
-    got = split_grads(torch, run(), h, bias)
-    torch.cuda.synchronize()
+    label = f"{spec['replaces']} {dtype}"
+    got = split_grads(torch, check_sm90_bwd(
+        torch, fa, "tmajor_attention_bwd_sm90", run, dtype, label), h, bias)
     ref = split_grads(torch, plain(), h, bias)
     scales = fa._self_attention_tmajor_bwd_abs_terms(qkv, o, do, bias,
                                                      heads=h, scale=scale)
-    errors = grad_errors(torch, got, ref, scales, dtype,
-                         f"{spec['replaces']} {dtype}")
+    errors = grad_errors(torch, got, ref, scales, dtype, label)
     del scales, ref, got
     q, k, v = qkv.view(b, l, h, 3, d).permute(3, 0, 2, 1, 4)
     library_ms, library_note = sdpa_backward_ms(
         torch, q, k, v, bias, do.view(b, l, h, d).transpose(1, 2), scale)
+    by_kernel = bwd_device_ms(torch, run)
     return dict(errors=errors, kernel_ms=time_ms(torch, run),
                 plain_ms=time_ms(torch, plain), library_ms=library_ms,
                 library_note=library_note,
+                device_ms=total_ms(by_kernel),
+                device_ms_by_kernel=by_kernel,
+                sm90_launches=int(dtype == torch.bfloat16),
                 bytes=nbytes(qkv, o, do, qkv, bias, bias),
                 # five L x L x D products per (batch, head)
                 flops=10.0 * b * h * l * l * d)
@@ -590,21 +668,25 @@ def hmajor_bwd_row(torch, spec, dtype, gen):
                                              scale=scale,
                                              return_dbias=with_ds)
 
-    got = {n: g.float() for n, g in zip(GRADS, run())}
-    torch.cuda.synchronize()
+    label = f"{spec['name']} at {spec['at']} {dtype}"
+    got = {n: g.float() for n, g in zip(GRADS, check_sm90_bwd(
+        torch, fa, "flash_attention_bwd_sm90", run, dtype, label))}
     ref = {n: g.float() for n, g in zip(GRADS, plain())}
     scales = fa._flash_attention_bwd_abs_terms(q, k, v, bias, o, lse, do,
                                                scale=scale)
-    errors = grad_errors(torch, got, ref, scales, dtype,
-                         f"{spec['name']} at {spec['at']} {dtype}")
+    errors = grad_errors(torch, got, ref, scales, dtype, label)
     dbias = got.get("dbias")
     del scales, ref, got
     library_ms, library_note = sdpa_backward_ms(torch, q, k, v, bias, do,
                                                 scale)
     b, lq, lk, h, d = (spec[n] for n in ("b", "lq", "lk", "h", "d"))
+    by_kernel = bwd_device_ms(torch, run)
     return dict(errors=errors, kernel_ms=time_ms(torch, run),
                 plain_ms=time_ms(torch, plain), library_ms=library_ms,
                 library_note=library_note,
+                device_ms=total_ms(by_kernel),
+                device_ms_by_kernel=by_kernel,
+                sm90_launches=int(dtype == torch.bfloat16),
                 # q, k, v, o, do, lse (and the bias) read once; dq, dk, dv
                 # (and ds, fp32) written once
                 bytes=nbytes(q, k, v, o, do, lse, bias, q, k, v, dbias),
@@ -639,7 +721,8 @@ def kernel_row(torch, device_name, phase, spec, dtype, r):
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": r["bytes"], "flops": r["flops"],
     }
-    for key in ("library_max_abs_err", "device_ms", "sm90_launches"):
+    for key in ("library_max_abs_err", "device_ms", "device_ms_by_kernel",
+                "sm90_launches"):
         if key in r:
             row[key] = r[key]
     return row
@@ -707,6 +790,64 @@ def phase_hmajor_turns(torch):
         torch.cuda.empty_cache()
 
 
+def phase_bwd_turns(torch):
+    """The backward's two bf16 bodies in turns (sm90, mma, mma, sm90; each
+    :func:`time_ms`) at EVA01-g's and BEATs' token-major shapes and at the
+    head-major shapes of KERNELS without a bias (CLIP, AST, 4873 keys):
+    the Hopper body against the mma.sync one, whose C entries are called
+    directly as a yardstick (the wrappers take it only for operands the
+    copy engine cannot read), within one call on one card; the profiler's
+    device time per launch of each body's dQ and dK/dV kernels, SDPA's
+    backward alone, and the largest difference between the bodies'
+    gradients."""
+    from vast_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16 = torch.bfloat16
+    for spec in KERNELS:
+        if spec["layout"] == "tmajor_bwd":
+            h, scale = spec["h"], spec["scale"]
+            qkv, bias, o, do = tmajor_bwd_inputs(torch, spec, bf16, gen)
+            fns = {body: (lambda e=entry: fa._tmajor_bwd_launch(
+                e, qkv, o, do, bias, h, 0, scale)) for body, entry in (
+                ("sm90", "vast_tmajor_attention_bwd_sm90"),
+                ("mma", "vast_tmajor_attention_bwd"))}
+            b, l, d = spec["b"], spec["lq"], spec["d"]
+            q, k, v = qkv.view(b, l, h, 3, d).permute(3, 0, 2, 1, 4)
+            sdpa = (q, k, v, bias, do.view(b, l, h, d).transpose(1, 2))
+        elif spec["layout"] == "hmajor_bwd" and not spec["bias"]:
+            scale = spec["scale"]
+            q, k, v, do, _ = hmajor_inputs(torch, spec, bf16, gen)
+            o, lse = fa._flash_attention_plain(q, k, v, scale=scale,
+                                               return_lse=True)
+            fns = {body: (lambda e=entry: fa._flash_bwd_launch(
+                e, q, k, v, None, o, lse, do, scale, 0, False)) for
+                body, entry in (("sm90", "vast_flash_attention_bwd_sm90"),
+                                ("mma", "vast_flash_attention_bwd"))}
+            sdpa = (q, k, v, None, do)
+        else:
+            continue
+        outs = {body: [g.float() for g in fn() if g is not None]
+                for body, fn in fns.items()}
+        turns = {body: [] for body in fns}
+        for body in ("sm90", "mma", "mma", "sm90"):
+            turns[body].append(time_ms(torch, fns[body]))
+        sdpa_ms, sdpa_note = sdpa_backward_ms(torch, *sdpa, scale)
+        emit({"phase": "bwd_turns", "name": spec["name"], "at": spec["at"],
+              "shape": {key: spec[key] for key in
+                        ("b", "lq", "lk", "h", "d", "bias")}
+              | {"views": spec.get("views")},
+              "ms_in_turns": turns,
+              "device_ms": {body: bwd_device_ms(torch, fn)
+                            for body, fn in fns.items()},
+              "sdpa_backward_ms": sdpa_ms, "sdpa_note": sdpa_note,
+              "bodies_max_abs_diff": max(
+                  (a - b).abs().max().item()
+                  for a, b in zip(outs["sm90"], outs["mma"]))})
+        del fns, outs, sdpa
+        torch.cuda.empty_cache()
+
+
 def probe_case(torch, spec, inputs, dtype):
     """A probe kernel's case for :func:`fwd_kernel_row` on the probe's data
     in ``dtype``: the wrapper, its plain version (which rounds p / l to
@@ -736,10 +877,8 @@ def probe_turns(torch, tv, inputs, heads, lk):
     cur, dma, sect; each :func:`time_ms`) at the probe's shape and at
     EVA's slice shape (B 64, L 257, no mask: the probe's first rows), so
     that row 1's cp.async body and the copy engine's are compared within
-    one call on one card; and each one's device time by the profiler
-    (CUPTI) over 10 calls."""
-    from torch.profiler import ProfilerActivity, profile
-
+    one call on one card; and each one's device time per launch (one a
+    call) by the profiler (:func:`device_ms`; None if not measured)."""
     from vast_tpu_torch.ops import flash_attention as fa
 
     for b, l, lk_true in ((tv.B, tv.LP, lk), (64, 257, 0)):
@@ -755,18 +894,10 @@ def probe_turns(torch, tv, inputs, heads, lk):
         for k in ("cur", "dma", "sect", "sect", "dma", "cur", "cur", "dma",
                   "sect"):
             turns[k].append(time_ms(torch, fns[k]))
-        device_us = {}
-        for k, fn in fns.items():
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    fn()
-                torch.cuda.synchronize()
-            device_us[k] = sum(
-                e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA) / 10
         emit({"phase": "tmajor_variants_turns", "b": b, "l": l,
               "lk_true": lk_true, "ms_in_turns": turns,
-              "device_us_per_call": device_us})
+              "device_ms": {k: device_ms(torch, fn)
+                            for k, fn in fns.items()}})
 
 
 def phase_tmajor_variants(torch, device_name):
@@ -798,7 +929,10 @@ def phase_tmajor_variants(torch, device_name):
         "attention_dma": calls["dma"]["fwd"],
         "attention_sect": calls["sect"]["fwd"],
         "tmajor_attention_fwd": calls["cur"]["fwd"] + calls["pad128"]["fwd"],
-        "tmajor_attention_bwd": calls["cur"]["bwd"] + calls["pad128"]["bwd"]}
+        "tmajor_attention_bwd": calls["cur"]["bwd"] + calls["pad128"]["bwd"],
+        # both layouts' backwards take the Hopper body
+        "tmajor_attention_bwd_sm90": calls["cur"]["bwd"]
+        + calls["pad128"]["bwd"]}
     check(launches == want, f"probe launches {launches} != one per call "
           f"{want}")
 
@@ -1454,22 +1588,26 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step):
 
 
 def phase_train(torch, np):
-    """The flagship train step (bench.py:367-400)."""
+    """The flagship train step (bench.py:367-400): 40 EVA and 12 BEATs
+    attention forwards and backwards per step, every backward through the
+    Hopper body."""
     launches, _, _ = run_train(
         torch, np, "train", {}, 224,
         {"tmajor_attention_fwd": 40, "tmajor_attention_fwd_bias": 12,
-         "tmajor_attention_bwd": 40, "tmajor_attention_bwd_bias": 12})
+         "tmajor_attention_bwd": 40, "tmajor_attention_bwd_bias": 12,
+         # every backward through the Hopper body
+         "tmajor_attention_bwd_sm90": 40 + 12})
     return launches
 
 
 def phase_train_clip_ast(torch, np):
     """The CLIP-L/14-336 + AST train step: 24 CLIP and 12 AST lse forwards
-    (all through the Hopper body) and backwards per step (BERT's attention
+    and backwards per step, all through the Hopper bodies (BERT's attention
     takes the plain route)."""
     launches, lse_by_tower, bwd_by_lq = run_train(
         torch, np, "train_clip_ast", CA, 336,
         {"flash_attention_fwd_lse": 36, "flash_attention_fwd_sm90": 36,
-         "flash_attention_bwd": 36})
+         "flash_attention_bwd": 36, "flash_attention_bwd_sm90": 24 + 12})
     n = TRAIN_STEPS
     check(lse_by_tower == {"vision": 24 * n, "audio": 12 * n}
           and bwd_by_lq == {577: 24 * n, 257: 12 * n},
@@ -1501,7 +1639,8 @@ def kernels_line(bf16_rows, launches_at):
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "body": body_of(spec), "device_ms": r.get("device_ms")})
+            "body": body_of(spec), "device_ms": r.get("device_ms"),
+            "device_ms_by_kernel": r.get("device_ms_by_kernel")})
     return line
 
 
@@ -1521,6 +1660,7 @@ def main():
     phase_build()
     rows = phase_kernels(torch, name)
     phase_hmajor_turns(torch)
+    phase_bwd_turns(torch)
     probe_rows, probe_launches = phase_tmajor_variants(torch, name)
     rows |= probe_rows
     torch.cuda.empty_cache()

@@ -1,4 +1,4 @@
-"""Which body a head-major forward takes: ``_sm90_fwd_ok``, on the CPU.
+"""Which body a head-major forward takes: ``_sm90_ok``, on the CPU.
 
 The Hopper body (``vast_flash_attention_fwd_sm90``: wgmma fed by the
 copy engine) reads q, k and v through tensor maps, so it takes bf16
@@ -15,9 +15,14 @@ on the card only (tests/test_torch_kernels_gpu.py).
 import pytest
 import torch
 
-from vast_tpu_torch.ops.flash_attention import _sm90_fwd_ok
+from vast_tpu_torch.ops.flash_attention import _sm90_ok
 
 BF16 = torch.bfloat16
+
+
+def _sm90_fwd_ok(q, k, v):
+    """The rule as the forward asks it: of q, k and v at q's head width."""
+    return _sm90_ok(q.shape[-1], q, k, v)
 
 
 def packed(b, l, h, d, device="meta", dtype=BF16):

@@ -21,7 +21,10 @@ copy engine cannot read; the head-major forward's Hopper body (wgmma fed
 by the copy engine) at D 16 to 128, Lq 1 to 577, Lk 1 to 4873, lk_true,
 packed, token-major and contiguous views, fp32 and bf16 biases broadcast
 over heads or the batch, with and without the lse, and its entry's
-refusal of layouts the copy engine cannot read.
+refusal of layouts the copy engine cannot read; and the backward's
+Hopper body (both entries) at L 1 to 4873, Lq != Lk, lk_true, D 8 to
+128, with and without a bias and its ds: each output against the plain
+version, bitwise repeats, its counters, and its entry's refusals.
 """
 
 import pytest
@@ -143,8 +146,9 @@ BWD_CASES = {
     "tile_plus_one": (3, 65, 2, 32, 0, None, 0.7),
     "beats_bias": (2, 256, 12, 64, 0, "per_sample", 64 ** -0.5),
     "shared_bias_d128": (3, 100, 2, 128, 0, "shared", 128 ** -0.5),
-    # keys 70..129 masked: dbias past the last 32-key tile (96..) is the
-    # wrapper's zero fill
+    # keys 70..129 masked: dbias past the last key tile (96.. on the
+    # mma.sync body's 32-key tiles, 128.. on the Hopper body's 64)
+    # is the wrapper's zero fill
     "bias_lk_true_d88": (2, 130, 2, 88, 70, "per_sample", 0.3),
 }
 
@@ -255,8 +259,8 @@ HMAJOR_CASES = {
     "ragged_lk_true_d33": (2, 3, 100, 130, 33, 77, None, "contiguous"),
     "mask_bias": (2, 4, 100, 120, 64, 0, "mask", "token_major"),
     "learned_bias": (2, 3, 70, 90, 24, 0, "learned", "contiguous"),
-    # keys 70..149 masked: ds past the last 32-key tile (96..) is the
-    # wrapper's zero fill
+    # keys 70..149 masked: ds past the last key tile (96.., or 128..
+    # on the Hopper body) is the wrapper's zero fill
     "learned_bias_lk_true_d88": (2, 2, 130, 150, 88, 70, "learned",
                                  "token_major"),
     # the rerank's condition length (8 x 577 + 257): row 6's shapes
@@ -547,7 +551,7 @@ def test_hopper_forward_matches_plain(cuda, case):
         bias[0, 0, min(3, lq - 1)] = float("-inf")
         if kind == "bf16_batch":
             bias = bias.to(torch.bfloat16)
-    assert fa._sm90_fwd_ok(q, k, v)
+    assert fa._sm90_ok(d, q, k, v)
     key = "flash_attention_fwd_lse" if lse else "flash_attention_fwd"
     before = dict(fa.LAUNCHES)
     res = fa.flash_attention(q, k, v, bias, scale=d ** -0.5, lk_true=lk_true,
@@ -597,7 +601,7 @@ def test_hopper_entry_refuses_what_the_copy_engine_cannot_read(cuda, layout):
     q = torch.randn(b * h * lq * d + 1, device=cuda, generator=gen).to(dtype)
     q = q[1:] if layout == "base_offset" else q[:-1]
     q = q.view(b, h, lq, d)
-    assert not fa._sm90_fwd_ok(q, k, v)
+    assert not fa._sm90_ok(d, q, k, v)
     out = torch.full((b, h, lq, d), float("nan"), device=cuda, dtype=dtype)
     err = fa._kernel("vast_flash_attention_fwd_sm90")(
         *fa._flash_fwd_args(q, k, v, None, out, None, d ** -0.5, 0))
@@ -620,3 +624,201 @@ def test_hopper_entry_refuses_what_the_copy_engine_cannot_read(cuda, layout):
             * 2 ** -8, (err, ref_max)
     else:
         assert err <= 2e-5 * max(ref_max, 1.0), (err, ref_max)
+
+
+BWD_SM90_CASES = {
+    # name: (B, H, Lq, Lk, D, lk_true, bias kind, layout); "tmajor" is the
+    # fused token-major qkv (Lq == Lk) through self_attention_tmajor_bwd,
+    # the others head-major views through flash_attention_bwd
+    "tmajor_l1_d8": (1, 2, 1, 1, 8, 0, None, "tmajor"),
+    "tmajor_l65_d64": (2, 3, 65, 65, 64, 0, None, "tmajor"),
+    "tmajor_l129_d88_lk_true": (2, 3, 129, 129, 88, 100, None, "tmajor"),
+    "eva01g_l257_d88": (2, 16, 257, 257, 88, 0, None, "tmajor"),
+    "beats_bias_ds": (2, 12, 256, 256, 64, 0, "bf16_per_sample", "tmajor"),
+    "shared_bias_ds_d128_lk_true": (3, 2, 129, 129, 128, 70, "bf16_shared",
+                                    "tmajor"),
+    "clip_packed_577": (2, 16, 577, 577, 64, 0, None, "packed"),
+    "ast_token_major_257": (2, 12, 257, 257, 64, 0, None, "token_major"),
+    "lq65_lk257_d128": (2, 3, 65, 257, 128, 0, None, "contiguous"),
+    "long_keys_4873_lk_true": (1, 2, 129, 4873, 64, 4800, None,
+                               "token_major"),
+    "mask_bias_lq65_lk129": (2, 4, 65, 129, 64, 0, "f32_mask",
+                             "token_major"),
+    "learned_bias_ds_d88_lk_true": (2, 3, 129, 257, 88, 200, "f32_learned",
+                                    "contiguous"),
+}
+
+
+def bwd_sm90_case(case, cuda, gen):
+    """The call of a BWD_SM90_CASES case through its public wrapper (a
+    function of no argument returning {dq, dk, dv[, dbias]}), the same
+    from its plain version, the sum of |terms| of each output, the counter
+    keys it must bump and the (b, h, row) of its row of no finite score
+    (head-major cases with a bias; None for the others)."""
+    b, h, lq, lk, d, lk_true, kind, layout = BWD_SM90_CASES[case]
+    scale = d ** -0.5
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=cuda, generator=gen).to(dtype)
+
+    if layout == "tmajor":
+        # no row without a key here: the token-major plain versions
+        # (torch.softmax) give NaN for one, and no token-major path has one
+        qkv = randn(b, lq, h * 3 * d)
+        bias = None
+        if kind:
+            bias = randn(b if kind == "bf16_per_sample" else 1, h, lq, lk)
+        kw = dict(heads=h, lk_true=lk_true, scale=scale)
+        o = fa._self_attention_tmajor_plain(qkv, bias, **kw)
+        do = randn(b, lq, h * d)
+
+        def grads(res):
+            out = split_dqkv(res if bias is None else res[0], h)
+            if bias is not None:
+                out["dbias"] = res[1].float()
+            return out
+
+        scales = fa._self_attention_tmajor_bwd_abs_terms(qkv, o, do, bias,
+                                                         **kw)
+        if bias is not None and bias.shape[0] == 1:
+            scales["dbias"] = scales["dbias"].sum(0, keepdim=True)
+        key = "tmajor_attention_bwd" + ("" if bias is None else "_bias")
+        return (lambda: grads(fa.self_attention_tmajor_bwd(qkv, o, do, bias,
+                                                           **kw)),
+                lambda: grads(fa._self_attention_tmajor_bwd_plain(
+                    qkv, o, do, bias, **kw)),
+                scales, (key, "tmajor_attention_bwd_sm90"), None)
+    if layout == "packed":
+        q, k, v = (t.transpose(1, 2) for t in randn(b, lq, 3, h, d).unbind(2))
+    elif layout == "token_major":
+        q, k, v = (randn(b, n, h, d).transpose(1, 2) for n in (lq, lk, lk))
+    else:
+        q, k, v = (randn(b, h, n, d) for n in (lq, lk, lk))
+    do = randn(b, lq, h, d).transpose(1, 2)
+    bias = None
+    dead = None if kind is None else (0, 0, 3)  # a row with no key at all
+    if kind == "f32_mask":
+        keep = torch.rand(b, 1, lq, lk, device=cuda, generator=gen) > 0.3
+        keep[..., 0] = True
+        bias = torch.where(keep, 0.0, -1e30)
+        bias[dead[0], 0, dead[2]] = float("-inf")
+    elif kind == "f32_learned":
+        bias = randn(b, h, lq, lk, dtype=torch.float32)
+        bias[dead] = float("-inf")
+    with_ds = kind == "f32_learned"
+    kw = dict(scale=scale, lk_true=lk_true)
+    o, lse = fa._flash_attention_plain(q, k, v, bias, return_lse=True, **kw)
+    names = ("dq", "dk", "dv", "dbias")
+
+    def run():
+        return {n: g.float() for n, g in zip(names, fa.flash_attention_bwd(
+            q, k, v, bias, o, lse, do, return_dbias=with_ds, **kw))}
+
+    def plain():
+        return {n: g.float() for n, g in zip(
+            names, fa._flash_attention_bwd_plain(
+                q, k, v, bias, o, lse, do, return_dbias=with_ds, **kw))}
+
+    scales = fa._flash_attention_bwd_abs_terms(q, k, v, bias, o, lse, do,
+                                               **kw)
+    key = "flash_attention_bwd" + ("_dbias" if with_ds else "")
+    return run, plain, scales, (key, "flash_attention_bwd_sm90"), dead
+
+
+@pytest.mark.parametrize("case", list(BWD_SM90_CASES))
+def test_hopper_backward_matches_plain(cuda, case):
+    """bf16 backwards whose operands the copy engine can read take the
+    Hopper body (each call one launch of the op's counter and of its
+    _sm90 counter), match the plain version within the derived bf16
+    limits for dq, dk, dv and dbias separately, repeat bitwise (no
+    atomics), give zero gradients to keys past lk_true, and give a row of
+    no finite score (the head-major cases with a bias) zeros and no
+    NaN."""
+    lk_true = BWD_SM90_CASES[case][5]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    run, plain, scales, keys, dead = bwd_sm90_case(case, cuda, gen)
+    before = dict(fa.LAUNCHES)
+    got = run()
+    torch.cuda.synchronize()
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in before}
+    assert launched == {n: int(n in keys) for n in before}
+    again = run()
+    torch.cuda.synchronize()
+    for name, g in got.items():
+        assert torch.equal(g, again[name]), name
+    want = plain()
+    assert set(got) == set(want)
+    for name, g in got.items():
+        w = want[name]
+        assert g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        diff = g - w
+        err = diff.abs().max().item()
+        span = (w.abs() + scales[name]).max().item()
+        # as test_bwd_kernel_matches_plain: p or ds rounded to bf16 before
+        # the last product and the output rounded once
+        assert err <= 1.1 * 2 ** -8 * span, (name, err, span)
+        rms = (diff.square().mean()
+               / w.square().mean().clamp_min(1e-30)).sqrt().item()
+        assert rms <= 2 ** -6, (name, rms)
+        if lk_true and name in ("dk", "dv"):
+            assert g[:, :, lk_true:].abs().max().item() == 0.0, name
+        if lk_true and name == "dbias":
+            assert g[..., lk_true:].abs().max().item() == 0.0
+    if dead is not None:
+        b, h, row = dead
+        assert got["dq"][b, h, row].abs().max().item() == 0.0
+        if "dbias" in got:
+            assert got["dbias"][b, h, row].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("layout", ["base_offset", "d36", "fp32"])
+def test_hopper_backward_entry_refuses_what_the_copy_engine_cannot_read(
+        cuda, layout):
+    """Called directly, the Hopper backward entry refuses operands the copy
+    engine cannot read (a q one element past a 16-byte boundary, D 36,
+    fp32) with cudaErrorInvalidValue (1) and launches nothing: its outputs
+    keep their fill, and its launch helper raises naming it. The wrapper
+    sends them to the mma.sync / CUDA-core bodies (no _sm90 count)."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    b, h, lq, lk = 2, 3, 65, 130
+    d = 36 if layout == "d36" else 64
+    dtype = torch.float32 if layout == "fp32" else torch.bfloat16
+    k, v = (torch.randn(b, h, lk, d, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    q = torch.randn(b * h * lq * d + 1, device=cuda, generator=gen).to(dtype)
+    q = (q[1:] if layout == "base_offset" else q[:-1]).view(b, h, lq, d)
+    o, lse = fa._flash_attention_plain(q, k, v, scale=d ** -0.5,
+                                       return_lse=True)
+    do = torch.randn(b, h, lq, d, device=cuda, generator=gen).to(dtype)
+    assert not fa._sm90_ok(d, q, k, v, o, do)
+    outs = [torch.full(t.shape, float("nan"), device=cuda, dtype=dtype)
+            for t in (q, k, v)]
+    delta = torch.empty_like(lse)
+    err = fa._kernel("vast_flash_attention_bwd_sm90")(
+        *(fa._ptr(t) for t in (q, k, v, o, do, None, *outs, None, lse,
+                               delta)),
+        fa._DTYPE_CODES[dtype], b, h, lq, lk, d, lk,
+        fa._strides(q, k, v, o, do, *outs, None, None), d ** -0.5,
+        fa._stream())
+    torch.cuda.synchronize()
+    assert err == 1
+    assert all(bool(t.isnan().all()) for t in outs)
+    with pytest.raises(RuntimeError, match="vast_flash_attention_bwd_sm90"):
+        fa._flash_bwd_launch("vast_flash_attention_bwd_sm90", q, k, v, None,
+                             o, lse, do, d ** -0.5, 0, False)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention_bwd(q, k, v, None, o, lse, do, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in before}
+    assert launched == {n: int(n == "flash_attention_bwd") for n in before}
+    want = fa._flash_attention_bwd_plain(q, k, v, None, o, lse, do,
+                                         scale=d ** -0.5)
+    scales = fa._flash_attention_bwd_abs_terms(q, k, v, None, o, lse, do,
+                                               scale=d ** -0.5)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        span = (w.float().abs() + scales[name]).max().item()
+        # as test_flash_bwd_kernel_matches_plain
+        tol = 1.1 * 2 ** -8 * span if dtype == torch.bfloat16 else 5e-5 * span
+        assert err <= tol, (name, err, span)

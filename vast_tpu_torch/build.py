@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` (the hash covers
-the source and the flags, so an edited source rebuilds), then loaded with
-ctypes. Nothing here runs at import time: the package imports on a
+the source, the flags and any macros defined, so an edited source
+rebuilds; a benchmark may build a variant beside it with ``defines``),
+then loaded with ctypes. Nothing here runs at import time: the package imports on a
 machine without ``nvcc`` or a GPU, and only a CUDA launch builds.
 """
 
@@ -22,7 +23,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -33,26 +34,32 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(name: str) -> str:
+def _flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple("-D" + d for d in defines)
+
+
+def _target(name: str, defines=()) -> str:
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read()
+                                + " ".join(_flags(defines)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless it is built already.
+def build(name: str, defines=()) -> str:
+    """Compile ``csrc/<name>.cu``, with the macros ``defines`` ("NAME=value"
+    each), unless it is built already.
 
     Returns the compiler's output (``-Xptxas -v`` prints registers, shared
     memory and spills per kernel), or "" when nothing was compiled. Raises
     if the compile fails.
     """
-    target = _target(name)
+    target = _target(name, defines)
     if os.path.exists(target):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+    proc = subprocess.run([_nvcc(), *_flags(defines), "-o", tmp,
                            os.path.join(CSRC, name + ".cu")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
@@ -63,10 +70,12 @@ def build(name: str) -> str:
     return proc.stdout
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The ctypes handle of ``csrc/<name>.cu`` (with ``defines``), built
+    if needed."""
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        build(name)
-        lib = _loaded[name] = ctypes.CDLL(_target(name))
+        build(name, defines)
+        lib = _loaded[key] = ctypes.CDLL(_target(name, defines))
     return lib

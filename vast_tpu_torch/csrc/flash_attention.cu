@@ -2349,6 +2349,19 @@ cudaError_t encode_hmajor_map(CUtensorMap* map, Sm90Slot* slot,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// a persistent grid of min(n_work, SMs) blocks
+cudaError_t persistent_blocks(long long n_work, int* blocks) {
+  int device, n_sm;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  if (n_work > INT_MAX) return cudaErrorInvalidValue;
+  *blocks = (int)(n_work < n_sm ? n_work : n_sm);
+  return cudaSuccess;
+}
+
 template <int DP, typename BiasT>
 cudaError_t launch_sm90(const Params& p, int B, int H, cudaStream_t stream) {
   CUtensorMap maps[3];
@@ -2365,16 +2378,12 @@ cudaError_t launch_sm90(const Params& p, int B, int H, cudaStream_t stream) {
   const size_t smem = Sm90Smem<DP>::kBytes;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  int device, n_sm;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return err;
   // a persistent block an SM (the registers of all 384 threads fill it)
   const int n_qtiles = (p.lq + kSm90BlockQ - 1) / kSm90BlockQ;
   const long long n_work = (long long)n_qtiles * H * B;
-  if (n_work > INT_MAX) return cudaErrorInvalidValue;
-  kern<<<(int)(n_work < n_sm ? n_work : n_sm), kSm90Threads, smem, stream>>>(
+  int blocks;
+  if ((err = persistent_blocks(n_work, &blocks)) != cudaSuccess) return err;
+  kern<<<blocks, kSm90Threads, smem, stream>>>(
       p, maps[kQ], maps[kK], maps[kV], slots[kQ], slots[kK], slots[kV],
       n_qtiles, (int)n_work);
   return cudaGetLastError();
@@ -2430,6 +2439,931 @@ Params hmajor_params(const void* q, const void* k, const void* v,
   p.d = D;
   p.heads = H;
   p.scale = scale;
+  return p;
+}
+
+
+// ---------------------------------------------------------------------
+// The backward for Hopper: wgmma and the copy engine
+// ---------------------------------------------------------------------
+//
+// Replaces, for bf16 operands the copy engine can read (sm90_bwd_takes,
+// below), the backward kernels of vast_tpu/ops/flash_attention.py:
+// _tmajor_bwd_kernel (:795) and _tmajor_bwd_kernel_bias (:841) through
+// vast_tmajor_attention_bwd_sm90; flash_attention_bwd's fused
+// _bwd_fused_kernel_nods / _bwd_fused_kernel (:363 / :321) and its tiled
+// _bwd_dkv_kernel (:372) and _bwd_dq_kernel_nods / _bwd_dq_kernel (:451 /
+// :413) through vast_flash_attention_bwd_sm90. attention_bwd_dq_sm90_kernel
+// is the dQ half of all of them (with ds as dbias, delta and, on the
+// token-major entry, the lse), attention_bwd_dkv_sm90_kernel the dK/dV
+// half. The contract is the backward's ("Backward" above); fp32 and the
+// views the copy engine cannot read keep the mma.sync and CUDA-core bodies
+// through vast_tmajor_attention_bwd and vast_flash_attention_bwd.
+//
+// What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): the five Lq x
+// Lk x D products of the backward against q, k, v, o and do read once and
+// dq, dk and dv written once. EVA01-g's token-major backward (64 x 16
+// heads x 257^2 x 88) and AST's (8 x 12 x 257^2 x 64) are bound by bytes;
+// CLIP-L/14-336's (64 x 16 x 577^2 x 64) and the 640 x 4873 rerank shape by
+// operations. This body does seven products (eight with the token-major
+// entry's lse sweep): s and dp are formed in both kernels, so that neither
+// needs atomics and the gradients are deterministic.
+// What the design does about it: every product runs on wgmma with its
+// shared-memory operands read by the tensor cores as the copy engine laid
+// them (128-byte swizzle), and p and ds go from the accumulators to the A
+// operands of the next products in registers, so no thread loads an operand
+// fragment; one producer thread issues every copy into a ring of stages, so
+// loads run under the products; one persistent block an SM, two consumer
+// warpgroups of 64 owned rows whose products and elementwise work
+// interleave, setmaxnreg giving them the producer's registers (24 and 240).
+// * dQ: a work tile is 2 x 64 query rows of one (batch, head): its q, do and
+//   o come once (their own full and empty barriers), key tiles of 64 (k, v)
+//   stream through the ring. delta = rowsum(do . o) is summed from those
+//   q-side tiles in shared memory. s = q . k^T and dp = do . v^T take both
+//   operands from shared memory (K-major); p = exp2(s scale log2e - lse
+//   log2e) and ds = p (dp - delta) are formed in registers, ds written as
+//   dbias where asked; dq += ds . k takes ds from registers and k MN-major
+//   (the transpose bit). The token-major entry first sweeps the key tiles
+//   once more (k alone) for the row max and sum, hence the lse, which it
+//   writes with delta for the dK/dV kernel.
+// * dK/dV: a work tile is 2 x 64 keys: its k and v come once, query tiles of
+//   64 (q, do, and their 64 lse and 64 delta values through 1-D maps, on the
+//   same barrier; each box from a 16-byte boundary, kStatBox below) stream
+//   through the ring. s^T = k . q^T and dp^T = v . do^T
+//   come from shared memory, p^T and ds^T are formed in registers (lse and
+//   delta are indexed by the accumulator's column), and dv += p^T . do and
+//   dk += ds^T . q take them from registers, do and q MN-major. dk and dv
+//   accumulate in registers over every query tile.
+// Ragged ends: streamed tiles of 64 (L 257: 5 tiles, 320 rows for 257,
+// 1.25x; 577: 10 tiles, 1.11x); rows past the end read as zeros and are
+// masked in registers, as are keys past kend that are real data (the
+// layout probe's 257 of 272). Owned tiles of 2 x 64 rows: at L
+// 257 the third work tile of a head holds one row, and its second
+// warpgroup, which owns none, issues no product (it keeps the barriers'
+// count).
+// D: the products over D issue ceil(D / 16) k-steps, at most 96 for D <=
+// 96 without a bias (EVA's 88: 6 steps, 9% over 88). The products whose N
+// is D (dq, dk, dv) run whole 64-column boxes, since the MN-major operand's
+// 128-byte swizzle atom is 64 columns wide: 128 at D 88 (45% over 88), so
+// EVA's backward does 1.23x the tensor work of D 88 (1.45x with 128
+// throughout). The copy engine zero-fills the columns past D in shared
+// memory; nothing is padded in device memory.
+// Tried and kept out, on the H100 (PERF.md): a 16-wide last tile (wgmma's
+// N 16) for the one-row tails of 257 and 577 gained little, for a build a
+// third longer, since a tile's time is the latency of its two product
+// groups and their waits more than their width; one group a tile (tile
+// i's dq, or dv and dk, products with tile i + 1's s and dp) ran slower at
+// every path shape: ptxas serialized the wgmmas (C7520) and spilled in the
+// DP 128 dK/dV kernels.
+// Not here, later levers: one fused kernel with an atomic dq (five
+// products, not deterministic), the forward's lse for the token-major entry
+// (no sweep), owned tiles of 64 rows at L 257, overlapping a tile's
+// elementwise work with the last tile's products.
+
+constexpr int kBwdSm90Owned = 64 * kSm90Consumers;  // rows a block owns
+constexpr int kBwdSm90Inner = 64;                   // rows of a streamed tile
+constexpr int kBwdSm90Stages = 3;   // the copy engine up to 2 tiles ahead
+
+// dQ's shared memory, each tile 1024-byte aligned: the work tile's q, do
+// and o, then each stage's k and v, then the barriers (full and empty per
+// stage, then the work tile's full and empty). A tile of R rows is DP / 64
+// boxes of R x 128 bytes.
+template <int DP>
+struct BwdDqSmem {
+  static constexpr int kBlocks = DP / kSm90Box;
+  static constexpr unsigned kOwnedBytes = kBwdSm90Owned * DP * 2;   // q, do or o
+  static constexpr unsigned kTileBytes = kBwdSm90Inner * DP * 2;    // k or v
+  static constexpr unsigned kStageBytes = 2 * kTileBytes;
+  static constexpr unsigned kBarOffset =
+      3 * kOwnedBytes + kBwdSm90Stages * kStageBytes;
+  static constexpr size_t kBytes =
+      kBarOffset + (2 * kBwdSm90Stages + 2) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
+
+// The copy engine faults on a box that starts off a 16-byte boundary, and
+// a query tile's lse and delta start at element (b H + h) Lq + q0: so its
+// box starts at that element rounded down to a multiple of 4 and holds
+// kStatBox values, and the tile's 64 lie 0-3 values in.
+constexpr int kStatBox = kBwdSm90Inner + 4;
+
+// dK/dV's: the work tile's k and v, then each stage's q, do, and the query
+// tile's lse and delta boxes (kStatBox fp32 each, delta kStatStride bytes
+// after lse, both in a 1024-byte pad), then the barriers as dQ's.
+template <int DP>
+struct BwdDkvSmem {
+  static constexpr int kBlocks = DP / kSm90Box;
+  static constexpr unsigned kOwnedBytes = kBwdSm90Owned * DP * 2;   // k or v
+  static constexpr unsigned kTileBytes = kBwdSm90Inner * DP * 2;    // q or do
+  static constexpr unsigned kStatBytes = kStatBox * 4;     // lse or delta
+  static constexpr unsigned kStatStride = 512;
+  static constexpr unsigned kStageBytes = 2 * kTileBytes + 1024;
+  static constexpr unsigned kBarOffset =
+      2 * kOwnedBytes + kBwdSm90Stages * kStageBytes;
+  static constexpr size_t kBytes =
+      kBarOffset + (2 * kBwdSm90Stages + 2) * 8 + 1024;
+  static_assert(kStatStride + kStatBytes <= 1024,
+                "lse and delta in a stage's pad");
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
+
+// The copy engine's maps of one backward kernel: the work tile's operands
+// (own: q, do and o for dQ; k and v for dK/dV; boxes of kBwdSm90Owned rows),
+// the streamed ones (str: k and v for dQ; q and do for dK/dV; boxes of
+// kBwdSm90Inner rows), each with its slots, and dK/dV's 1-D maps of lse and
+// delta (stat; boxes of kStatBox values).
+struct BwdMaps {
+  CUtensorMap own[3], str[2], stat[2];
+  Sm90Slot own_slot[3], str_slot[2];
+};
+
+// the box at `c0` of a 1-D map; its bytes complete on `bar`
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// d[0..31] (+)= a . b over 16 of the reduction: a 64 x 16 tile and b a
+// 16 x 64 tile, both in shared memory and K-major; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// acc = a . b^T over the first 16 KD columns (of D): a the warpgroup's 64
+// rows of a tile whose boxes lie a_rows rows apart, b a streamed tile of
+// kBwdSm90Inner rows, both K-major as the copy engine laid them; a 16-column
+// step moves both descriptors 32 bytes (as sm90_consumer's scores). Not
+// committed.
+template <int KD>
+__device__ __forceinline__ void bwd_sm90_abt(float (&acc)[32],
+                                             const unsigned char* a,
+                                             int a_rows,
+                                             const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    const int c = kk / 4, off = (kk % 4) * 32;
+    wgmma_m64n64k16_ss(
+        acc, wgmma_desc(a + c * a_rows * kSm90RowBytes + off, 16, 1024),
+        wgmma_desc(b + c * kBwdSm90Inner * kSm90RowBytes + off, 16, 1024),
+        kk > 0);
+  }
+}
+
+// acc[c] += x . y over the kBwdSm90Inner rows of a streamed tile y: x (64
+// x kBwdSm90Inner) in registers as A fragments, y's boxes MN-major (the
+// transpose bit), one 64-column box c of the result at a time. Not
+// committed.
+template <int kBlocks>
+__device__ __forceinline__ void bwd_sm90_xy(float (&acc)[kBlocks][32],
+                                            const uint32_t (&x)[4][4],
+                                            const unsigned char* y) {
+#pragma unroll
+  for (int kk = 0; kk < kBwdSm90Inner / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < kBlocks; ++c)
+      wgmma_m64n64k16_rs(
+          acc[c], x[kk],
+          wgmma_desc(y + (c * kBwdSm90Inner + 16 * kk) * kSm90RowBytes,
+                     kBwdSm90Inner * kSm90RowBytes, 1024),
+          1);
+}
+
+// The A fragments (bf16 pairs) of columns 16kk..16kk+15 of an m64n64k16
+// accumulator x, for the products that reduce over those columns (as
+// pack_p does for the forward's p)
+__device__ __forceinline__ void bwd_sm90_pack(const float (&x)[32],
+                                              uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j / 2][(j & 1) * 2] = pack_bf16(x[4 * j], x[4 * j + 1]);
+    a[j / 2][(j & 1) * 2 + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+
+// rows row0 and row0 + 8 of an accumulator of kBlocks 64-column boxes (the
+// thread's fragment), times mul, as bf16 pairs into a plane with row stride
+// rs; rows >= rend and columns >= D (a multiple of 8) are not stored
+template <int kBlocks>
+__device__ __forceinline__ void bwd_sm90_store(__nv_bfloat16* dst,
+                                               long long rs,
+                                               const float (&acc)[kBlocks][32],
+                                               int row0, int rend, int D,
+                                               float mul, int t) {
+#pragma unroll
+  for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = c * kSm90Box + 8 * j + 2 * t;
+      if (d >= D) continue;
+      if (row0 < rend)
+        *reinterpret_cast<__nv_bfloat162*>(dst + row0 * rs + d) =
+            __floats2bfloat162_rn(acc[c][4 * j] * mul,
+                                  acc[c][4 * j + 1] * mul);
+      if (row0 + 8 < rend)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (row0 + 8) * rs + d) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2] * mul,
+                                  acc[c][4 * j + 3] * mul);
+    }
+}
+
+// the dot product of two 16-byte chunks of bf16 in fp32
+__device__ __forceinline__ float dot_bf16x8(uint4 a, uint4 b) {
+  const uint32_t xa[4] = {a.x, a.y, a.z, a.w}, xb[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xa[i]));
+    const float2 fb =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xb[i]));
+    s = fmaf(fa.x, fb.x, s);
+    s = fmaf(fa.y, fb.y, s);
+  }
+  return s;
+}
+
+// One dQ consumer warpgroup `wg`: its 64 query rows of one work tile (rows
+// q0.., head h, batch row b). Accumulator layout as sm90_consumer's: the
+// thread's rows are r0 = 64 wg + 16 warp + g and r0 + 8, its columns (keys)
+// 8j + 2t (+1). The ring's stages go on from tile `ring`; the work tile's
+// barrier is in phase `ophase`.
+template <int DP, int KD, typename BiasT, typename DsT>
+__device__ __forceinline__ void bwd_dq_consumer(
+    const BwdParams& p, const unsigned char* qs, const unsigned char* dos,
+    const unsigned char* os, const unsigned char* ring, uint64_t* full,
+    uint64_t* empty, uint64_t* ofull, uint64_t* oempty, int wg, int q0,
+    int h, int b, int n_k, int ring0, unsigned ophase) {
+  using S = BwdDqSmem<DP>;
+  constexpr int kBlocks = S::kBlocks;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * wg + 16 * warp + g;
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  const int lq = p.lq, lk = p.lk, kend = p.kend;
+  const bool active = q0 + 64 * wg < lq;   // the warpgroup owns a row
+  const float scale2 = p.scale * kLog2e;
+  const long long stat0 = ((long long)b * p.H + h) * lq;
+  const BiasT* bias_bh = nullptr;
+  long long bias_rs = 0;
+  if constexpr (kHasBias<BiasT>) {
+    bias_bh = bwd_plane<const BiasT>(p, bBias, p.bias, b, h);
+    bias_rs = p.st[bBias][2];
+  }
+  DsT* dbias_bh = nullptr;
+  long long dbias_rs = 0;
+  if constexpr (kHasBias<DsT>) {
+    dbias_bh = bwd_plane<DsT>(p, bDBias, p.dbias, b, h);
+    dbias_rs = p.st[bDBias][2];
+  }
+  const unsigned char* qw = qs + 64 * wg * kSm90RowBytes;
+  const unsigned char* dow = dos + 64 * wg * kSm90RowBytes;
+  mbar_wait_or_trap(ofull, ophase);
+
+  // delta of rows r0 and r0 + 8 from do and o in shared memory: the quad's
+  // four threads take 16-byte chunks (t + g + 4i) % 8 of each row's 128
+  // bytes in each box (the swizzle only permutes a row's chunks, the same
+  // way in do and o; g spreads the quads over the banks)
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int off = (c * kBwdSm90Owned + r0 + 8 * r) * kSm90RowBytes +
+                        ((t + g + 4 * i) & 7) * 16;
+        acc += dot_bf16x8(*reinterpret_cast<const uint4*>(dos + off),
+                          *reinterpret_cast<const uint4*>(os + off));
+      }
+    acc += __shfl_xor_sync(kFull, acc, 1);
+    acc += __shfl_xor_sync(kFull, acc, 2);
+    delta[r] = acc;
+  }
+  if (t == 0) {
+    if (row0 < lq) p.delta[stat0 + row0] = delta[0];
+    if (row1 < lq) p.delta[stat0 + row1] = delta[1];
+  }
+
+  float s[32], dp[32];
+  const int n_pass = p.lse_given ? 1 : 2;
+  if (p.lse_given) {
+    lse2[0] = row0 < lq ? p.lse[stat0 + row0] * kLog2e : INFINITY;
+    lse2[1] = row1 < lq ? p.lse[stat0 + row1] * kLog2e : INFINITY;
+  } else {
+    // sweep 1, k alone: each row's max m and sum l of exp2 in log2 units
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int it = 0; it < n_k; ++it) {
+      const int ri = ring0 + it, st = ri % kBwdSm90Stages;
+      mbar_wait_or_trap(full + st, (ri / kBwdSm90Stages) & 1);
+      if (active) {
+        __syncwarp();
+        wgmma_fence();
+        bwd_sm90_abt<KD>(s, qw, kBwdSm90Owned,
+                         ring + st * S::kStageBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        const int k0 = it * kBwdSm90Inner;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + 8 * j + 2 * t + (i & 1);
+            const int row = i < 2 ? row0 : row1;
+            float x = s[4 * j + i] * scale2;
+            if constexpr (kHasBias<BiasT>) {
+              if (key < kend && row < lq)
+                x = fmaf(to_float(bias_bh[(long long)row * bias_rs + key]),
+                         kLog2e, x);
+            }
+            x = key < kend ? x : -INFINITY;
+            s[4 * j + i] = x;
+            mx[i >> 1] = fmaxf(mx[i >> 1], x);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+          const float mn = fmaxf(m[r], mx[r]);
+          const float ne = -exp_ref(mn);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            sum += ex2(s[4 * j + 2 * r] + ne) + ex2(s[4 * j + 2 * r + 1] + ne);
+          l[r] = l[r] * ex2(m[r] + ne) + sum;
+          m[r] = mn;
+        }
+      }
+      mbar_arrive(empty + st);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      // in log2 units from the natural lse, as the dK/dV kernel forms it
+      const float lse = row_lse(m[r] * kLn2, l[r]);
+      if (t == 0 && (r ? row1 : row0) < lq)
+        p.lse[stat0 + (r ? row1 : row0)] = lse;
+      lse2[r] = lse * kLog2e;
+    }
+  }
+
+  // sweep 2: p, dp = do . v^T, ds (and dbias), dq += ds . k
+  float dq[kBlocks][32];
+#pragma unroll
+  for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[c][i] = 0.f;
+  const int ring2 = ring0 + (n_pass - 1) * n_k;
+  for (int it = 0; it < n_k; ++it) {
+    const int ri = ring2 + it, st = ri % kBwdSm90Stages;
+    mbar_wait_or_trap(full + st, (ri / kBwdSm90Stages) & 1);
+    const unsigned char* ks = ring + st * S::kStageBytes;
+    if (active) {
+      __syncwarp();
+      wgmma_fence();
+      bwd_sm90_abt<KD>(s, qw, kBwdSm90Owned, ks);
+      bwd_sm90_abt<KD>(dp, dow, kBwdSm90Owned, ks + S::kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (it == n_k - 1) mbar_arrive(oempty);    // the next q, do, o may come
+      const int k0 = it * kBwdSm90Inner;
+      const bool edge = k0 + kBwdSm90Inner > kend;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + 8 * j + 2 * t + (i & 1);
+          const int r = i >> 1, row = r ? row1 : row0;
+          float x = fmaf(s[4 * j + i], scale2, -lse2[r]);
+          if constexpr (kHasBias<BiasT>) {
+            if (key < kend && row < lq)
+              x = fmaf(to_float(bias_bh[(long long)row * bias_rs + key]),
+                       kLog2e, x);
+          }
+          float pr = ex2(x);
+          if (edge && key >= kend) pr = 0.f;
+          const float ds = pr * (dp[4 * j + i] - delta[r]);
+          if constexpr (kHasBias<DsT>) {
+            if (row < lq && key < lk)
+              to_out(dbias_bh + (long long)row * dbias_rs + key, ds);
+          }
+          s[4 * j + i] = ds;
+        }
+      uint32_t da[4][4];
+      bwd_sm90_pack(s, da);
+      wgmma_fence();
+      bwd_sm90_xy<kBlocks>(dq, da, ks);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < kBlocks; ++c) fence_regs(dq[c]);
+    } else if (it == n_k - 1) {
+      mbar_arrive(oempty);
+    }
+    mbar_arrive(empty + st);                     // stage st may be refilled
+  }
+  if (active)
+    bwd_sm90_store<kBlocks>(bwd_plane<__nv_bfloat16>(p, bDQ, p.grad[0], b, h),
+                            p.st[bDQ][2], dq, row0, lq, p.D, p.scale, t);
+}
+
+// One dK/dV consumer warpgroup `wg`: its 64 keys of one work tile (keys
+// k0.., head h, batch row b). The accumulators are transposed: the
+// thread's rows are keys key0 = k0 + 64 wg + 16 warp + g and key0 + 8, its
+// columns queries 8j + 2t (+1) of the streamed tile, whose lse and delta
+// come with it.
+template <int DP, int KD, typename BiasT>
+__device__ __forceinline__ void bwd_dkv_consumer(
+    const BwdParams& p, const unsigned char* ks, const unsigned char* vs,
+    const unsigned char* ring, uint64_t* full, uint64_t* empty,
+    uint64_t* ofull, uint64_t* oempty, int wg, int k0, int h, int b,
+    int n_q, int ring0, unsigned ophase) {
+  using S = BwdDkvSmem<DP>;
+  constexpr int kBlocks = S::kBlocks;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + 64 * wg + 16 * warp + g, key1 = key0 + 8;
+  const int lq = p.lq, lk = p.lk, kend = p.kend;
+  const int stat0 = (b * p.H + h) * lq;    // the plane's first lse and delta
+  // keys in [kend, lk) get dk = dv = 0 (their p is 0), so they are stored
+  const bool active = k0 + 64 * wg < lk;
+  const bool key_edge = k0 + 64 * wg + 64 > kend;
+  const float scale2 = p.scale * kLog2e;
+  const BiasT* bias_bh = nullptr;
+  long long bias_rs = 0;
+  if constexpr (kHasBias<BiasT>) {
+    bias_bh = bwd_plane<const BiasT>(p, bBias, p.bias, b, h);
+    bias_rs = p.st[bBias][2];
+  }
+  const unsigned char* kw = ks + 64 * wg * kSm90RowBytes;
+  const unsigned char* vw = vs + 64 * wg * kSm90RowBytes;
+  float dk[kBlocks][32], dv[kBlocks][32];
+#pragma unroll
+  for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
+  mbar_wait_or_trap(ofull, ophase);
+  for (int it = 0; it < n_q; ++it) {
+    const int ri = ring0 + it, st = ri % kBwdSm90Stages;
+    mbar_wait_or_trap(full + st, (ri / kBwdSm90Stages) & 1);
+    const unsigned char* qt = ring + st * S::kStageBytes;
+    const unsigned char* dot = qt + S::kTileBytes;
+    // the tile's lse and delta, (stat0 + q0) % 4 values into their boxes
+    const int q0 = it * kBwdSm90Inner, at = (stat0 + q0) & 3;
+    const float* lse_s =
+        reinterpret_cast<const float*>(qt + 2 * S::kTileBytes) + at;
+    const float* delta_s = reinterpret_cast<const float*>(
+        qt + 2 * S::kTileBytes + S::kStatStride) + at;
+    if (active) {
+      float sT[32], dpT[32];
+      __syncwarp();
+      wgmma_fence();
+      bwd_sm90_abt<KD>(sT, kw, kBwdSm90Owned, qt);
+      bwd_sm90_abt<KD>(dpT, vw, kBwdSm90Owned, dot);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sT);
+      fence_regs(dpT);
+      if (it == n_q - 1) mbar_arrive(oempty);    // the next k, v may come
+      const bool edge = key_edge || q0 + kBwdSm90Inner > lq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float lse[2] = {lse_s[c] * kLog2e, lse_s[c + 1] * kLog2e};
+        const float dl[2] = {delta_s[c], delta_s[c + 1]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = q0 + c + (i & 1);
+          const int key = i < 2 ? key0 : key1;
+          float x = fmaf(sT[4 * j + i], scale2, -lse[i & 1]);
+          if constexpr (kHasBias<BiasT>) {
+            if (key < kend && q < lq)
+              x = fmaf(to_float(bias_bh[(long long)q * bias_rs + key]),
+                       kLog2e, x);
+          }
+          float pr = ex2(x);
+          // the columns past lq read another head's lse (or zeros)
+          if (edge && (key >= kend || q >= lq)) pr = 0.f;
+          dpT[4 * j + i] = pr * (dpT[4 * j + i] - dl[i & 1]);
+          sT[4 * j + i] = pr;
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+      bwd_sm90_pack(sT, pa);
+      bwd_sm90_pack(dpT, da);
+      wgmma_fence();
+      bwd_sm90_xy<kBlocks>(dv, pa, dot);
+      bwd_sm90_xy<kBlocks>(dk, da, qt);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < kBlocks; ++c) {
+        fence_regs(dk[c]);
+        fence_regs(dv[c]);
+      }
+    } else if (it == n_q - 1) {
+      mbar_arrive(oempty);
+    }
+    mbar_arrive(empty + st);                     // stage st may be refilled
+  }
+  if (active) {
+    bwd_sm90_store<kBlocks>(bwd_plane<__nv_bfloat16>(p, bDK, p.grad[1], b, h),
+                            p.st[bDK][2], dk, key0, lk, p.D, p.scale, t);
+    bwd_sm90_store<kBlocks>(bwd_plane<__nv_bfloat16>(p, bDV, p.grad[2], b, h),
+                            p.st[bDV][2], dv, key0, lk, p.D, 1.f, t);
+  }
+}
+
+// the barriers of a backward block at `bar`: full and empty per stage, then
+// the work tile's full and empty (one arrival for a full barrier, the
+// producer's with its bytes; every consumer thread for an empty one)
+__device__ __forceinline__ void bwd_sm90_init(uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= kBwdSm90Stages; ++s) {   // the stages, the work tile
+      const int at = s < kBwdSm90Stages ? s : 2 * kBwdSm90Stages;
+      const int n = s < kBwdSm90Stages ? kBwdSm90Stages : 1;
+      mbar_init(bar + at, 1);
+      mbar_init(bar + at + n, 128 * kSm90Consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// (query or key tile, head, batch row) of work tile w, tiles fastest
+struct BwdWork {
+  int r0, h, b;
+};
+
+__device__ __forceinline__ BwdWork bwd_work(int w, int n_tiles, int H) {
+  return BwdWork{w % n_tiles * kBwdSm90Owned, w / n_tiles % H,
+                 w / n_tiles / H};
+}
+
+// Persistent, as attention_fwd_sm90_kernel: a block per SM takes work tiles
+// w = blockIdx.x, + gridDim.x, ...; warpgroups 0 .. kSm90Consumers - 1
+// consume, the last one's first thread issues every copy: a work tile's q,
+// do and o once the consumers have released the last ones, then its key
+// tiles (k alone in the lse sweep, k and v after) into the ring's stages,
+// which run on across work tiles.
+template <int DP, int KD, typename BiasT, typename DsT>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+attention_bwd_dq_sm90_kernel(const BwdParams p,
+                             const __grid_constant__ BwdMaps m, int n_qtiles,
+                             int n_work) {
+  using S = BwdDqSmem<DP>;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* qs = align_1024(bwd_smem);
+  unsigned char* dos = qs + S::kOwnedBytes;
+  unsigned char* os = dos + S::kOwnedBytes;
+  unsigned char* ring = os + S::kOwnedBytes;
+  auto* full = reinterpret_cast<uint64_t*>(qs + S::kBarOffset);
+  uint64_t* empty = full + kBwdSm90Stages;
+  uint64_t* ofull = empty + kBwdSm90Stages;
+  uint64_t* oempty = ofull + 1;
+  bwd_sm90_init(full);
+  const int n_k = (p.kend + kBwdSm90Inner - 1) / kBwdSm90Inner;
+  const int n_pass = p.lse_given ? 1 : 2;
+  const int wg = threadIdx.x / 128;
+  if (wg == kSm90Consumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ProducerRegs));
+    if (threadIdx.x != 128 * kSm90Consumers) return;
+    int ri = 0;
+    for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+      const BwdWork wk = bwd_work(w, n_qtiles, p.H);
+      if (n > 0) mbar_wait_or_trap(oempty, (n - 1) & 1);
+      mbar_arrive_expect_tx(ofull, 3 * S::kOwnedBytes);
+      for (int c = 0; c < S::kBlocks; ++c) {
+        const int at = c * kBwdSm90Owned * kSm90RowBytes;
+        tma_load_at(qs + at, &m.own[0], ofull, m.own_slot[0], c * kSm90Box,
+                    wk.b, wk.h, wk.r0);
+        tma_load_at(dos + at, &m.own[1], ofull, m.own_slot[1], c * kSm90Box,
+                    wk.b, wk.h, wk.r0);
+        tma_load_at(os + at, &m.own[2], ofull, m.own_slot[2], c * kSm90Box,
+                    wk.b, wk.h, wk.r0);
+      }
+      for (int pass = 2 - n_pass; pass < 2; ++pass)
+        for (int it = 0; it < n_k; ++it, ++ri) {
+          const int st = ri % kBwdSm90Stages;
+          mbar_wait_or_trap(empty + st, ((ri / kBwdSm90Stages) & 1) ^ 1);
+          // pass 0 (the lse sweep) brings k alone
+          mbar_arrive_expect_tx(full + st,
+                                pass ? S::kStageBytes : S::kTileBytes);
+          unsigned char* ks = ring + st * S::kStageBytes;
+          for (int c = 0; c < S::kBlocks; ++c) {
+            const int at = c * kBwdSm90Inner * kSm90RowBytes;
+            tma_load_at(ks + at, &m.str[0], full + st, m.str_slot[0],
+                        c * kSm90Box, wk.b, wk.h, it * kBwdSm90Inner);
+            if (pass)
+              tma_load_at(ks + S::kTileBytes + at, &m.str[1], full + st,
+                          m.str_slot[1], c * kSm90Box, wk.b, wk.h,
+                          it * kBwdSm90Inner);
+          }
+        }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ConsumerRegs));
+    for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+      const BwdWork wk = bwd_work(w, n_qtiles, p.H);
+      bwd_dq_consumer<DP, KD, BiasT, DsT>(p, qs, dos, os, ring, full, empty,
+                                          ofull, oempty, wg, wk.r0, wk.h,
+                                          wk.b, n_k, n * n_k * n_pass, n & 1);
+    }
+  }
+}
+
+// Persistent as the dQ kernel: a work tile's k and v once the consumers
+// have released the last ones, then its query tiles' q, do, lse and delta
+// into the ring's stages.
+template <int DP, int KD, typename BiasT>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+attention_bwd_dkv_sm90_kernel(const BwdParams p,
+                              const __grid_constant__ BwdMaps m,
+                              int n_ktiles, int n_work) {
+  using S = BwdDkvSmem<DP>;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* ks = align_1024(bwd_smem);
+  unsigned char* vs = ks + S::kOwnedBytes;
+  unsigned char* ring = vs + S::kOwnedBytes;
+  auto* full = reinterpret_cast<uint64_t*>(ks + S::kBarOffset);
+  uint64_t* empty = full + kBwdSm90Stages;
+  uint64_t* ofull = empty + kBwdSm90Stages;
+  uint64_t* oempty = ofull + 1;
+  bwd_sm90_init(full);
+  const int n_q = (p.lq + kBwdSm90Inner - 1) / kBwdSm90Inner;
+  const int wg = threadIdx.x / 128;
+  if (wg == kSm90Consumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ProducerRegs));
+    if (threadIdx.x != 128 * kSm90Consumers) return;
+    int ri = 0;
+    for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+      const BwdWork wk = bwd_work(w, n_ktiles, p.H);
+      if (n > 0) mbar_wait_or_trap(oempty, (n - 1) & 1);
+      mbar_arrive_expect_tx(ofull, 2 * S::kOwnedBytes);
+      for (int c = 0; c < S::kBlocks; ++c) {
+        const int at = c * kBwdSm90Owned * kSm90RowBytes;
+        tma_load_at(ks + at, &m.own[0], ofull, m.own_slot[0], c * kSm90Box,
+                    wk.b, wk.h, wk.r0);
+        tma_load_at(vs + at, &m.own[1], ofull, m.own_slot[1], c * kSm90Box,
+                    wk.b, wk.h, wk.r0);
+      }
+      const int stat0 = (wk.b * p.H + wk.h) * p.lq;
+      for (int it = 0; it < n_q; ++it, ++ri) {
+        const int st = ri % kBwdSm90Stages;
+        mbar_wait_or_trap(empty + st, ((ri / kBwdSm90Stages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + st,
+                              2 * S::kTileBytes + 2 * S::kStatBytes);
+        unsigned char* qt = ring + st * S::kStageBytes;
+        for (int c = 0; c < S::kBlocks; ++c) {
+          const int at = c * kBwdSm90Inner * kSm90RowBytes;
+          tma_load_at(qt + at, &m.str[0], full + st, m.str_slot[0],
+                      c * kSm90Box, wk.b, wk.h, it * kBwdSm90Inner);
+          tma_load_at(qt + S::kTileBytes + at, &m.str[1], full + st,
+                      m.str_slot[1], c * kSm90Box, wk.b, wk.h,
+                      it * kBwdSm90Inner);
+        }
+        // from the tile's first value rounded down to 16 bytes
+        unsigned char* stat = qt + 2 * S::kTileBytes;
+        const int at = (stat0 + it * kBwdSm90Inner) & ~3;
+        tma_load_1d(stat, &m.stat[0], full + st, at);
+        tma_load_1d(stat + S::kStatStride, &m.stat[1], full + st, at);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ConsumerRegs));
+    for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+      const BwdWork wk = bwd_work(w, n_ktiles, p.H);
+      bwd_dkv_consumer<DP, KD, BiasT>(p, ks, vs, ring, full, empty, ofull,
+                                      oempty, wg, wk.r0, wk.h, wk.b, n_q,
+                                      n * n_q, n & 1);
+    }
+  }
+}
+
+// The copy engine's 1-D map of n fp32 values (lse or delta), boxes of
+// kStatBox values (zeros past n)
+cudaError_t encode_stat_map(CUtensorMap* map, const float* base, long long n) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(float)};  // unread
+  const cuuint32_t box[1] = {kStatBox}, unit[1] = {1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// dQ over the query tiles, then dK/dV over the key tiles; returns the
+// first error
+template <int DP, int KD, typename BiasT, typename DsT>
+cudaError_t launch_bwd_sm90(const BwdParams& p, cudaStream_t stream) {
+  // dQ: q, do and o owned (rows lq), k and v streamed (zeros past kend)
+  BwdMaps mq, mk;
+  cudaError_t err = cudaSuccess;
+  const int own_q[3] = {bQ, bDO, bO}, kv[2] = {bK, bV};
+  for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+    err = encode_hmajor_map(&mq.own[i], &mq.own_slot[i], p.in[own_q[i]],
+                            p.st[own_q[i]], p.B, p.H, p.lq, p.D,
+                            kBwdSm90Owned);
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i)
+    err = encode_hmajor_map(&mq.str[i], &mq.str_slot[i], p.in[kv[i]],
+                            p.st[kv[i]], p.B, p.H, p.kend, p.D,
+                            kBwdSm90Inner);
+  // dK/dV: k and v owned, q and do streamed with their lse and delta
+  const int str_k[2] = {bQ, bDO};
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i)
+    err = encode_hmajor_map(&mk.own[i], &mk.own_slot[i], p.in[kv[i]],
+                            p.st[kv[i]], p.B, p.H, p.kend, p.D,
+                            kBwdSm90Owned);
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i)
+    err = encode_hmajor_map(&mk.str[i], &mk.str_slot[i], p.in[str_k[i]],
+                            p.st[str_k[i]], p.B, p.H, p.lq, p.D,
+                            kBwdSm90Inner);
+  const long long n_stat = (long long)p.B * p.H * p.lq;
+  if (err == cudaSuccess) err = encode_stat_map(&mk.stat[0], p.lse, n_stat);
+  if (err == cudaSuccess) err = encode_stat_map(&mk.stat[1], p.delta, n_stat);
+  if (err != cudaSuccess) return err;
+
+  auto dq_kern = attention_bwd_dq_sm90_kernel<DP, KD, BiasT, DsT>;
+  auto dkv_kern = attention_bwd_dkv_sm90_kernel<DP, KD, BiasT>;
+  if ((err = allow_smem(dq_kern, BwdDqSmem<DP>::kBytes)) != cudaSuccess ||
+      (err = allow_smem(dkv_kern, BwdDkvSmem<DP>::kBytes)) != cudaSuccess)
+    return err;
+  const int n_qtiles = (p.lq + kBwdSm90Owned - 1) / kBwdSm90Owned;
+  const int n_ktiles = (p.lk + kBwdSm90Owned - 1) / kBwdSm90Owned;
+  const long long n_work_q = (long long)n_qtiles * p.H * p.B;
+  const long long n_work_k = (long long)n_ktiles * p.H * p.B;
+  int blocks;
+  if ((err = persistent_blocks(n_work_q, &blocks)) != cudaSuccess) return err;
+  dq_kern<<<blocks, kSm90Threads, BwdDqSmem<DP>::kBytes, stream>>>(
+      p, mq, n_qtiles, (int)n_work_q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = persistent_blocks(n_work_k, &blocks)) != cudaSuccess) return err;
+  dkv_kern<<<blocks, kSm90Threads, BwdDkvSmem<DP>::kBytes, stream>>>(
+      p, mk, n_ktiles, (int)n_work_k);
+  return cudaGetLastError();
+}
+
+// D 64 and below on one 64-column box; above, two boxes, the products over
+// D stopping at 96 where D allows and there is no bias (EVA's D 88).
+// Built with -DVAST_BWD_KD96=0, D 88 runs its products 128 deep as the
+// bias case does: the A/B of vast_tpu_torch/scripts/bench_bwd.py.
+#ifndef VAST_BWD_KD96
+#define VAST_BWD_KD96 1
+#endif
+template <typename BiasT, typename DsT>
+cudaError_t dispatch_bwd_sm90(const BwdParams& p, cudaStream_t s) {
+  if (p.D <= 64) return launch_bwd_sm90<64, 4, BiasT, DsT>(p, s);
+  if constexpr (!kHasBias<BiasT> && VAST_BWD_KD96) {
+    if (p.D <= 96) return launch_bwd_sm90<128, 6, BiasT, DsT>(p, s);
+  }
+  return launch_bwd_sm90<128, 8, BiasT, DsT>(p, s);
+}
+
+// The copy engine reads q, k, v, o and do, the epilogues write bf16 pairs
+// and the 1-D maps read lse and delta: bf16, D a multiple of 8 up to 128,
+// every stride of q, k, v, o and do a positive multiple of 8 elements and
+// their bases 16-byte aligned, dq, dk and dv with even strides and 4-byte
+// aligned bases, lse and delta 16-byte aligned, B x H x Lq below 2^31.
+bool sm90_bwd_takes(const BwdParams& p, int dtype) {
+  if (dtype != kBf16 || p.D < 8 || p.D > kMaxD || p.D % 8) return false;
+  for (int o = bQ; o <= bDO; ++o) {
+    if (reinterpret_cast<uintptr_t>(p.in[o]) % 16) return false;
+    for (int j = 0; j < 3; ++j)
+      if (p.st[o][j] <= 0 || p.st[o][j] % 8) return false;
+  }
+  for (int o = bDQ; o <= bDV; ++o) {
+    if (reinterpret_cast<uintptr_t>(p.grad[o - bDQ]) % 4) return false;
+    for (int j = 0; j < 3; ++j)
+      if (p.st[o][j] % 2) return false;
+  }
+  return reinterpret_cast<uintptr_t>(p.lse) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.delta) % 16 == 0 &&
+         (long long)p.B * p.H * p.lq < INT_MAX;
+}
+
+// run_bwd's checks and (bias type, ds type) pairs, on the Hopper body
+cudaError_t run_bwd_sm90(const BwdParams& p, int dtype, int bias_dtype,
+                         cudaStream_t s) {
+  if (!sm90_bwd_takes(p, dtype) || p.lq < 1 || p.lk < 1 || p.kend < 1 ||
+      p.kend > p.lk || p.B < 1 || p.H < 1 || p.B > 65535 || p.H > 65535 ||
+      (p.dbias && !p.bias))
+    return cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  const bool ds = p.dbias != nullptr;
+  if (!p.bias) return dispatch_bwd_sm90<NoBias, NoBias>(p, s);
+  if (bias_dtype == kBf16 && ds) return dispatch_bwd_sm90<bf16, bf16>(p, s);
+  if (bias_dtype == kF32)
+    return ds ? dispatch_bwd_sm90<float, float>(p, s)
+              : dispatch_bwd_sm90<float, NoBias>(p, s);
+  return cudaErrorInvalidValue;
+}
+
+// The BwdParams of the token-major entries (their arguments, described at
+// vast_tmajor_attention_bwd): q, k and v of the fused qkv, dq, dk and dv of
+// dqkv at the same offsets and strides
+BwdParams tmajor_bwd_params(const void* qkv, const void* o, const void* dout,
+                            const void* bias, void* dqkv, void* dbias,
+                            float* lse, float* delta, int dtype, int B, int L,
+                            int H, int D, int kend,
+                            long long bias_batch_stride, float scale) {
+  const long long es = dtype == kF32 ? 4 : 2, row3 = 3LL * H * D,
+                  row1 = (long long)H * D;
+  BwdParams p = {};
+  for (int j = 0; j < 3; ++j) {
+    p.in[bQ + j] = static_cast<const char*>(qkv) + j * D * es;
+    p.grad[j] = static_cast<char*>(dqkv) + j * D * es;
+    for (int op : {bQ + j, bDQ + j}) {
+      p.st[op][0] = L * row3;
+      p.st[op][1] = 3LL * D;
+      p.st[op][2] = row3;
+    }
+  }
+  p.in[bO] = o;
+  p.in[bDO] = dout;
+  for (int op : {bO, bDO}) {
+    p.st[op][0] = L * row1;
+    p.st[op][1] = D;
+    p.st[op][2] = row1;
+  }
+  p.st[bBias][0] = bias_batch_stride;
+  p.st[bDBias][0] = (long long)H * L * L;
+  for (int op : {bBias, bDBias}) {
+    p.st[op][1] = (long long)L * L;
+    p.st[op][2] = L;
+  }
+  p.bias = bias;
+  p.dbias = dbias;
+  p.lse = lse;
+  p.delta = delta;
+  p.B = B;
+  p.H = H;
+  p.lq = p.lk = L;
+  p.D = D;
+  p.kend = kend;
+  p.scale = scale;
+  p.lse_given = false;
+  return p;
+}
+
+// The BwdParams of the head-major entries (their arguments, described at
+// vast_flash_attention_bwd)
+BwdParams hmajor_bwd_params(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* bias,
+                            void* dq, void* dk, void* dv, void* dbias,
+                            const float* lse, float* delta, int B, int H,
+                            int Lq, int Lk, int D, int kend,
+                            const long long* strides, float scale) {
+  BwdParams p = {};
+  const void* in[5] = {q, k, v, o, dout};
+  void* grad[3] = {dq, dk, dv};
+  memcpy(p.in, in, sizeof(p.in));
+  memcpy(p.grad, grad, sizeof(p.grad));
+  memcpy(p.st, strides, sizeof(p.st));
+  p.bias = bias;
+  p.dbias = dbias;
+  p.lse = const_cast<float*>(lse);
+  p.delta = delta;
+  p.B = B;
+  p.H = H;
+  p.lq = Lq;
+  p.lk = Lk;
+  p.D = D;
+  p.kend = kend;
+  p.scale = scale;
+  p.lse_given = true;
   return p;
 }
 
@@ -2539,9 +3473,10 @@ extern "C" int vast_flash_attention_fwd_sm90(
 // as above, writes dqkv in qkv's fused per-head [dq | dk | dv] layout and
 // type and, with a bias, dbias = ds, (B, H, L, L) in the bias's type
 // (qkv's). lse and delta are (B, H, L) fp32 scratch. Keys >= kend are
-// masked and get dk = dv = 0; dbias is not written past the last 32-key
-// tile that holds a key < kend, so the caller zero-fills it when kend < L.
-// Two launches (dQ, then dK/dV); returns the first error.
+// masked and get dk = dv = 0; dbias is not written past the last key tile
+// that holds a key < kend (tiles of 32 keys here, of 64 on the Hopper
+// body), so the caller zero-fills it when kend < L. Two launches (dQ, then dK/dV);
+// returns the first error.
 extern "C" int vast_tmajor_attention_bwd(const void* qkv, const void* o,
                                          const void* dout, const void* bias,
                                          void* dqkv, void* dbias, float* lse,
@@ -2552,43 +3487,30 @@ extern "C" int vast_tmajor_attention_bwd(const void* qkv, const void* o,
   if ((bias == nullptr) != (dbias == nullptr) ||
       (dtype != kF32 && dtype != kBf16))
     return (int)cudaErrorInvalidValue;
-  const long long es = dtype == kF32 ? 4 : 2, row3 = 3LL * H * D,
-                  row1 = (long long)H * D;
-  BwdParams p = {};
-  for (int j = 0; j < 3; ++j) {
-    p.in[bQ + j] = static_cast<const char*>(qkv) + j * D * es;
-    p.grad[j] = static_cast<char*>(dqkv) + j * D * es;
-    for (int op : {bQ + j, bDQ + j}) {
-      p.st[op][0] = L * row3;
-      p.st[op][1] = 3LL * D;
-      p.st[op][2] = row3;
-    }
-  }
-  p.in[bO] = o;
-  p.in[bDO] = dout;
-  for (int op : {bO, bDO}) {
-    p.st[op][0] = L * row1;
-    p.st[op][1] = D;
-    p.st[op][2] = row1;
-  }
-  p.st[bBias][0] = bias_batch_stride;
-  p.st[bDBias][0] = (long long)H * L * L;
-  for (int op : {bBias, bDBias}) {
-    p.st[op][1] = (long long)L * L;
-    p.st[op][2] = L;
-  }
-  p.bias = bias;
-  p.dbias = dbias;
-  p.lse = lse;
-  p.delta = delta;
-  p.B = B;
-  p.H = H;
-  p.lq = p.lk = L;
-  p.D = D;
-  p.kend = kend;
-  p.scale = scale;
-  p.lse_given = false;
-  return (int)run_bwd(p, dtype, dtype, static_cast<cudaStream_t>(stream));
+  return (int)run_bwd(
+      tmajor_bwd_params(qkv, o, dout, bias, dqkv, dbias, lse, delta, dtype,
+                        B, L, H, D, kend, bias_batch_stride, scale),
+      dtype, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The same function, the same arguments, on the Hopper body (wgmma and the
+// copy engine; see "The backward for Hopper" above). Returns
+// cudaErrorInvalidValue, and launches nothing, for operands that body does
+// not take (sm90_bwd_takes): any dtype but bf16, D not a multiple of 8 or
+// above 128, qkv, o or dout not 16-byte aligned or with a row stride that
+// is not a multiple of 8 elements, lse or delta not 16-byte aligned;
+// cudaErrorNotSupported where the driver has no tensor maps.
+extern "C" int vast_tmajor_attention_bwd_sm90(
+    const void* qkv, const void* o, const void* dout, const void* bias,
+    void* dqkv, void* dbias, float* lse, float* delta, int dtype, int B,
+    int L, int H, int D, int kend, long long bias_batch_stride, float scale,
+    void* stream) {
+  if ((bias == nullptr) != (dbias == nullptr) || dtype != kBf16)
+    return (int)cudaErrorInvalidValue;
+  return (int)run_bwd_sm90(
+      tmajor_bwd_params(qkv, o, dout, bias, dqkv, dbias, lse, delta, dtype,
+                        B, L, H, D, kend, bias_batch_stride, scale),
+      dtype, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // Backward of the head-major attention (flash_attention_bwd): q, o, dout
@@ -2598,32 +3520,37 @@ extern "C" int vast_tmajor_attention_bwd(const void* qkv, const void* o,
 // dq, dk, dv, bias and dbias in that order (the last axis of each
 // contiguous; 0 broadcasts a bias). ``lse`` is the forward's (B, H, Lq)
 // fp32; ``delta`` (B, H, Lq) fp32 scratch. A null dbias: ds is not
-// written; else it is written up to the last 32-key tile that holds a key
-// < kend, so the caller zero-fills dbias when kend < Lk. Keys >= kend get
-// dk = dv = 0. Two launches (dQ, then dK/dV); returns the first error.
+// written; else it is written up to the last key tile that holds a key <
+// kend (tiles as at vast_tmajor_attention_bwd), so the caller zero-fills
+// dbias when kend < Lk. Keys >= kend get dk = dv = 0. Two launches (dQ, then
+// dK/dV); returns the first error.
 extern "C" int vast_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* bias, void* dq, void* dk, void* dv,
     void* dbias, const float* lse, float* delta, int dtype, int B, int H,
     int Lq, int Lk, int D, int kend, const long long* strides, float scale,
     void* stream) {
-  BwdParams p = {};
-  const void* in[5] = {q, k, v, o, dout};
-  void* grad[3] = {dq, dk, dv};
-  memcpy(p.in, in, sizeof(p.in));
-  memcpy(p.grad, grad, sizeof(p.grad));
-  memcpy(p.st, strides, sizeof(p.st));
-  p.bias = bias;
-  p.dbias = dbias;
-  p.lse = const_cast<float*>(lse);
-  p.delta = delta;
-  p.B = B;
-  p.H = H;
-  p.lq = Lq;
-  p.lk = Lk;
-  p.D = D;
-  p.kend = kend;
-  p.scale = scale;
-  p.lse_given = true;
-  return (int)run_bwd(p, dtype, kF32, static_cast<cudaStream_t>(stream));
+  return (int)run_bwd(
+      hmajor_bwd_params(q, k, v, o, dout, bias, dq, dk, dv, dbias, lse,
+                        delta, B, H, Lq, Lk, D, kend, strides, scale),
+      dtype, kF32, static_cast<cudaStream_t>(stream));
+}
+
+// The same function, the same arguments, on the Hopper body. Returns
+// cudaErrorInvalidValue, and launches nothing, for operands that body does
+// not take (sm90_bwd_takes): any dtype but bf16, D not a multiple of 8 or
+// above 128, a stride of q, k, v, o or dout that is 0 or not a multiple of
+// 8 elements or a base of theirs not 16-byte aligned, an odd stride of dq,
+// dk or dv or a base of theirs not 4-byte aligned, lse or delta not 16-byte
+// aligned; cudaErrorNotSupported where the driver has no tensor maps.
+extern "C" int vast_flash_attention_bwd_sm90(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* bias, void* dq, void* dk, void* dv,
+    void* dbias, const float* lse, float* delta, int dtype, int B, int H,
+    int Lq, int Lk, int D, int kend, const long long* strides, float scale,
+    void* stream) {
+  return (int)run_bwd_sm90(
+      hmajor_bwd_params(q, k, v, o, dout, bias, dq, dk, dv, dbias, lse,
+                        delta, B, H, Lq, Lk, D, kend, strides, scale),
+      dtype, kF32, static_cast<cudaStream_t>(stream));
 }

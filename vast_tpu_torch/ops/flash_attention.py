@@ -15,11 +15,17 @@ from ``csrc/flash_attention.cu``:
   ``_single_kernel`` (:52) and ``_looped_kernel`` (:94), which add the
   lse, with one; in bf16 through the Hopper body (wgmma fed by the copy
   engine) wherever the copy engine can read q, k and v
-  (:func:`_sm90_fwd_ok`); it is differentiable, its gradient being
+  (:func:`_sm90_ok`); it is differentiable, its gradient being
 * :func:`flash_attention_bwd`, which replaces the kernels of
   ``flash_attention_bwd`` (:462): the fused ``_bwd_fused_kernel(_nods)``
   (:321, :363) and the tiled ``_bwd_dkv_kernel`` (:372) and
   ``_bwd_dq_kernel(_nods)`` (:413, :451).
+
+Both backwards take the Hopper body in bf16 (wgmma fed by the copy
+engine: ``attention_bwd_dq_sm90_kernel``, then
+``attention_bwd_dkv_sm90_kernel``) wherever the copy engine can read
+their operands (:func:`_sm90_ok`), and the mma.sync / CUDA-core
+bodies otherwise.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 it does not take; it uses its plain version (``_..._plain``) only for
@@ -49,6 +55,8 @@ LAUNCHES = {"tmajor_attention_fwd": 0, "tmajor_attention_fwd_bias": 0,
             # of those two, the launches of the Hopper body (wgmma + TMA)
             "flash_attention_fwd_sm90": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_dbias": 0,
+            # of the backwards, the launches of the Hopper body (wgmma + TMA)
+            "tmajor_attention_bwd_sm90": 0, "flash_attention_bwd_sm90": 0,
             # the token-major layout probe (scripts/bench_tmajor_variants.py)
             "attention_dma": 0, "attention_sect": 0}
 
@@ -283,6 +291,32 @@ def self_attention_tmajor_bwd(qkv, o, do, bias=None, *, heads: int,
         return _self_attention_tmajor_bwd_plain(
             qkv, o, do, bias, heads=heads, lk_true=lk_true, scale=scale)
     _check_cuda_operands(qkv, bias, ("o", o), ("do", do))
+    # decided before the launch; a refused or failed launch raises
+    # (q, k and v lie D apart in qkv's rows, 3D a head: the copy engine
+    # reads them wherever it reads qkv)
+    sm90 = _sm90_ok(d, qkv, o, do)
+    dqkv, dbias = _tmajor_bwd_launch(
+        "vast_tmajor_attention_bwd_sm90" if sm90 else
+        "vast_tmajor_attention_bwd", qkv, o, do, bias, heads, lk_true, scale)
+    LAUNCHES["tmajor_attention_bwd" if bias is None
+             else "tmajor_attention_bwd_bias"] += 1
+    if sm90:
+        LAUNCHES["tmajor_attention_bwd_sm90"] += 1
+    if bias is None:
+        return dqkv
+    if bias.shape[0] == 1 and b != 1:
+        dbias = dbias.float().sum(dim=0, keepdim=True).to(bias.dtype)
+    return dqkv, dbias
+
+
+def _tmajor_bwd_launch(symbol, qkv, o, do, bias, heads, lk_true, scale):
+    """One launch of the token-major backward entry ``symbol``
+    (``vast_tmajor_attention_bwd`` or ``..._sm90``) on checked CUDA
+    operands: (dqkv, dbias), dbias (B, H, L, L) unreduced, None without a
+    bias. Raises if the entry refuses the operands or the launch fails.
+    Counts nothing: the wrapper counts its launches."""
+    b, l, total = qkv.shape
+    d = total // (3 * heads)
     dev = qkv.device
     dqkv = torch.empty_like(qkv)
     dbias = None
@@ -294,19 +328,13 @@ def self_attention_tmajor_bwd(qkv, o, do, bias=None, *, heads: int,
     delta = torch.empty_like(lse)
     bias_stride = 0 if bias is None or bias.shape[0] == 1 else bias.stride(0)
     with torch.cuda.device(dev):
-        err = _kernel("vast_tmajor_attention_bwd")(
+        err = _kernel(symbol)(
             _ptr(qkv), _ptr(o), _ptr(do), _ptr(bias), _ptr(dqkv),
             _ptr(dbias), _ptr(lse), _ptr(delta), _DTYPE_CODES[qkv.dtype], b,
             l, heads, d, lk_true or l, bias_stride, float(scale), _stream())
     if err:
-        raise RuntimeError(f"tmajor attention backward launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES["tmajor_attention_bwd" if bias is None
-             else "tmajor_attention_bwd_bias"] += 1
-    if bias is None:
-        return dqkv
-    if bias.shape[0] == 1 and b != 1:
-        dbias = dbias.float().sum(dim=0, keepdim=True).to(bias.dtype)
+        raise RuntimeError(f"tmajor attention backward launch failed "
+                           f"({symbol}): CUDA error {err}")
     return dqkv, dbias
 
 
@@ -469,20 +497,26 @@ def flash_attention(q, k, v, bias=None, *, scale: float = 1.0,
     return (o, lse) if return_lse else o
 
 
-def _sm90_fwd_ok(q, k, v):
-    """Whether the Hopper body (``vast_flash_attention_fwd_sm90``: wgmma,
-    every tile brought by the copy engine) takes these operands: bf16, D
-    a multiple of 8 up to 128, every batch, head and row stride of q, k
-    and v a non-zero multiple of 8 elements (16 bytes), every base
-    16-byte aligned. Decided from dtype, shape, strides and data_ptr
-    alone, before any launch; the C entry checks the same and refuses
-    the rest."""
-    d = q.shape[-1]
-    if q.dtype != torch.bfloat16 or d % 8 or d > MAX_HEAD_DIM:
+def _sm90_ok(d, *tensors):
+    """Whether the Hopper bodies (wgmma, every tile brought by the copy
+    engine) take these operands of head width ``d``: the forward's q, k
+    and v, the head-major backward's q, k, v, o and do, or the token-major
+    backward's qkv, o and do. bf16, d a multiple of 8 up to 128, every
+    stride but the last (contiguous) a non-zero multiple of 8 elements (16
+    bytes), every base 16-byte aligned. The outputs, laid out as their
+    inputs (:func:`_empty_like_layout`, or dqkv like qkv), then take the
+    epilogues' bf16 pairs too. Decided from dtype, shape, strides and
+    data_ptr alone, before any launch; the C entries check the same and
+    refuse the rest."""
+    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
         return False
-    return all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
-               and all(s != 0 and s % 8 == 0 for s in t.stride()[:3])
-               for t in (q, k, v))
+    for t in tensors:              # loops: asked on every call, host-paced
+        if t.dtype != torch.bfloat16 or t.data_ptr() % 16:
+            return False
+        for s in t.stride()[:-1]:
+            if s == 0 or s % 8:
+                return False
+    return True
 
 
 def _flash_fwd_args(q, k, v, bias, out, lse, scale, lk_true):
@@ -532,7 +566,7 @@ def _flash_fwd_launch(symbol, q, k, v, bias, scale, lk_true, need_lse):
 def _flash_attention_op(q, k, v, bias, scale, lk_true, need_lse):
     """The forward on checked operands: the plain version on the CPU, a
     kernel on CUDA. The lse is empty unless ``need_lse``. Operands that
-    the copy engine can read in bf16 (:func:`_sm90_fwd_ok`) take the
+    the copy engine can read in bf16 (:func:`_sm90_ok`) take the
     Hopper body, the rest (fp32, D not a multiple of 8, odd strides) the
     mma.sync / CUDA-core bodies; decided before the launch, and a failed
     launch raises: neither falls back to the other."""
@@ -543,7 +577,7 @@ def _flash_attention_op(q, k, v, bias, scale, lk_true, need_lse):
         return (_flash_attention_plain(q, k, v, bias, scale=scale,
                                        lk_true=lk_true),
                 q.new_empty(0, dtype=torch.float32))
-    sm90 = _sm90_fwd_ok(q, k, v)
+    sm90 = _sm90_ok(q.shape[-1], q, k, v)
     out, lse = _flash_fwd_launch(
         "vast_flash_attention_fwd_sm90" if sm90 else
         "vast_flash_attention_fwd", q, k, v, bias, scale, lk_true, need_lse)
@@ -633,6 +667,29 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, *, scale: float,
     if any(t.stride(-1) != 1 for t in operands):
         raise ValueError("the last axis of q, k, v, o, do and bias must be "
                          "contiguous")
+    # decided before the launch; a refused or failed launch raises
+    sm90 = _sm90_ok(d, q, k, v, o, do)
+    dq, dk, dv, dbias = _flash_bwd_launch(
+        "vast_flash_attention_bwd_sm90" if sm90 else
+        "vast_flash_attention_bwd", q, k, v, bias, o, lse, do, scale,
+        lk_true, return_dbias)
+    LAUNCHES["flash_attention_bwd_dbias" if return_dbias
+             else "flash_attention_bwd"] += 1
+    if sm90:
+        LAUNCHES["flash_attention_bwd_sm90"] += 1
+    return (dq, dk, dv, dbias) if return_dbias else (dq, dk, dv)
+
+
+def _flash_bwd_launch(symbol, q, k, v, bias, o, lse, do, scale, lk_true,
+                      return_dbias):
+    """One launch of the head-major backward entry ``symbol``
+    (``vast_flash_attention_bwd`` or ``..._sm90``) on checked CUDA
+    operands, ``bias`` fp32 and broadcast to (B, H, Lq, Lk) already, every
+    last axis contiguous: (dq, dk, dv, dbias), dbias None unless
+    ``return_dbias``. Raises if the entry refuses the operands or the
+    launch fails. Counts nothing: the wrapper counts its launches."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
     dev = q.device
     dq, dk, dv = (_empty_like_layout(t) for t in (q, k, v))
     dbias = None
@@ -641,9 +698,11 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, *, scale: float,
         alloc = torch.zeros if 0 < lk_true < lk else torch.empty
         dbias = alloc((b, h, lq, lk), dtype=torch.float32, device=dev)
     lse = lse.contiguous()
+    if lse.data_ptr() % 16:
+        lse = lse.clone()              # the copy engine reads it from 16 B
     delta = torch.empty_like(lse)
     with torch.cuda.device(dev):
-        err = _kernel("vast_flash_attention_bwd")(
+        err = _kernel(symbol)(
             _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(bias),
             _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(lse),
             _ptr(delta), _DTYPE_CODES[q.dtype], b, h, lq, lk, d,
@@ -651,11 +710,9 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, *, scale: float,
             _strides(q, k, v, o, do, dq, dk, dv, bias, dbias),
             float(scale), _stream())
     if err:
-        raise RuntimeError(f"flash attention backward launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES["flash_attention_bwd_dbias" if return_dbias
-             else "flash_attention_bwd"] += 1
-    return (dq, dk, dv, dbias) if return_dbias else (dq, dk, dv)
+        raise RuntimeError(f"flash attention backward launch failed "
+                           f"({symbol}): CUDA error {err}")
+    return dq, dk, dv, dbias
 
 
 # qkv, out, dtype, B, L, H, D, kend, stream
@@ -665,26 +722,25 @@ _PROBE_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
 # scale, stream: both head-major forward entries
 _HMAJOR_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+# qkv, o, dout, bias, dqkv, dbias, lse, delta, dtype, B, L, H, D, kend,
+# bias_batch_stride, scale, stream: both token-major backward entries
+_TMAJOR_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+# q, k, v, o, dout, bias, dq, dk, dv, dbias, lse, delta, dtype, B, H, Lq,
+# Lk, D, kend, strides, scale, stream: both head-major backward entries
+_HMAJOR_BWD_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
 _ARGTYPES = {
     "vast_tmajor_attention_fwd": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p],
-    "vast_tmajor_attention_bwd": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-        ctypes.c_void_p],
+    "vast_tmajor_attention_bwd": _TMAJOR_BWD_ARGS,
+    "vast_tmajor_attention_bwd_sm90": _TMAJOR_BWD_ARGS,
     "vast_flash_attention_fwd": _HMAJOR_FWD_ARGS,
     "vast_flash_attention_fwd_sm90": _HMAJOR_FWD_ARGS,
-    "vast_flash_attention_bwd": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p],
+    "vast_flash_attention_bwd": _HMAJOR_BWD_ARGS,
+    "vast_flash_attention_bwd_sm90": _HMAJOR_BWD_ARGS,
     "vast_tmajor_dma_attention_fwd": _PROBE_ARGS,
     "vast_tmajor_sect_attention_fwd": _PROBE_ARGS,
 }
