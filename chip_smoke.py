@@ -23,12 +23,13 @@ exits non-zero with no result line:
               (8 x 12 x 257 x 64), the CLIP + AST rerank's 640 queries
               over 4873 keys; and shapes no path reaches (the lse variant
               at 4873 keys, the backward with a bias's ds). A bf16
-              head-major forward must take the Hopper body (wgmma fed by
-              the copy engine: one flash_attention_fwd_sm90 launch), an
-              fp32 one the CUDA-core body; each head-major forward row
-              also gives the profiler's device time per launch
-              (device_ms). A bf16 backward (token-major or head-major)
-              must take the Hopper backward (wgmma fed by the copy engine:
+              forward must take the Hopper body (wgmma fed by the copy
+              engine: one flash_attention_fwd_sm90 or
+              tmajor_attention_fwd_sm90 launch), an fp32 one the CUDA-core
+              body; each forward row also gives the profiler's device
+              time per launch (device_ms). A bf16 backward (token-major
+              or head-major) must take the Hopper backward (wgmma fed by
+              the copy engine:
               one tmajor_attention_bwd_sm90 or flash_attention_bwd_sm90
               launch), an fp32 one the CUDA-core body; each backward row
               gives the profiler's device time per call, and of its dQ and
@@ -48,8 +49,9 @@ exits non-zero with no result line:
               three, after a warm-up run); they must read 40 per
               EVA forward, 12 per BEATs forward, and 12 (one per BERT
               layer) per rerank call whose folded query takes the
-              head-major kernel. A second run, synchronised at its stage
-              edges, gives seconds per stage.
+              head-major kernel; every EVA and BEATs forward must take
+              the Hopper body (tmajor_attention_fwd_sm90). A second run,
+              synchronised at its stage edges, gives seconds per stage.
 6. profile  - one more evaluate_ret under torch.profiler: device time by
               kernel and the device's idle share of the wall time.
 7. train    - the flagship model again, with fp32 parameters and bf16
@@ -62,8 +64,10 @@ exits non-zero with no result line:
               issue each block, peak memory, losses, the global gradient
               norm, which LR groups moved, and exact launch counts per
               step over the first block (40 EVA and 12 BEATs attention
-              forwards, as many backwards, all 52 on the Hopper backward:
-              the forward is not re-run in the recompute). One more step
+              forwards, all 52 on the Hopper body, and as many
+              backwards, all 52 on the Hopper backward and given the
+              forward's lse: the forward is not re-run in the
+              recompute). One more step
               under torch.profiler gives the idle share and the top
               kernels.
 8. tiny_clip_ast  - phase 4 for a tiny CLIP + AST model whose towers have
@@ -99,14 +103,23 @@ exits non-zero with no result line:
               flagship rerank and the CLIP + AST rerank, with and without
               the lse: CUDA-event times and the profiler's device time per
               launch of each, and SDPA's time.
-13. bwd_turns - the backward's two bf16 bodies in turns (sm90, mma, mma,
+13. tmajor_turns - the token-major forward's two bf16 bodies in turns
+              (sm90, mma, mma, sm90; the mma.sync body's C entry called
+              directly, a yardstick only) at EVA01-g's shape, BEATs' with
+              its per-sample bias and the layout probe's (256 x 272,
+              lk_true 257): CUDA-event times, the profiler's device time
+              per launch of each, SDPA's events and device time per call,
+              the bound, the ratio to SDPA and the share of the bound,
+              and the largest difference between the two bodies.
+14. bwd_turns - the backward's two bf16 bodies in turns (sm90, mma, mma,
               sm90; the mma.sync body's C entries called directly, a
               yardstick only) at EVA01-g's and BEATs' (bias and ds)
-              token-major shapes, CLIP-L/14-336's packed one, AST's and
-              the 640 x 4873 one: CUDA-event times, the profiler's device
-              time per launch of the dQ kernel and of the dK/dV kernel
-              apart, SDPA's backward alone, and the largest difference
-              between the two bodies' gradients.
+              token-major shapes, each also given the forward's lse
+              beside the call that sweeps for it, CLIP-L/14-336's packed
+              one, AST's and the 640 x 4873 one: CUDA-event times, the
+              profiler's device time per launch of the dQ kernel and of
+              the dK/dV kernel apart, SDPA's backward alone, and the
+              largest difference between the bodies' gradients.
 
 Then the ``{"kernels": [...]}`` line (each row's launches from its path's
 counted run: the slice for forwards, the train step for lse forwards and
@@ -239,7 +252,7 @@ GRADS = ("dq", "dk", "dv", "dbias")
 SOURCE = "vast_tpu_torch/csrc/flash_attention.cu"
 # the bf16 body of each row's layout (the kernels line names it)
 BODIES = {
-    "tmajor": "attention_fwd_mma_kernel (mma.sync, cp.async)",
+    "tmajor": "attention_fwd_sm90_kernel (wgmma, copy engine)",
     "hmajor": "attention_fwd_sm90_kernel (wgmma, copy engine)",
     "tmajor_bwd": "attention_bwd_dq_sm90_kernel + "
                   "attention_bwd_dkv_sm90_kernel (wgmma, copy engine)",
@@ -325,6 +338,16 @@ def device_ms(torch, fn, calls=10):
     return mean_device_ms(profiled_kernels(torch, fn, calls))
 
 
+def call_device_ms(torch, fn, calls=10):
+    """The profiler's device time per call of ``fn``, ms: every kernel of
+    ``calls`` calls (:func:`profiled_kernels`) over the calls, for a
+    library call that may launch more than one kernel; None where the
+    profiler recorded none."""
+    kernels = profiled_kernels(torch, fn, calls)
+    return sum(e.self_device_time_total for e in kernels) / calls / 1e3 \
+        if kernels else None
+
+
 def phase_device(torch):
     check(torch.cuda.is_available(), "no CUDA GPU")
     smi = subprocess.run(
@@ -355,6 +378,13 @@ def phase_build():
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def qkv_bytes(q, k, v, kend):
+    """The bytes of q and of k's and v's first ``kend`` keys, (B, H, L, D)
+    views: what a forward must read of them (keys past kend are masked,
+    and the copy engine's maps stop there)."""
+    return nbytes(q, k[:, :, :kend], v[:, :, :kend])
 
 
 def hmajor_inputs(torch, spec, dtype, gen):
@@ -431,13 +461,18 @@ def fwd_kernel_row(torch, spec, dtype, gen, case=None):
     from vast_tpu_torch.ops import flash_attention as fa
 
     case = case or fwd_case(torch, spec, dtype, gen)
-    sm90_before = fa.LAUNCHES["flash_attention_fwd_sm90"]
+    # the Hopper body's counter of the row's op (the probe's kernels have
+    # none)
+    sm90_key = {"hmajor": "flash_attention_fwd_sm90",
+                "tmajor": "tmajor_attention_fwd_sm90"}.get(spec["layout"])
+    sm90_before = fa.LAUNCHES.get(sm90_key, 0)
     out = case["run"]()
     torch.cuda.synchronize()
-    sm90 = fa.LAUNCHES["flash_attention_fwd_sm90"] - sm90_before
+    sm90 = fa.LAUNCHES.get(sm90_key, 0) - sm90_before
     label = f"{spec['name']} at {spec['at']} {dtype}"
-    if spec["layout"] == "hmajor":
-        # q, k, v as the path lays them out: bf16 takes the Hopper body
+    if sm90_key:
+        # q, k, v (qkv and bias) as the path lays them out: bf16 takes the
+        # Hopper body
         want = int(dtype == torch.bfloat16)
         check(sm90 == want, f"{label}: {sm90} launches of the Hopper body, "
               f"want {want}")
@@ -497,8 +532,9 @@ def fwd_kernel_row(torch, spec, dtype, gen, case=None):
              kernel_ms=time_ms(torch, case["run"]),
              plain_ms=time_ms(torch, case["plain"]),
              library_ms=time_ms(torch, case["library"]), library_note=None,
-             bytes=nbytes(*case["inputs"], out, lse), flops=flops)
-    if spec["layout"] == "hmajor":
+             bytes=case.get("read_bytes", 0) + nbytes(*case["inputs"], out,
+                                                      lse), flops=flops)
+    if sm90_key:
         # the op alone launches no other kernel: device time per launch
         r["device_ms"] = device_ms(torch, case["run"])
         r["sm90_launches"] = sm90
@@ -591,8 +627,8 @@ def check_sm90_bwd(torch, fa, key, fn, dtype, label):
 
 
 def tmajor_bwd_inputs(torch, spec, dtype, gen):
-    """qkv, bias, the forward's output o and a cotangent do at a token-major
-    backward row's shape."""
+    """qkv, bias, the forward's output o, its lse and a cotangent do at a
+    token-major backward row's shape."""
     from vast_tpu_torch.ops import flash_attention as fa
 
     b, l, h, d = (spec[k] for k in ("b", "lq", "h", "d"))
@@ -604,26 +640,29 @@ def tmajor_bwd_inputs(torch, spec, dtype, gen):
     bias = None
     if spec["bias"]:
         bias = torch.randn(b, h, l, l, device="cuda", generator=gen).to(dtype)
-    o = fa._self_attention_tmajor_plain(qkv, bias, heads=h, scale=scale)
+    o, lse = fa._self_attention_tmajor_plain(qkv, bias, heads=h,
+                                             scale=scale, return_lse=True)
     do = torch.randn(b, l, h * d, device="cuda", generator=gen).to(dtype)
-    return qkv, bias, o, do
+    return qkv, bias, o, lse, do
 
 
 def tmajor_bwd_row(torch, spec, dtype, gen):
-    """The token-major backward against its plain version."""
+    """The token-major backward, given the forward's lse as the train
+    step gives it, against its plain version."""
     from vast_tpu_torch.ops import flash_attention as fa
 
     b, l, h, d = (spec[k] for k in ("b", "lq", "h", "d"))
     scale = spec["scale"]
-    qkv, bias, o, do = tmajor_bwd_inputs(torch, spec, dtype, gen)
+    qkv, bias, o, lse, do = tmajor_bwd_inputs(torch, spec, dtype, gen)
 
     def run():
         return fa.self_attention_tmajor_bwd(qkv, o, do, bias, heads=h,
-                                            scale=scale)
+                                            scale=scale, lse=lse)
 
     def plain():
         return fa._self_attention_tmajor_bwd_plain(qkv, o, do, bias,
-                                                   heads=h, scale=scale)
+                                                   heads=h, scale=scale,
+                                                   lse=lse)
 
     label = f"{spec['replaces']} {dtype}"
     got = split_grads(torch, check_sm90_bwd(
@@ -643,7 +682,9 @@ def tmajor_bwd_row(torch, spec, dtype, gen):
                 device_ms=total_ms(by_kernel),
                 device_ms_by_kernel=by_kernel,
                 sm90_launches=int(dtype == torch.bfloat16),
-                bytes=nbytes(qkv, o, do, qkv, bias, bias),
+                # qkv, o, do, lse (and the bias) read once; dqkv (and ds)
+                # written once
+                bytes=nbytes(qkv, o, do, lse, qkv, bias, bias),
                 # five L x L x D products per (batch, head)
                 flops=10.0 * b * h * l * l * d)
 
@@ -790,28 +831,104 @@ def phase_hmajor_turns(torch):
         torch.cuda.empty_cache()
 
 
+# tmajor_turns' shapes: (at, B, L, H, D, scale, a per-sample bias,
+# lk_true): rows 1 and 2 of KERNELS, and the layout probe's data shape
+TMAJOR_TURNS = (("eva01g", BATCH * FRAMES, 257, 16, 88, 1.0, False, 0),
+                ("beats", BATCH, 256, 12, 64, 64 ** -0.5, True, 0),
+                ("probe", 256, 272, 16, 88, 1.0, False, 257))
+
+
+def phase_tmajor_turns(torch, device_name):
+    """The token-major forward's two bf16 bodies in turns (sm90, mma, mma,
+    sm90; each :func:`time_ms`) at TMAJOR_TURNS' shapes, and the
+    profiler's device time per launch of each: the Hopper body against
+    the mma.sync one, whose C entry is called directly as a yardstick (the
+    op takes it only for operands the copy engine cannot read), within
+    one call on one card; SDPA's events and device time per call (over
+    the first lk_true keys), the bound (q, k and v's first kend keys, the
+    bias's and the output moved once; 4 B H L kend D operations), the Hopper body's device time
+    over SDPA's and the bound's share of it."""
+    import torch.nn.functional as F
+
+    from vast_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for at, b, l, h, d, scale, has_bias, lk in TMAJOR_TURNS:
+        qkv = torch.randn(b, l, h, 3, d, device="cuda", generator=gen)
+        if scale == 1.0:
+            qkv[:, :, :, 0] *= d ** -0.5              # q scale baked in
+        qkv = qkv.reshape(b, l, h * 3 * d).to(torch.bfloat16)
+        bias = torch.randn(b, h, l, l, device="cuda", generator=gen).to(
+            torch.bfloat16) if has_bias else None
+        fns = {body: (lambda e=entry: fa._tmajor_fwd_launch(
+            e, qkv, bias, h, lk, scale, False)) for body, entry in (
+            ("sm90", "vast_tmajor_attention_fwd_sm90"),
+            ("mma", "vast_tmajor_attention_fwd"))}
+        outs = {body: fn()[0].float() for body, fn in fns.items()}
+        turns = {body: [] for body in fns}
+        for body in ("sm90", "mma", "mma", "sm90"):
+            turns[body].append(time_ms(torch, fns[body]))
+        kend = lk or l
+        q, k, v = qkv.view(b, l, h, 3, d).permute(3, 0, 2, 1, 4)
+        mask = None if bias is None else bias[..., :kend]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k[:, :, :kend], v[:, :, :kend], attn_mask=mask,
+                scale=scale)
+
+        dev = {body: device_ms(torch, fn) for body, fn in fns.items()}
+        sdpa_dev = call_device_ms(torch, sdpa)
+        bound_ms, bound_by = bound(
+            torch, device_name,
+            qkv_bytes(q, k, v, kend) + nbytes(mask) + b * l * h * d * 2,
+            4.0 * b * h * l * kend * d, torch.bfloat16)
+        emit({"phase": "tmajor_turns", "at": at,
+              "shape": {"b": b, "l": l, "h": h, "d": d, "lk_true": lk,
+                        "bias": "per-sample" if has_bias else None},
+              "ms_in_turns": turns, "device_ms": dev,
+              "sdpa_ms": time_ms(torch, sdpa), "sdpa_device_ms": sdpa_dev,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "sm90_over_sdpa_device": None if None in (dev["sm90"], sdpa_dev)
+              else dev["sm90"] / sdpa_dev,
+              "bound_share_of_sm90_device": None if dev["sm90"] is None
+              else bound_ms / dev["sm90"],
+              "bodies_max_abs_diff": (outs["sm90"] - outs["mma"]
+                                      ).abs().max().item()})
+        del qkv, bias, outs, q, k, v, mask
+        torch.cuda.empty_cache()
+
+
 def phase_bwd_turns(torch):
     """The backward's two bf16 bodies in turns (sm90, mma, mma, sm90; each
     :func:`time_ms`) at EVA01-g's and BEATs' token-major shapes and at the
     head-major shapes of KERNELS without a bias (CLIP, AST, 4873 keys):
     the Hopper body against the mma.sync one, whose C entries are called
     directly as a yardstick (the wrappers take it only for operands the
-    copy engine cannot read), within one call on one card; the profiler's
-    device time per launch of each body's dQ and dK/dV kernels, SDPA's
-    backward alone, and the largest difference between the bodies'
-    gradients."""
+    copy engine cannot read), within one call on one card; at the
+    token-major shapes each body also given the forward's lse ("_lse",
+    as the train step calls it) beside the call that sweeps the keys for
+    it (sm90, sm90_lse, mma, mma_lse, mma_lse, mma, sm90_lse, sm90); the
+    profiler's device time per launch of each body's dQ and dK/dV
+    kernels, SDPA's backward alone, and the largest difference between
+    the bodies' gradients (and between each body's two calls)."""
     from vast_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16 = torch.bfloat16
     for spec in KERNELS:
+        order = ("sm90", "mma", "mma", "sm90")
         if spec["layout"] == "tmajor_bwd":
             h, scale = spec["h"], spec["scale"]
-            qkv, bias, o, do = tmajor_bwd_inputs(torch, spec, bf16, gen)
-            fns = {body: (lambda e=entry: fa._tmajor_bwd_launch(
-                e, qkv, o, do, bias, h, 0, scale)) for body, entry in (
+            qkv, bias, o, lse, do = tmajor_bwd_inputs(torch, spec, bf16,
+                                                      gen)
+            fns = {body + tag: (lambda e=entry, s=given: fa._tmajor_bwd_launch(
+                e, qkv, o, do, bias, h, 0, scale, s)) for body, entry in (
                 ("sm90", "vast_tmajor_attention_bwd_sm90"),
-                ("mma", "vast_tmajor_attention_bwd"))}
+                ("mma", "vast_tmajor_attention_bwd")) for tag, given in (
+                ("", None), ("_lse", lse))}
+            order = ("sm90", "sm90_lse", "mma", "mma_lse", "mma_lse", "mma",
+                     "sm90_lse", "sm90")
             b, l, d = spec["b"], spec["lq"], spec["d"]
             q, k, v = qkv.view(b, l, h, 3, d).permute(3, 0, 2, 1, 4)
             sdpa = (q, k, v, bias, do.view(b, l, h, d).transpose(1, 2))
@@ -830,9 +947,13 @@ def phase_bwd_turns(torch):
         outs = {body: [g.float() for g in fn() if g is not None]
                 for body, fn in fns.items()}
         turns = {body: [] for body in fns}
-        for body in ("sm90", "mma", "mma", "sm90"):
+        for body in order:
             turns[body].append(time_ms(torch, fns[body]))
         sdpa_ms, sdpa_note = sdpa_backward_ms(torch, *sdpa, scale)
+
+        def max_diff(a, b):
+            return max((x - y).abs().max().item()
+                       for x, y in zip(outs[a], outs[b]))
         emit({"phase": "bwd_turns", "name": spec["name"], "at": spec["at"],
               "shape": {key: spec[key] for key in
                         ("b", "lq", "lk", "h", "d", "bias")}
@@ -841,9 +962,10 @@ def phase_bwd_turns(torch):
               "device_ms": {body: bwd_device_ms(torch, fn)
                             for body, fn in fns.items()},
               "sdpa_backward_ms": sdpa_ms, "sdpa_note": sdpa_note,
-              "bodies_max_abs_diff": max(
-                  (a - b).abs().max().item()
-                  for a, b in zip(outs["sm90"], outs["mma"]))})
+              "bodies_max_abs_diff": max_diff("sm90", "mma"),
+              "lse_given_max_abs_diff": {
+                  body: max_diff(body, body + "_lse")
+                  for body in ("sm90", "mma") if body + "_lse" in outs}})
         del fns, outs, sdpa
         torch.cuda.empty_cache()
 
@@ -864,7 +986,7 @@ def probe_case(torch, spec, inputs, dtype):
     kernel = getattr(tv, spec["name"])
     plain = getattr(tv, "_" + spec["name"] + "_plain")
     return dict(
-        inputs=[x], v=v, p_roundings=2,
+        inputs=[], read_bytes=qkv_bytes(q, k, v, lk), v=v, p_roundings=2,
         run=lambda: kernel(x, heads=h, lk_true=lk),
         plain=lambda: plain(x, heads=h, lk_true=lk),
         library=lambda: F.scaled_dot_product_attention(
@@ -930,8 +1052,13 @@ def phase_tmajor_variants(torch, device_name):
         "attention_sect": calls["sect"]["fwd"],
         "tmajor_attention_fwd": calls["cur"]["fwd"] + calls["pad128"]["fwd"],
         "tmajor_attention_bwd": calls["cur"]["bwd"] + calls["pad128"]["bwd"],
-        # both layouts' backwards take the Hopper body
+        # both layouts' forwards and backwards take the Hopper bodies, and
+        # each backward gets its forward's lse
+        "tmajor_attention_fwd_sm90": calls["cur"]["fwd"]
+        + calls["pad128"]["fwd"],
         "tmajor_attention_bwd_sm90": calls["cur"]["bwd"]
+        + calls["pad128"]["bwd"],
+        "tmajor_attention_bwd_lse": calls["cur"]["bwd"]
         + calls["pad128"]["bwd"]}
     check(launches == want, f"probe launches {launches} != one per call "
           f"{want}")
@@ -943,7 +1070,8 @@ def phase_tmajor_variants(torch, device_name):
         q, k, v = tv.qkv_views(x, heads, section_major=layout == "sect")
         b, _, lp, d = q.shape
         bound_ms, bound_by = bound(
-            torch, device_name, nbytes(x) + b * lp * heads * d * 2,
+            torch, device_name,
+            qkv_bytes(q, k, v, lk) + b * lp * heads * d * 2,
             4.0 * b * heads * lp * lk * d, torch.bfloat16)
         sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k[:, :, :lk], v[:, :, :lk], scale=1.0))
@@ -1122,7 +1250,9 @@ def phase_tiny(torch, np):
     row["train_step"] = tiny_train_step(
         torch, np, tiny_config,
         {"tmajor_attention_fwd": 2, "tmajor_attention_fwd_bias": 2,
-         "tmajor_attention_bwd": 2, "tmajor_attention_bwd_bias": 2})
+         "tmajor_attention_bwd": 2, "tmajor_attention_bwd_bias": 2,
+         # fp32: the CUDA-core bodies, the forward's lse handed over
+         "tmajor_attention_bwd_lse": 4})
     emit({"phase": "tiny"} | row)
 
 
@@ -1389,10 +1519,12 @@ def phase_slice(torch, np):
         COND_TOKENS)
     n_batches = len(batches)
     want = {"tmajor_attention_fwd": 40 * n_batches,
-            "tmajor_attention_fwd_bias": 12 * n_batches}
+            "tmajor_attention_fwd_bias": 12 * n_batches,
+            # every one through the Hopper body
+            "tmajor_attention_fwd_sm90": 52 * n_batches}
     got = {k: launches[k] for k in want}
     check(got == want, f"launches {got} != {want} (40 per EVA forward, 12 "
-          f"per BEATs forward, none from BERT)")
+          f"per BEATs forward, none from BERT, all on the Hopper body)")
     # 16 texts x top 8 = 128 pairs over at most 16 candidates, so some
     # candidate has >= 8 texts and its rerank call a folded query of
     # >= 320 rows over 2312 keys, off the plain route: at least one call
@@ -1589,14 +1721,17 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step):
 
 def phase_train(torch, np):
     """The flagship train step (bench.py:367-400): 40 EVA and 12 BEATs
-    attention forwards and backwards per step, every backward through the
-    Hopper body."""
+    attention forwards and backwards per step, every one through the
+    Hopper bodies, every backward given its forward's lse."""
     launches, _, _ = run_train(
         torch, np, "train", {}, 224,
         {"tmajor_attention_fwd": 40, "tmajor_attention_fwd_bias": 12,
          "tmajor_attention_bwd": 40, "tmajor_attention_bwd_bias": 12,
-         # every backward through the Hopper body
-         "tmajor_attention_bwd_sm90": 40 + 12})
+         # every forward and backward through the Hopper bodies, every
+         # backward given its forward's lse
+         "tmajor_attention_fwd_sm90": 40 + 12,
+         "tmajor_attention_bwd_sm90": 40 + 12,
+         "tmajor_attention_bwd_lse": 40 + 12})
     return launches
 
 
@@ -1660,6 +1795,7 @@ def main():
     phase_build()
     rows = phase_kernels(torch, name)
     phase_hmajor_turns(torch)
+    phase_tmajor_turns(torch, name)
     phase_bwd_turns(torch)
     probe_rows, probe_launches = phase_tmajor_variants(torch, name)
     rows |= probe_rows

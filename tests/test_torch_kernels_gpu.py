@@ -21,10 +21,14 @@ copy engine cannot read; the head-major forward's Hopper body (wgmma fed
 by the copy engine) at D 16 to 128, Lq 1 to 577, Lk 1 to 4873, lk_true,
 packed, token-major and contiguous views, fp32 and bf16 biases broadcast
 over heads or the batch, with and without the lse, and its entry's
-refusal of layouts the copy engine cannot read; and the backward's
-Hopper body (both entries) at L 1 to 4873, Lq != Lk, lk_true, D 8 to
-128, with and without a bias and its ds: each output against the plain
-version, bitwise repeats, its counters, and its entry's refusals.
+refusal of layouts the copy engine cannot read; the token-major
+forward's Hopper body at EVA01-g's, BEATs' (per-sample and shared bias),
+the probe's lk_true-padded shape and the edges of its tiles, with its lse,
+and its entry's refusals; and the backward's Hopper body (both entries)
+at L 1 to 4873, Lq != Lk, lk_true, D 8 to 128, with and without a bias
+and its ds, the token-major one also given the forward's lse: each output
+against the plain version, bitwise repeats, its counters, and its
+entry's refusals.
 """
 
 import pytest
@@ -237,8 +241,10 @@ def test_tmajor_grad_on_cuda_goes_through_the_kernels(cuda):
         grads.append(torch.autograd.grad(out, (x, bb), do))
         launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
         if route == "kernel":
-            assert launched["tmajor_attention_fwd_bias"] == 1
-            assert launched["tmajor_attention_bwd_bias"] == 1
+            # fp32: the CUDA-core bodies, the backward given the lse
+            assert launched == {k: int(k in (
+                "tmajor_attention_fwd_bias", "tmajor_attention_bwd_bias",
+                "tmajor_attention_bwd_lse")) for k in before}
     for got, want in zip(*grads):
         assert (got - want).abs().max().item() <= 5e-5 * max(
             want.abs().max().item(), 1.0)
@@ -247,6 +253,177 @@ def test_tmajor_grad_on_cuda_goes_through_the_kernels(cuda):
         fa.self_attention_tmajor(qkv.clone().requires_grad_(True), heads=h)
     launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
     assert launched == {k: int(k == "tmajor_attention_fwd") for k in before}
+    # bf16 (D 24, no bias): the Hopper forward with the lse, and the Hopper
+    # backward given it
+    x = qkv.to(torch.bfloat16).requires_grad_(True)
+    before = dict(fa.LAUNCHES)
+    torch.autograd.grad(fa.self_attention_tmajor(x, heads=h, scale=0.4), x,
+                        do.to(torch.bfloat16))
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: int(k in (
+        "tmajor_attention_fwd", "tmajor_attention_fwd_sm90",
+        "tmajor_attention_bwd", "tmajor_attention_bwd_sm90",
+        "tmajor_attention_bwd_lse")) for k in before}
+
+
+TMAJOR_SM90_CASES = {
+    # name: (B, L, H, D, lk_true, bias, scale); each a bf16 view the copy
+    # engine reads, so each takes the Hopper forward
+    "eva01g": (4, 257, 16, 88, 0, None, 1.0),
+    "beats_bias": (2, 256, 12, 64, 0, "per_sample", 64 ** -0.5),
+    "shared_bias": (3, 128, 2, 64, 0, "shared", 0.125),
+    "ragged_lk_true": (2, 272, 16, 88, 257, None, 1.0),
+    # D > 64 with a bias: the body reads the bias by scalar loads
+    "bias_d96": (2, 136, 2, 96, 0, "per_sample", 0.1),
+    "one_row_d8": (2, 1, 1, 8, 0, None, 1.0),
+    # a last key tile of exactly 16 keys (the N-16 tile, full)
+    "tail_16_d128": (2, 144, 2, 128, 0, None, 0.1),
+}
+
+
+def tmajor_inputs(case, dtype, gen, cuda):
+    b, l, h, d, lk_true, bias_kind, scale = case
+    qkv = torch.randn(b, l, h, 3, d, device=cuda, generator=gen)
+    if scale == 1.0:
+        qkv[:, :, :, 0] *= d ** -0.5                  # q scale baked in
+    qkv = qkv.reshape(b, l, h * 3 * d).to(dtype)
+    bias = None
+    if bias_kind:
+        nb = b if bias_kind == "per_sample" else 1
+        bias = torch.randn(nb, h, l, l, device=cuda, generator=gen).to(dtype)
+    return qkv, bias
+
+
+@pytest.mark.parametrize("case", list(TMAJOR_SM90_CASES))
+def test_tmajor_sm90_matches_plain(cuda, case):
+    """The token-major Hopper forward, with its lse, against the plain
+    version: bf16, within the limits chip_smoke.py derives (one bf16 ulp
+    of max |out|, 2^-7, plus p rounded to bf16, 2^-8 x max |v|; an rms of
+    2^-6); the lse within 1e-5 x max |lse| (fp32 sums of the same exact
+    products); the output without the lse the same bits, and a repeat
+    too (no atomics)."""
+    b, l, h, d, lk_true, _, scale = TMAJOR_SM90_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    qkv, bias = tmajor_inputs(TMAJOR_SM90_CASES[case], torch.bfloat16, gen,
+                              cuda)
+    before = dict(fa.LAUNCHES)
+    out, lse = fa.TMAJOR_OP(qkv, bias, h, lk_true, scale, True)
+    torch.cuda.synchronize()
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    key = "tmajor_attention_fwd" + ("" if bias is None else "_bias")
+    assert launched == {k: int(k in (key, "tmajor_attention_fwd_sm90"))
+                        for k in before}
+    ref, ref_lse = fa._self_attention_tmajor_plain(
+        qkv, bias, heads=h, lk_true=lk_true, scale=scale, return_lse=True)
+    ref = ref.float()
+    diff = out.float() - ref
+    v_max = qkv.view(b, l, h, 3, d)[..., 2, :].float().abs().max().item()
+    err = diff.abs().max().item()
+    assert err <= ref.abs().max().item() * 2 ** -7 + v_max * 2 ** -8, err
+    rms = (diff.square().mean() / ref.square().mean()).sqrt().item()
+    assert rms <= 2 ** -6, rms
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert lse_err <= 1e-5 * max(ref_lse.abs().max().item(), 1.0), lse_err
+    again, no_lse = fa.TMAJOR_OP(qkv, bias, h, lk_true, scale, False)
+    assert no_lse.numel() == 0 and torch.equal(again, out)
+    assert torch.equal(fa.TMAJOR_OP(qkv, bias, h, lk_true, scale, True)[1],
+                       lse)
+
+
+def tmajor_entry_args(qkv, bias, out, heads, d=None):
+    b, l, total = qkv.shape
+    d = d or total // (3 * heads)
+    return (fa._ptr(qkv), fa._ptr(bias), fa._ptr(out), fa._ptr(None),
+            fa._DTYPE_CODES[qkv.dtype], b, l, heads, d, l,
+            0 if bias is None or bias.shape[0] == 1 else bias.stride(0),
+            1.0, fa._stream())
+
+
+def test_tmajor_sm90_entry_refuses_what_the_copy_engine_cannot_read(cuda):
+    """The Hopper entry returns cudaErrorInvalidValue (1) and writes
+    nothing for what its rule refuses, as the op's _sm90_ok decides
+    before the launch: fp32, D not a multiple of 8, a qkv base off 16
+    bytes, a bias whose rows are not 16-byte multiples or whose base is
+    off 16 bytes."""
+    entry = fa._kernel("vast_tmajor_attention_fwd_sm90")
+    bf16 = torch.bfloat16
+
+    def qkv_of(b, l, h, d, dtype=bf16, offset=0):
+        n = b * l * h * 3 * d
+        return torch.zeros(n + offset, device=cuda, dtype=dtype)[
+            offset:].view(b, l, h * 3 * d)
+
+    def bias_of(b, h, l, offset=0):
+        n = b * h * l * l
+        return torch.zeros(n + offset, device=cuda, dtype=bf16)[
+            offset:].view(b, h, l, l)
+
+    refused = {
+        "fp32": (qkv_of(2, 64, 2, 64, torch.float32), None),
+        "d20": (qkv_of(2, 64, 2, 20), None),
+        "qkv_offset_one": (qkv_of(2, 64, 2, 64, offset=1), None),
+        "bias_rows_257": (qkv_of(2, 257, 2, 64), bias_of(2, 2, 257)),
+        "bias_offset_one": (qkv_of(2, 64, 2, 64), bias_of(2, 2, 64, 1)),
+    }
+    for name, (qkv, bias) in refused.items():
+        b, l, total = qkv.shape
+        out = torch.full((b, l, total // 3), 7.0, device=cuda,
+                         dtype=qkv.dtype)
+        assert entry(*tmajor_entry_args(qkv, bias, out, 2)) == 1, name
+        torch.cuda.synchronize()
+        assert bool((out == 7.0).all()), name
+        d = total // 6
+        assert not fa._sm90_ok(d, qkv, *([] if bias is None else [bias]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["eva01g", "beats_bias", "ragged_lk_true"])
+def test_tmajor_bwd_given_lse_matches_plain(cuda, case, dtype):
+    """The token-major backward given the forward's lse (the dQ kernel
+    reads it and does not sweep the keys) against the plain version and
+    within the same limits as the backward without it (test_bwd_kernel_
+    matches_plain's): p or ds rounded to bf16 before the last product,
+    1.1 x 2^-8 of |ref| plus the sum of |terms|, rms 2^-6 (fp32: 5e-5);
+    the lse is read, not written."""
+    b, l, h, d, lk_true, _, scale = TMAJOR_SM90_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qkv, bias = tmajor_inputs(TMAJOR_SM90_CASES[case], dtype, gen, cuda)
+    o, lse = fa._self_attention_tmajor_plain(
+        qkv, bias, heads=h, lk_true=lk_true, scale=scale, return_lse=True)
+    do = torch.randn(b, l, h * d, device=cuda, generator=gen).to(dtype)
+    kw = dict(heads=h, lk_true=lk_true, scale=scale)
+    saved = lse.clone()
+    before = dict(fa.LAUNCHES)
+    given = fa.self_attention_tmajor_bwd(qkv, o, do, bias, lse=lse, **kw)
+    torch.cuda.synchronize()
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    key = "tmajor_attention_bwd" + ("" if bias is None else "_bias")
+    sm90 = int(dtype == torch.bfloat16)
+    assert launched == {k: (1 if k in (key, "tmajor_attention_bwd_lse")
+                            else sm90 if k == "tmajor_attention_bwd_sm90"
+                            else 0) for k in before}
+    assert torch.equal(lse, saved)
+    swept = fa.self_attention_tmajor_bwd(qkv, o, do, bias, **kw)
+    want = fa._self_attention_tmajor_bwd_plain(qkv, o, do, bias, **kw)
+    scales = fa._self_attention_tmajor_bwd_abs_terms(qkv, o, do, bias, **kw)
+    if bias is None:
+        given, swept, want = (given,), (swept,), (want,)
+    for res in (given, swept):
+        outs, refs = split_dqkv(res[0], h), split_dqkv(want[0], h)
+        if bias is not None:
+            outs["dbias"], refs["dbias"] = res[1].float(), want[1].float()
+        for name, out in outs.items():
+            diff = out - refs[name]
+            span = (refs[name].abs() + scales[name]).max().item()
+            err = diff.abs().max().item()
+            if dtype == torch.bfloat16:
+                assert err <= 1.1 * 2 ** -8 * span, (name, err, span)
+                rms = (diff.square().mean() / refs[name].square().mean()
+                       .clamp_min(1e-30)).sqrt().item()
+                assert rms <= 2 ** -6, (name, rms)
+            else:
+                assert err <= 5e-5 * max(span, 1e-6), (name, err, span)
 
 
 HMAJOR_CASES = {

@@ -8,21 +8,21 @@
 //   _single_kernel           (:52, the same with the lse output)
 //   _looped_kernel_nolse / _looped_kernel (:137 / :94, the same at
 //                             Lk > 4096: every Lk streams alike here);
-//                             in bf16 these four have a body of their own
+//                             in bf16 these six have a body of their own
 //                             for Hopper, wgmma fed by the copy engine
-//                             ("The head-major forward for Hopper" below)
+//                             ("The forward for Hopper" below)
 //   the backward kernels, listed and described at their kernels below:
 //   _tmajor_bwd_kernel(_bias) (:795, :841) and flash_attention_bwd's
 //   fused and tiled kernels (:321, :363, :372, :413, :451)
 // and the two of scripts/bench_tmajor_variants.py, the token-major layout
 // probe: attention_dma (:78) and _sect_kernel (:118), described at their
 // entries at the end of this file.
-// One forward kernel body serves every forward: it reads q, k, v, the output and the
-// bias through (batch, head, row) element strides, so the token-major fused
-// qkv layout and the head-major layout differ only in the strides the two
-// C entry points pass; one backward body serves every backward the same
-// way. The body takes its tiles from a loader: threads issuing cp.async
-// through the strides, or (attention_dma's counterpart) the copy engine.
+// Each forward body reads q, k, v, the output and the bias through (batch,
+// head, row) element strides, so the token-major fused qkv layout and the
+// head-major layout differ only in the strides the C entry points pass;
+// each backward body serves every backward the same way. The mma.sync
+// body takes its tiles from a loader: threads issuing cp.async through the
+// strides, or (attention_dma's counterpart) the copy engine.
 //
 // Contract. Per (batch b, head h):
 //   s = (q . k^T) * scale  [+ bias[b, h]]   in fp32,
@@ -31,9 +31,9 @@
 // (EVA01-g 88, BEATs and BERT 64). The bias is read through its own strides
 // (a stride of 0 reads one shared (Lq, Lk) plane, never broadcast in
 // memory), in the input type or in fp32. A row whose scores are all -inf
-// gives zeros, as the Pallas kernel's l == 0 guard does. On request the
-// head-major forward also writes each row's lse = m + log(l), the
-// backward's residual (+inf for such a row, so that its p is 0).
+// gives zeros, as the Pallas kernel's l == 0 guard does. On request every
+// forward entry also writes each row's lse = m + log(l), the backward's
+// residual (+inf for such a row, so that its p is 0).
 //
 // What bounds it on an H100: at EVA's shape (B 64, L 257, H 16, D 88) the
 // arithmetic intensity is about L/2 = 128 FLOP per byte of qkv, below the
@@ -47,17 +47,17 @@
 // online softmax, so neither the scores nor the probabilities reach device
 // memory and the bias is read exactly once. D is padded nowhere in device
 // memory: loads and stores are masked at D and at the sequence ends, and
-// the padding to the tensor-core tile lives in shared memory only. The
-// head-major bf16 forward (vast_tpu's :52, :87, :94, :137) runs on wgmma
-// with every tile brought by the copy engine (its section below says what
-// bounds it at each path shape and what its design does about it). The
-// other bodies still use mma.sync and threads' cp.async, the copy engine
-// only at attention_dma's entry; and the query tiles of one head each
-// re-read its K/V (from L2). Those are later work.
+// the padding to the tensor-core tile lives in shared memory only. Every
+// bf16 forward whose operands the copy engine can read (vast_tpu's :52,
+// :87, :94, :137, :762, :789) runs on wgmma with every tile brought by the
+// copy engine (its section below says what bounds it at each path shape
+// and what its design does about it). The other bodies still use mma.sync
+// and threads' cp.async, the copy engine only at attention_dma's entry;
+// and the query tiles of one head each re-read its K/V (from L2).
 //
 // Two forward kernels besides the Hopper one:
-// * bf16 (the token-major forward, and head-major operands the copy
-//   engine cannot read): tensor cores through mma.sync m16n8k16, bf16
+// * bf16 (operands the copy engine cannot read, and the layout probe's
+//   section-major entry): tensor cores through mma.sync m16n8k16, bf16
 //   operands and fp32 accumulators. 8 warps x 16 query rows; key tiles of
 //   64, double-buffered: cp.async brings tile i+1 (16 bytes a thread, when
 //   D and every stride are multiples of 8; plain one-value stores
@@ -696,9 +696,10 @@ cudaError_t launch_fp32(const Params& p, int B, int H, cudaStream_t stream) {
 // token-major fused qkv (rows 3-4) and head-major q, k, v of any strides
 // (rows 7-9; CLIP's packed in_proj output is read as it is).
 //
-// lse: the head-major forward saves it (its lse output), so the backward
-// reads it; the token-major forward saves only its output, as vast_tpu's
-// does, so there the dQ kernel first sweeps the keys once for the row max
+// lse: both forwards save it (their lse output) while autograd records,
+// so the backward reads it (lse_given). Called without it (the token-major
+// entries' lse_given 0, as vast_tpu's token-major backward recomputes the
+// statistics), the dQ kernel first sweeps the keys once for the row max
 // and sum. A row with no finite score has lse = +inf and so p = 0.
 //
 // What bounds it on an H100: five Lq x Lk x D products per (b, h), 10 Lq
@@ -711,7 +712,7 @@ cudaError_t launch_fp32(const Params& p, int B, int H, cudaStream_t stream) {
 // tiled routes has no counterpart: one FA2-style split into two kernels,
 // with no atomics, so the gradients are deterministic:
 // * dQ: one block per (query tile of 64, head, batch). It computes delta
-//   for its rows from o and do (and, with no saved lse, sweeps the keys
+//   for its rows from o and do (and, with no lse given, sweeps the keys
 //   for the row max and sum), then sweeps the keys for p, dp, ds and dq,
 //   writing ds into dbias (each (row, key) is seen once here). It stores
 //   delta (and a computed lse), (B, H, Lq) fp32, for the second kernel.
@@ -1534,6 +1535,21 @@ Params tmajor_params(const void* qkv, void* out, int dtype, int L, int H,
   return p;
 }
 
+// The Params of the token-major forward entries (their arguments,
+// described at vast_tmajor_attention_fwd): the fused per-head layout, the
+// bias (B or 1, H, L, L) with batch stride bias_batch_stride
+Params tmajor_fwd_params(const void* qkv, const void* bias, void* out,
+                         float* lse, int dtype, int L, int H, int D, int kend,
+                         long long bias_batch_stride, float scale) {
+  Params p = tmajor_params(qkv, out, dtype, L, H, D, kend, scale, 3LL * D, D);
+  p.st[kBias][0] = bias_batch_stride;
+  p.st[kBias][1] = (long long)L * L;
+  p.st[kBias][2] = L;
+  p.bias = bias;
+  p.lse = lse;
+  return p;
+}
+
 // ---------------------------------------------------------------------
 // The copy engine (TMA): attention_dma's counterpart
 // ---------------------------------------------------------------------
@@ -1808,26 +1824,31 @@ cudaError_t dispatch_tma(const Params& p, const void* qkv, int B, int H,
 }
 
 // ---------------------------------------------------------------------
-// The head-major forward for Hopper: wgmma and the copy engine
+// The forward for Hopper: wgmma and the copy engine
 // ---------------------------------------------------------------------
 //
-// Replaces the head-major forward kernels of vast_tpu/ops/flash_attention.py,
-// _single_kernel (:52) and _single_kernel_nolse (:87) at Lk <= 4096,
-// _looped_kernel (:94) and _looped_kernel_nolse (:137) above: one body for
-// all four (the lse is one more store), taken by every bf16 head-major
-// forward whose q, k and v the copy engine can read
-// (vast_flash_attention_fwd_sm90's rule, at its entry below). The others,
-// and fp32, take attention_fwd_mma / attention_fwd_fp32 through
-// vast_flash_attention_fwd. The contract is that entry's (top of file).
+// Replaces, for bf16 operands the copy engine can read, the forward kernels
+// of vast_tpu/ops/flash_attention.py: the head-major _single_kernel (:52)
+// and _single_kernel_nolse (:87) at Lk <= 4096, _looped_kernel (:94) and
+// _looped_kernel_nolse (:137) above (through vast_flash_attention_fwd_sm90),
+// and the token-major _tmajor_fwd_kernel (:762) and _tmajor_fwd_kernel_bias
+// (:789) (through vast_tmajor_attention_fwd_sm90, the fused qkv read as
+// three strided views): one body for all six (the lse is one more store).
+// Each entry's rule is at the entry below. The operands it refuses, and
+// fp32, take attention_fwd_mma / attention_fwd_fp32 through
+// vast_flash_attention_fwd and vast_tmajor_attention_fwd. The contract is
+// theirs (top of file).
 //
 // What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): CLIP-L/14-336's
 // attention (64 x 16 heads x 577^2 x 64) lies at the ridge, 0.0903 ms by
 // bytes (q, k, v read once, o written once) against 0.088 ms by
-// operations; AST's (8 x 12 x 257^2) is bound by bytes; the reranks (4 x
-// 12 heads, 320 x 2312 and 640 x 4873) by operations. At D 64 a score's
-// exp2 on the special-function units (16 a clock an SM) takes as long as
-// its 256 tensor-core operations, so the softmax is as long as the two
-// products, and whatever else a thread issues per score adds to it.
+// operations; AST's (8 x 12 x 257^2), EVA01-g's (64 x 16 x 257^2 x 88) and
+// BEATs' (8 x 12 x 256^2 x 64, whose bf16 bias is half of the bytes) are
+// bound by bytes; the reranks (4 x 12 heads, 320 x 2312 and 640 x 4873) by
+// operations. At D 64 a score's exp2 on the special-function units (16 a
+// clock an SM) takes as long as its 256 tensor-core operations, so the
+// softmax is as long as the two products, and whatever else a thread
+// issues per score adds to it.
 // What the design does about it: both products run on wgmma, q, k and v
 // read by the tensor cores straight from shared memory and p from
 // registers, so no thread loads an operand fragment; every tile comes
@@ -1846,14 +1867,46 @@ cudaError_t dispatch_tma(const Params& p, const void* qkv, int B, int H,
 //
 // Layout. Each of q, k, v is a 4-D tensor for the copy engine: d, then
 // batch, head and row ordered by their strides, so CLIP's packed views,
-// the token-major views and contiguous tensors are read as they lie. A box
-// is 64 columns (128 bytes) by a tile's rows in 128-byte swizzle, the
-// layout wgmma reads: columns past D read as zeros, and so do rows past Lq
-// (q) or past kend (k, v); D > 64 is two boxes, each a [rows][64] tile of
-// its own. Key tiles of kSm90BlockK go through a ring of stages, each with
-// a full barrier (the copy engine's bytes) and an empty one (every
-// consumer thread). The last tile's keys at and past kend are masked to
-// -inf in registers; rows past Lq are not stored.
+// the token-major views (head stride 3D, row stride 3HD: EVA's 264 and
+// 4224 elements, k and v 176 and 352 bytes on) and contiguous tensors are
+// read as they lie. A box is 64 columns (128 bytes) by a tile's rows in
+// 128-byte swizzle, the layout wgmma reads: columns past D read as zeros,
+// and so do rows past Lq (q) or past kend (k, v); D > 64 is two boxes,
+// each a [rows][64] tile of its own. Key tiles of kSm90BlockK go through a
+// ring of stages, each with a full barrier (the copy engine's bytes) and
+// an empty one (every consumer thread). The last tile's keys at and past
+// kend are masked to -inf in registers; rows past Lq are not stored.
+//
+// Three properties of the token-major shapes, each a lever measured on
+// the H100 in turns against a build without it (PERF.md, its findings);
+// all four kept:
+// * L 257 (EVA01-g's 256 patches and the class token) against 128-row
+//   work tiles and 128-key tiles: 384 x 384 for 257 x 257, 2.2x the useful
+//   work. A last key tile of <= 16 keys (the 257th) runs as wgmma N 16 and
+//   one 16-key step of p . v, its softmax over 8 scores a thread, not 64
+//   (9% less device time at EVA, 17-21% at AST's 257), and runs first
+//   (7.5% at EVA), so that the last tile of a work tile is a wide one,
+//   whose softmax and p . v run while the copy engine brings the next work
+//   tile's q (released after the last q . k^T); run last, the N-16 tile
+//   left that load bare and gained 1% at EVA. Work tiles of 64 rows a warpgroup, with a ring each, would not
+//   fit: the two rings of k and v at D 128 need 384 KB. Tried and kept
+//   out: the third work tile's second warpgroup, which owns no row,
+//   issuing no product and only keeping the barriers' counts ran 4-10%
+//   slower at EVA (it waits on the next q's barrier beside the busy one).
+// * D 88 run as 128: q . k^T stops at 96 deep (6 k-steps, not 8) where D
+//   allows and there is no bias (2-4% at EVA), as the backward's does;
+//   the columns past D are zeros, so the output is the same bit for bit. p . v keeps whole 64-column boxes of v (N 128 at D
+//   88): the swizzle atom of an MN-major operand is 64 columns wide.
+// * BEATs' bf16 bias (12.6 MB of the 25 MB the kernel must move) is read
+//   by the copy engine (1.6x less device time than scalar loads): each
+//   key tile's 128 rows x 128 keys, two boxes of 64 keys in 128-byte
+//   swizzle, land in the stage with k and v on the same full barrier (208
+//   KB of shared memory at DP 64), and the consumers read
+//   bf16 pairs from them without bank conflicts (the pair of row r, keys
+//   8j + 2t, lies in 16-byte chunk j ^ (r % 8)). Rows and keys past L read
+//   as zeros and are masked as the scores are. The head-major entry's bias
+//   (fp32 or broadcast) and a bias at D > 64 are read by scalar loads
+//   through their strides.
 // Tried and slower on the H100: ping-pong between the consumer
 // warpgroups, and this tile's softmax under the last tile's p . v (with
 // the first and last tiles peeled, so that ptxas serializes no wgmma).
@@ -1873,17 +1926,29 @@ static_assert(kSm90ProducerRegs + kSm90Consumers * kSm90ConsumerRegs ==
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.69314718055994531f;
 
+// The bias type of the token-major bf16 bias that the copy engine brings
+// into each stage (BiasT's other values: NoBias, or a type read through the
+// operand's strides)
+struct BoxBias {};
+
+template <typename BiasT>
+constexpr bool kBoxBias = std::is_same<BiasT, BoxBias>::value;
+
 // A block's shared memory, each tile 1024-byte aligned (whole swizzle
-// atoms of 8 rows x 128 bytes): q, then each stage's k and v, then the
-// barriers (full and empty per stage, then q's full and empty). A tile of
-// R rows is DP / 64 column blocks of R x 128 bytes.
-template <int DP>
+// atoms of 8 rows x 128 bytes): q, then each stage's k, v and (BoxBias)
+// bias, then the barriers (full and empty per stage, then q's full and
+// empty). A tile of R rows is DP / 64 column blocks of R x 128 bytes; a
+// stage's bias is kSm90BlockK / 64 boxes of kSm90BlockQ rows x 64 keys.
+template <int DP, typename BiasT>
 struct Sm90Smem {
   static constexpr int kBlocks = DP / kSm90Box;
   static constexpr int kStages = 3;   // the copy engine up to 2 tiles ahead
   static constexpr unsigned kQBytes = kSm90BlockQ * DP * 2;
   static constexpr unsigned kKvBytes = kSm90BlockK * DP * 2;   // k or v
-  static constexpr unsigned kBarOffset = kQBytes + 2 * kStages * kKvBytes;
+  static constexpr unsigned kBiasBytes =
+      kBoxBias<BiasT> ? kSm90BlockQ * kSm90BlockK * 2 : 0;
+  static constexpr unsigned kStageBytes = 2 * kKvBytes + kBiasBytes;
+  static constexpr unsigned kBarOffset = kQBytes + kStages * kStageBytes;
   static constexpr size_t kBytes = kBarOffset + (2 * kStages + 2) * 8 + 1024;
   static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
 };
@@ -2026,48 +2091,44 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// The online softmax of one key tile's scores s (a wgmma accumulator: see
-// sm90_consumer) for the thread's rows row0 and row0 + 8, in log2 units:
-// keys >= kend masked (the last tile's: they read as zeros, or are keys
-// past lk_true), the running max m and this lane's part of the sum l
-// updated, the output's rescale factors returned in alpha, and p left in
-// s in fp32. Without a bias and at a positive scale, the scale is folded
-// into the exponent (max and mask commute with it): one fma and one exp2 a
-// score.
-template <typename BiasT>
-__device__ __forceinline__ void sm90_softmax(
-    float (&s)[64], float (&m)[2], float (&l)[2], float (&alpha)[2],
-    const Params& p, const BiasT* bias_bh, long long bias_rs, int k0,
-    int row0, int t, float scale2) {
-  const int kend = p.kend;
-  const bool fold = !kHasBias<BiasT> && scale2 > 0.f;
-  if (!fold) {
+// d[0..7] (+)= a . b over 16 of the reduction: a 64 x 16 tile and b a
+// 16 x 16 tile (16 keys), both in shared memory and K-major; scale_d 0
+// overwrites d
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t a,
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The online softmax of one key tile's scores s (a wgmma accumulator of N
+// = 8 NJ keys: see sm90_consumer) for the thread's rows, times f in log2
+// units (f > 0: the scale folded into the exponent, max and mask commuting
+// with it; else 1, the scale and bias already applied): keys >= kend
+// masked (the last tile's: they read as zeros, or are keys past lk_true),
+// the running max m and this lane's part of the sum l updated, the
+// output's rescale factors returned in alpha, and p left in s in fp32. One
+// fma and one exp2 a score.
+template <int NJ>
+__device__ __forceinline__ void sm90_softmax(float (&s)[4 * NJ],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int kend,
+                                             int k0, int t, float f) {
+  if (k0 + 8 * NJ > kend) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] *= scale2;
-  }
-  if constexpr (kHasBias<BiasT>) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + 8 * j + 2 * t + (i & 1);
-        const int row = i < 2 ? row0 : row0 + 8;
-        if (key < kend && row < p.lq)
-          s[4 * j + i] +=
-              to_float(bias_bh[(long long)row * bias_rs + key]) * kLog2e;
-      }
-  }
-  if (k0 + kSm90BlockK > kend) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         if (k0 + 8 * j + 2 * t + (i & 1) >= kend) s[4 * j + i] = -INFINITY;
   }
-  const float f = fold ? scale2 : 1.f;      // s x f: the scores in log2 units
   float mx[2] = {-INFINITY, -INFINITY};     // over the quad sharing a row
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
@@ -2082,7 +2143,7 @@ __device__ __forceinline__ void sm90_softmax(
     m[r] = mn;
   }
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       s[4 * j + i] = ex2(fmaf(s[4 * j + i], f, ne[i >> 1]));
@@ -2094,13 +2155,27 @@ __device__ __forceinline__ void sm90_softmax(
 
 // p (fp32, in s) in bf16 pairs as the A fragments of p . v: two 8-key
 // column groups of the accumulator make one 16-key step
-__device__ __forceinline__ void pack_p(const float (&s)[64],
-                                       uint32_t (&pa)[kSm90BlockK / 16][4]) {
+template <int NJ>
+__device__ __forceinline__ void pack_p(const float (&s)[4 * NJ],
+                                       uint32_t (&pa)[NJ / 2][4]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     pa[j / 2][(j & 1) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
     pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
   }
+}
+
+// Whether the last key tile, of <= 16 keys, runs as wgmma N 16, and so
+// first: producer and consumers take the key tiles in the same order
+__device__ __forceinline__ bool sm90_tail16(int kend, int n_tiles) {
+  return kend - (n_tiles - 1) * kSm90BlockK <= 16;
+}
+
+// the key tile taken i-th of n_tiles: the N-16 tail first, then the
+// others in order
+__device__ __forceinline__ int sm90_key_tile(int i, int n_tiles,
+                                             bool tail16) {
+  return !tail16 ? i : i == 0 ? n_tiles - 1 : i - 1;
 }
 
 // One consumer warpgroup `wg`: its 64 query rows of one work tile (query
@@ -2109,29 +2184,37 @@ __device__ __forceinline__ void pack_p(const float (&s)[64],
 // / 4, t = l % 4) of the warpgroup: d[4j + i] holds row 16w + g (+8 for i
 // >= 2), column 8j + 2t (+1 for odd i); so the scores of keys
 // 16kk..16kk+15, packed to bf16 pairs, are the A fragment of p . v's
-// 16-key step kk as they lie. Per key tile: s = q . k^T, its softmax, o +=
-// p . v, then the stage is released; q is released after the last q .
-// k^T. The ring's stages go on from tile `ring` (the key tiles of the
-// block's earlier work tiles); q's barrier is in phase `qphase`.
-template <int DP, typename BiasT>
+// 16-key step kk as they lie. Per key tile: s = q . k^T over KD 16-column
+// steps, its softmax, o += p . v, then the stage is released; q is
+// released after the last q . k^T. A last tile of <= 16 keys runs N 16,
+// before the others (the online softmax takes the tiles in any order).
+// The ring's stages go on from tile
+// `ring` (the key tiles of the block's earlier work tiles); q's barrier is
+// in phase `qphase`.
+template <int DP, int KD, typename BiasT>
 __device__ __forceinline__ void sm90_consumer(
     const Params& p, const unsigned char* qs, const unsigned char* kv,
     uint64_t* full, uint64_t* empty, uint64_t* qfull, uint64_t* qempty,
     int wg, int q0, int h, int b, int n_tiles, int ring, unsigned qphase) {
-  using S = Sm90Smem<DP>;
+  using S = Sm90Smem<DP, BiasT>;
   constexpr int kBlocks = S::kBlocks;
   constexpr int kSteps = kSm90BlockK / 16;      // 16-key steps of p . v
+  static_assert(KD * 16 <= DP, "q . k^T over at most DP columns");
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
-  const int t = lane & 3;
-  const int row0 = q0 + 64 * wg + 16 * warp + (lane >> 2), row1 = row0 + 8;
-  const int lq = p.lq, D = p.d;
+  const int g = lane >> 2, t = lane & 3;
+  const int rl = 64 * wg + 16 * warp + g;       // the row in the work tile
+  const int row0 = q0 + rl, row1 = row0 + 8;
+  const int lq = p.lq, D = p.d, kend = p.kend;
   const float scale2 = p.scale * kLog2e;        // scores in log2 units
+  // the scale folds into the exponent without a bias, at a positive scale
+  const bool fold = !kHasBias<BiasT> && scale2 > 0.f;
   const BiasT* bias_bh = nullptr;
   long long bias_rs = 0;
-  if constexpr (kHasBias<BiasT>) {
+  if constexpr (kHasBias<BiasT> && !kBoxBias<BiasT>) {
     bias_bh = plane<const BiasT>(p.bias, p.st[kBias][0], p.st[kBias][1], b, h);
     bias_rs = p.st[kBias][2];
   }
+  mbar_wait_or_trap(qfull, qphase);
 
   float o[kBlocks][32], s[64];
 #pragma unroll
@@ -2144,48 +2227,85 @@ __device__ __forceinline__ void sm90_consumer(
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
   const unsigned char* qw = qs + 64 * wg * kSm90RowBytes;   // the 64 rows
 
-  // s = q . k^T of stage st in DP / 16 steps; within a 128-byte row a
-  // step moves the descriptors 32 bytes (the swizzle acts on the address
-  // bits, so the atoms' rows stay where they are)
-  auto scores = [&](int st) {
-    const unsigned char* ks = kv + 2 * st * S::kKvBytes;
+  // sc = q . k^T of stage st over its first N keys (sc: 4 N / 8 values) in
+  // KD steps; within a 128-byte row a step moves the descriptors 32 bytes
+  // (the swizzle acts on the address bits, so the atoms' rows stay where
+  // they are)
+  auto scores = [&](auto& sc, int st) {
+    const unsigned char* ks = kv + st * S::kStageBytes;
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
+    for (int kk = 0; kk < KD; ++kk) {
       const int c = kk / 4, off = (kk % 4) * 32;
-      wgmma_m64n128k16_ss(
-          s, wgmma_desc(qw + c * kSm90BlockQ * kSm90RowBytes + off, 16, 1024),
-          wgmma_desc(ks + c * kSm90BlockK * kSm90RowBytes + off, 16, 1024),
-          kk > 0);
+      const uint64_t da =
+          wgmma_desc(qw + c * kSm90BlockQ * kSm90RowBytes + off, 16, 1024);
+      const uint64_t db =
+          wgmma_desc(ks + c * kSm90BlockK * kSm90RowBytes + off, 16, 1024);
+      if constexpr (sizeof(sc) == 64 * sizeof(float))
+        wgmma_m64n128k16_ss(sc, da, db, kk > 0);
+      else
+        wgmma_m64n16k16_ss(sc, da, db, kk > 0);
     }
     wgmma_commit();
   };
-  // o += p . v of stage st: 16 keys a step, v's [key][64] tiles MN-major;
-  // a step is two whole swizzle atoms (16 rows of 128 bytes) further
-  auto values = [&](int st) {
-    const unsigned char* vs = kv + (2 * st + 1) * S::kKvBytes;
+  // o += p . v of stage st, p in bf16 A fragments pk of one 16-key step
+  // each, v's [key][64] tiles MN-major; a step is two whole swizzle atoms
+  // (16 rows of 128 bytes) further
+  auto values = [&](const auto& pk, int st) {
+    constexpr int steps = sizeof(pk) / sizeof(pk[0]);
+    const unsigned char* vs = kv + st * S::kStageBytes + S::kKvBytes;
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk)
+    for (int kk = 0; kk < steps; ++kk) {
 #pragma unroll
       for (int c = 0; c < kBlocks; ++c)
         wgmma_m64n64k16_rs(
-            o[c], pa[kk],
+            o[c], pk[kk],
             wgmma_desc(vs + (c * kSm90BlockK + 16 * kk) * kSm90RowBytes,
                        kSm90BlockK * kSm90RowBytes, 1024),
             1);
+    }
     wgmma_commit();
   };
-  mbar_wait_or_trap(qfull, qphase);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = (ring + it) % S::kStages;
-    mbar_wait_or_trap(full + st, ((ring + it) / S::kStages) & 1);
-    __syncwarp();                   // the warp converged for wgmma
-    wgmma_fence();
-    scores(st);
-    wgmma_wait<0>();
-    fence_regs(s);
-    if (it == n_tiles - 1) mbar_arrive(qempty);   // the next q may come
-    sm90_softmax<BiasT>(s, m, l, alpha, p, bias_bh, bias_rs,
-                        it * kSm90BlockK, row0, t, scale2);
+  // the scores of the tile from k0 (stage st) into log2 units: times the
+  // scale and plus the bias unless the scale folds into the softmax's
+  // exponent; returns the factor left for it
+  auto to_log2 = [&](auto& sc, int k0, int st) -> float {
+    constexpr int nj = sizeof(sc) / sizeof(float) / 4;
+    if (fold) return scale2;
+#pragma unroll
+    for (int i = 0; i < 4 * nj; ++i) sc[i] *= scale2;
+    if constexpr (kBoxBias<BiasT>) {
+      // the pair of row r, keys 8j + 2t of box j / 8 in chunk (j % 8) ^ (r
+      // % 8) of its 128 bytes; r % 8 == g for both of the thread's rows
+      const unsigned char* box = kv + st * S::kStageBytes + 2 * S::kKvBytes +
+                                 rl * kSm90RowBytes + 4 * t;
+#pragma unroll
+      for (int j = 0; j < nj; ++j) {
+        const unsigned char* at = box + (j / 8) * kSm90BlockQ * kSm90RowBytes +
+                                  (((j & 7) ^ g) << 4);
+        const float2 b0 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(at));
+        const float2 b1 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(at + 8 * kSm90RowBytes));
+        sc[4 * j] = fmaf(b0.x, kLog2e, sc[4 * j]);
+        sc[4 * j + 1] = fmaf(b0.y, kLog2e, sc[4 * j + 1]);
+        sc[4 * j + 2] = fmaf(b1.x, kLog2e, sc[4 * j + 2]);
+        sc[4 * j + 3] = fmaf(b1.y, kLog2e, sc[4 * j + 3]);
+      }
+    } else if constexpr (kHasBias<BiasT>) {
+#pragma unroll
+      for (int j = 0; j < nj; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + 8 * j + 2 * t + (i & 1);
+          const int row = i < 2 ? row0 : row1;
+          if (key < kend && row < lq)
+            sc[4 * j + i] +=
+                to_float(bias_bh[(long long)row * bias_rs + key]) * kLog2e;
+        }
+    }
+    return 1.f;
+  };
+  auto rescale = [&]() {
 #pragma unroll
     for (int c = 0; c < kBlocks; ++c)
 #pragma unroll
@@ -2195,14 +2315,58 @@ __device__ __forceinline__ void sm90_consumer(
         o[c][4 * j + 2] *= alpha[1];
         o[c][4 * j + 3] *= alpha[1];
       }
-    pack_p(s, pa);
-    wgmma_fence();
-    values(st);
+  };
+  auto wait_values = [&](int st) {
     wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < kBlocks; ++c) fence_regs(o[c]);
     mbar_arrive(empty + st);        // stage st may be refilled
-  }
+  };
+
+  // key tile kt as the i-th of the work tile's, its stage the ring's next
+  auto wide_tile = [&](int kt, int i) {
+    const int st = (ring + i) % S::kStages;
+    mbar_wait_or_trap(full + st, ((ring + i) / S::kStages) & 1);
+    __syncwarp();                   // the warp converged for wgmma
+    wgmma_fence();
+    scores(s, st);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (i == n_tiles - 1) mbar_arrive(qempty);    // the next q may come
+    const int k0 = kt * kSm90BlockK;
+    sm90_softmax<16>(s, m, l, alpha, kend, k0, t, to_log2(s, k0, st));
+    rescale();
+    pack_p<16>(s, pa);
+    wgmma_fence();
+    values(pa, st);
+    wait_values(st);
+  };
+  // the same for a tile of <= 16 keys: N 16, one step of p . v
+  auto tail_tile = [&](int kt, int i) {
+    const int st = (ring + i) % S::kStages;
+    float s16[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s16[j] = 0.f;
+    mbar_wait_or_trap(full + st, ((ring + i) / S::kStages) & 1);
+    __syncwarp();
+    wgmma_fence();
+    scores(s16, st);
+    wgmma_wait<0>();
+    fence_regs(s16);
+    if (i == n_tiles - 1) mbar_arrive(qempty);
+    const int k0 = kt * kSm90BlockK;
+    sm90_softmax<2>(s16, m, l, alpha, kend, k0, t, to_log2(s16, k0, st));
+    rescale();
+    uint32_t pa16[1][4];
+    pack_p<2>(s16, pa16);
+    wgmma_fence();
+    values(pa16, st);
+    wait_values(st);
+  };
+
+  const bool tail16 = sm90_tail16(kend, n_tiles);
+  if (tail16) tail_tile(n_tiles - 1, 0);
+  for (int kt = 0; kt < n_tiles - tail16; ++kt) wide_tile(kt, kt + tail16);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -2241,21 +2405,23 @@ __device__ __forceinline__ void sm90_consumer(
 // first key tiles while the consumers finish this one's last tile and
 // store its output. Warpgroups 0 .. kSm90Consumers - 1 consume; the last
 // one produces, one thread issuing every copy: each work tile's q once the
-// consumers have released the last one, then its key tiles' k and v into
-// the ring's stages, which run on across work tiles, as the consumers
-// release them.
-template <int DP, typename BiasT>
+// consumers have released the last one, then its key tiles' k and v (and
+// with BoxBias the bias's boxes of the block's rows, through bmap) into the
+// ring's stages, which run on across work tiles, as the consumers release
+// them.
+template <int DP, int KD, typename BiasT>
 __global__ void __launch_bounds__(kSm90Threads, 1)
 attention_fwd_sm90_kernel(const Params p,
                           const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap bmap,
                           const Sm90Slot sq, const Sm90Slot sk,
                           const Sm90Slot sv, int n_qtiles, int n_work) {
-  using S = Sm90Smem<DP>;
+  using S = Sm90Smem<DP, BiasT>;
   extern __shared__ __align__(1024) unsigned char sm90_smem[];
   unsigned char* qs = align_1024(sm90_smem);
-  unsigned char* kv = qs + S::kQBytes;  // stage s: k, then v, at 2s kKvBytes
+  unsigned char* kv = qs + S::kQBytes;  // stage s at s kStageBytes: k, v, bias
   auto* full = reinterpret_cast<uint64_t*>(qs + S::kBarOffset);
   uint64_t* empty = full + S::kStages;
   uint64_t* qfull = empty + S::kStages;
@@ -2276,6 +2442,7 @@ attention_fwd_sm90_kernel(const Params p,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(kSm90ProducerRegs));
     if (threadIdx.x != 128 * kSm90Consumers) return;
+    const bool tail16 = sm90_tail16(p.kend, n_tiles);
     int ring = 0;
     for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
       const int q0 = w % n_qtiles * kSm90BlockQ, h = w / n_qtiles % p.heads,
@@ -2285,17 +2452,26 @@ attention_fwd_sm90_kernel(const Params p,
       for (int c = 0; c < S::kBlocks; ++c)
         tma_load_at(qs + c * kSm90BlockQ * kSm90RowBytes, &qmap, qfull, sq,
                     c * kSm90Box, b, h, q0);
-      for (int it = 0; it < n_tiles; ++it, ++ring) {
+      for (int i = 0; i < n_tiles; ++i, ++ring) {
+        const int k0 = kSm90BlockK * sm90_key_tile(i, n_tiles, tail16);
         const int st = ring % S::kStages;
         mbar_wait_or_trap(empty + st, ((ring / S::kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(full + st, 2 * S::kKvBytes);
-        unsigned char* ks = kv + 2 * st * S::kKvBytes;
+        mbar_arrive_expect_tx(full + st, S::kStageBytes);
+        unsigned char* ks = kv + st * S::kStageBytes;
         for (int c = 0; c < S::kBlocks; ++c) {
           const int at = c * kSm90BlockK * kSm90RowBytes;
           tma_load_at(ks + at, &kmap, full + st, sk, c * kSm90Box, b, h,
-                      it * kSm90BlockK);
+                      k0);
           tma_load_at(ks + S::kKvBytes + at, &vmap, full + st, sv,
-                      c * kSm90Box, b, h, it * kSm90BlockK);
+                      c * kSm90Box, b, h, k0);
+        }
+        if constexpr (kBoxBias<BiasT>) {
+          // (key, row, head, batch); a shared plane is batch 0
+          const int bb = p.st[kBias][0] ? b : 0;
+          for (int c = 0; c < kSm90BlockK / kSm90Box; ++c)
+            tma_load_4d(ks + 2 * S::kKvBytes +
+                            c * kSm90BlockQ * kSm90RowBytes,
+                        &bmap, full + st, k0 + c * kSm90Box, q0, h, bb);
         }
       }
     }
@@ -2305,8 +2481,8 @@ attention_fwd_sm90_kernel(const Params p,
     for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
       const int q0 = w % n_qtiles * kSm90BlockQ, h = w / n_qtiles % p.heads,
                 b = w / n_qtiles / p.heads;
-      sm90_consumer<DP, BiasT>(p, qs, kv, full, empty, qfull, qempty, wg, q0,
-                               h, b, n_tiles, n * n_tiles, n & 1);
+      sm90_consumer<DP, KD, BiasT>(p, qs, kv, full, empty, qfull, qempty, wg,
+                                   q0, h, b, n_tiles, n * n_tiles, n & 1);
     }
   }
 }
@@ -2349,6 +2525,26 @@ cudaError_t encode_hmajor_map(CUtensorMap* map, Sm90Slot* slot,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The copy engine's map of the token-major bias (B or 1, H, L, L) bf16,
+// L = p.lq, batch stride p.st[kBias][0] (0: one plane that every batch row
+// reads, as batch 0): dimensions key, row, head, batch, boxes of 64 keys by
+// kSm90BlockQ rows in 128-byte swizzle (zeros past L)
+cudaError_t encode_bias_map(CUtensorMap* map, const Params& p, int B, int H) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t L = p.lq, bs = p.st[kBias][0];
+  const cuuint64_t dims[4] = {L, L, (cuuint64_t)H, bs ? (cuuint64_t)B : 1};
+  const cuuint64_t strides[3] = {L * 2, L * L * 2, (bs ? bs : H * L * L) * 2};
+  const cuuint32_t box[4] = {kSm90Box, kSm90BlockQ, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p.bias),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // a persistent grid of min(n_work, SMs) blocks
 cudaError_t persistent_blocks(long long n_work, int* blocks) {
   int device, n_sm;
@@ -2362,9 +2558,9 @@ cudaError_t persistent_blocks(long long n_work, int* blocks) {
   return cudaSuccess;
 }
 
-template <int DP, typename BiasT>
+template <int DP, int KD, typename BiasT>
 cudaError_t launch_sm90(const Params& p, int B, int H, cudaStream_t stream) {
-  CUtensorMap maps[3];
+  CUtensorMap maps[3], bmap = {};
   Sm90Slot slots[3];
   const int rows[3] = {p.lq, p.kend, p.kend};
   const int box_rows[3] = {kSm90BlockQ, kSm90BlockK, kSm90BlockK};
@@ -2374,9 +2570,11 @@ cudaError_t launch_sm90(const Params& p, int B, int H, cudaStream_t stream) {
         box_rows[o]);
     if (err != cudaSuccess) return err;
   }
-  auto kern = attention_fwd_sm90_kernel<DP, BiasT>;
-  const size_t smem = Sm90Smem<DP>::kBytes;
-  cudaError_t err = allow_smem(kern, smem);
+  cudaError_t err = cudaSuccess;
+  if constexpr (kBoxBias<BiasT>) err = encode_bias_map(&bmap, p, B, H);
+  auto kern = attention_fwd_sm90_kernel<DP, KD, BiasT>;
+  const size_t smem = Sm90Smem<DP, BiasT>::kBytes;
+  if (err == cudaSuccess) err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   // a persistent block an SM (the registers of all 384 threads fill it)
   const int n_qtiles = (p.lq + kSm90BlockQ - 1) / kSm90BlockQ;
@@ -2384,23 +2582,31 @@ cudaError_t launch_sm90(const Params& p, int B, int H, cudaStream_t stream) {
   int blocks;
   if ((err = persistent_blocks(n_work, &blocks)) != cudaSuccess) return err;
   kern<<<blocks, kSm90Threads, smem, stream>>>(
-      p, maps[kQ], maps[kK], maps[kV], slots[kQ], slots[kK], slots[kV],
+      p, maps[kQ], maps[kK], maps[kV], bmap, slots[kQ], slots[kK], slots[kV],
       n_qtiles, (int)n_work);
   return cudaGetLastError();
 }
 
+// D 64 and below on one 64-column box; above, two boxes, q . k^T stopping
+// at 96 where D allows and there is no bias
 template <typename BiasT>
 cudaError_t dispatch_sm90(const Params& p, int B, int H, cudaStream_t s) {
-  return p.d <= 64 ? launch_sm90<64, BiasT>(p, B, H, s)
-                   : launch_sm90<128, BiasT>(p, B, H, s);
+  if (p.d <= 64) return launch_sm90<64, 4, BiasT>(p, B, H, s);
+  if constexpr (!kHasBias<BiasT>) {
+    if (p.d <= 96) return launch_sm90<128, 6, BiasT>(p, B, H, s);
+  }
+  return launch_sm90<128, 8, BiasT>(p, B, H, s);
 }
 
 // The copy engine reads q, k and v, and the epilogue writes bf16 pairs:
 // bf16, D a multiple of 8 (16 bytes) up to 128, every stride of q, k and
 // v a positive multiple of 8 elements, their bases 16-byte aligned; the
-// output's strides even and its base 4-byte aligned.
-bool sm90_takes(const Params& p, int dtype) {
-  if (dtype != kBf16 || p.d < 8 || p.d > kMaxD || p.d % 8) return false;
+// output's strides even and its base 4-byte aligned; and the launch's
+// sizes: Lq, kend, B and H from 1, B and H below 65536.
+bool sm90_takes(const Params& p, int dtype, int B, int H) {
+  if (dtype != kBf16 || p.d < 8 || p.d > kMaxD || p.d % 8 || p.lq < 1 ||
+      p.kend < 1 || B < 1 || H < 1 || B > 65535 || H > 65535)
+    return false;
   for (int o = kQ; o <= kV; ++o) {
     if (reinterpret_cast<uintptr_t>(p.in[o]) % 16) return false;
     for (int j = 0; j < 3; ++j)
@@ -2413,13 +2619,27 @@ bool sm90_takes(const Params& p, int dtype) {
 
 cudaError_t run_sm90(const Params& p, int dtype, int bias_dtype, int B, int H,
                      cudaStream_t s) {
-  if (!sm90_takes(p, dtype) || p.lq < 1 || p.kend < 1 || B < 1 || H < 1 ||
-      B > 65535 || H > 65535)
-    return cudaErrorInvalidValue;
+  if (!sm90_takes(p, dtype, B, H)) return cudaErrorInvalidValue;
   if (!p.bias) return dispatch_sm90<NoBias>(p, B, H, s);
   if (bias_dtype == kBf16) return dispatch_sm90<__nv_bfloat16>(p, B, H, s);
   if (bias_dtype == kF32) return dispatch_sm90<float>(p, B, H, s);
   return cudaErrorInvalidValue;
+}
+
+// The token-major entry's: run_sm90's rule, and a bias (qkv's type, (B or
+// 1, H, L, L)) that the copy engine reads too: L and the batch stride
+// multiples of 8 elements, the base 16-byte aligned. At D <= 64 the bias
+// comes through the copy engine, above by the scalar
+// loads of the head-major entry (the stages would not fit).
+cudaError_t run_tmajor_sm90(const Params& p, int dtype, int B, int H,
+                            cudaStream_t s) {
+  if (!sm90_takes(p, dtype, B, H) ||
+      (p.bias && (p.lq % 8 || p.st[kBias][0] % 8 ||
+                  reinterpret_cast<uintptr_t>(p.bias) % 16)))
+    return cudaErrorInvalidValue;
+  if (p.bias && p.d <= 64)
+    return launch_sm90<64, 4, BoxBias>(p, B, H, s);
+  return run_sm90(p, dtype, dtype, B, H, s);
 }
 
 // The Params of the head-major entries (their arguments, described there)
@@ -2455,7 +2675,8 @@ Params hmajor_params(const void* q, const void* k, const void* v,
 // _bwd_dkv_kernel (:372) and _bwd_dq_kernel_nods / _bwd_dq_kernel (:451 /
 // :413) through vast_flash_attention_bwd_sm90. attention_bwd_dq_sm90_kernel
 // is the dQ half of all of them (with ds as dbias, delta and, on the
-// token-major entry, the lse), attention_bwd_dkv_sm90_kernel the dK/dV
+// token-major entry called without the forward's lse, the lse),
+// attention_bwd_dkv_sm90_kernel the dK/dV
 // half. The contract is the backward's ("Backward" above); fp32 and the
 // views the copy engine cannot read keep the mma.sync and CUDA-core bodies
 // through vast_tmajor_attention_bwd and vast_flash_attention_bwd.
@@ -2466,7 +2687,8 @@ Params hmajor_params(const void* q, const void* k, const void* v,
 // heads x 257^2 x 88) and AST's (8 x 12 x 257^2 x 64) are bound by bytes;
 // CLIP-L/14-336's (64 x 16 x 577^2 x 64) and the 640 x 4873 rerank shape by
 // operations. This body does seven products (eight with the token-major
-// entry's lse sweep): s and dp are formed in both kernels, so that neither
+// entry's lse sweep, when it is called without the forward's lse): s and
+// dp are formed in both kernels, so that neither
 // needs atomics and the gradients are deterministic.
 // What the design does about it: every product runs on wgmma with its
 // shared-memory operands read by the tensor cores as the copy engine laid
@@ -2483,9 +2705,11 @@ Params hmajor_params(const void* q, const void* k, const void* v,
 //   operands from shared memory (K-major); p = exp2(s scale log2e - lse
 //   log2e) and ds = p (dp - delta) are formed in registers, ds written as
 //   dbias where asked; dq += ds . k takes ds from registers and k MN-major
-//   (the transpose bit). The token-major entry first sweeps the key tiles
-//   once more (k alone) for the row max and sum, hence the lse, which it
-//   writes with delta for the dK/dV kernel.
+//   (the transpose bit). The token-major entry called without the
+//   forward's lse (lse_given 0) first sweeps the key tiles once more (k
+//   alone) for the row max and sum, hence the lse, which it writes with
+//   delta for the dK/dV kernel; with it, it reads it as the head-major
+//   entry does.
 // * dK/dV: a work tile is 2 x 64 keys: its k and v come once, query tiles of
 //   64 (q, do, and their 64 lse and 64 delta values through 1-D maps, on the
 //   same barrier; each box from a 16-byte boundary, kStatBox below) stream
@@ -2516,9 +2740,8 @@ Params hmajor_params(const void* q, const void* k, const void* v,
 // every path shape: ptxas serialized the wgmmas (C7520) and spilled in the
 // DP 128 dK/dV kernels.
 // Not here, later levers: one fused kernel with an atomic dq (five
-// products, not deterministic), the forward's lse for the token-major entry
-// (no sweep), owned tiles of 64 rows at L 257, overlapping a tile's
-// elementwise work with the last tile's products.
+// products, not deterministic), owned tiles of 64 rows at L 257,
+// overlapping a tile's elementwise work with the last tile's products.
 
 constexpr int kBwdSm90Owned = 64 * kSm90Consumers;  // rows a block owns
 constexpr int kBwdSm90Inner = 64;                   // rows of a streamed tile
@@ -3296,8 +3519,8 @@ cudaError_t run_bwd_sm90(const BwdParams& p, int dtype, int bias_dtype,
 // dqkv at the same offsets and strides
 BwdParams tmajor_bwd_params(const void* qkv, const void* o, const void* dout,
                             const void* bias, void* dqkv, void* dbias,
-                            float* lse, float* delta, int dtype, int B, int L,
-                            int H, int D, int kend,
+                            float* lse, float* delta, int lse_given,
+                            int dtype, int B, int L, int H, int D, int kend,
                             long long bias_batch_stride, float scale) {
   const long long es = dtype == kF32 ? 4 : 2, row3 = 3LL * H * D,
                   row1 = (long long)H * D;
@@ -3334,7 +3557,7 @@ BwdParams tmajor_bwd_params(const void* qkv, const void* o, const void* dout,
   p.D = D;
   p.kend = kend;
   p.scale = scale;
-  p.lse_given = false;
+  p.lse_given = lse_given != 0;
   return p;
 }
 
@@ -3375,20 +3598,37 @@ BwdParams hmajor_bwd_params(const void* q, const void* k, const void* v,
 
 // Token-major fused self-attention (self_attention_tmajor): qkv (B, L,
 // H*3*D), each head's [q|k|v] contiguous; out (B, L, H*D); bias (B or 1,
-// H, L, L) in qkv's type, batch stride 0 when shared.
+// H, L, L) in qkv's type, batch stride 0 when shared. ``lse`` (null: not
+// written) receives each row's logsumexp, (B, H, L) fp32 contiguous, as
+// the head-major entries write it (the backward reads it).
 extern "C" int vast_tmajor_attention_fwd(const void* qkv, const void* bias,
-                                         void* out, int dtype, int B, int L,
-                                         int H, int D, int kend,
+                                         void* out, float* lse, int dtype,
+                                         int B, int L, int H, int D, int kend,
                                          long long bias_batch_stride,
                                          float scale, void* stream) {
   if (kend > L || (dtype != kF32 && dtype != kBf16))
     return (int)cudaErrorInvalidValue;
-  Params p = tmajor_params(qkv, out, dtype, L, H, D, kend, scale, 3LL * D, D);
-  p.st[kBias][0] = bias_batch_stride;
-  p.st[kBias][1] = (long long)L * L;
-  p.st[kBias][2] = L;
-  p.bias = bias;
-  return (int)run(p, dtype, dtype, B, H, static_cast<cudaStream_t>(stream));
+  return (int)run(tmajor_fwd_params(qkv, bias, out, lse, dtype, L, H, D, kend,
+                                    bias_batch_stride, scale),
+                  dtype, dtype, B, H, static_cast<cudaStream_t>(stream));
+}
+
+// The same function, the same arguments, on the Hopper body (wgmma and the
+// copy engine; see "The forward for Hopper" above). Returns
+// cudaErrorInvalidValue, and launches nothing, for operands that body does
+// not take (run_tmajor_sm90): any dtype but bf16, D not a multiple of 8 or
+// above 128, qkv not 16-byte aligned, a bias whose L or batch stride is not
+// a multiple of 8 elements or whose base is not 16-byte aligned;
+// cudaErrorNotSupported where CUDA offers no tensor maps.
+extern "C" int vast_tmajor_attention_fwd_sm90(
+    const void* qkv, const void* bias, void* out, float* lse, int dtype,
+    int B, int L, int H, int D, int kend, long long bias_batch_stride,
+    float scale, void* stream) {
+  if (kend > L) return (int)cudaErrorInvalidValue;
+  return (int)run_tmajor_sm90(
+      tmajor_fwd_params(qkv, bias, out, lse, dtype, L, H, D, kend,
+                        bias_batch_stride, scale),
+      dtype, B, H, static_cast<cudaStream_t>(stream));
 }
 
 // The token-major layout probe (scripts/bench_tmajor_variants.py), its two
@@ -3419,7 +3659,8 @@ extern "C" int vast_tmajor_dma_attention_fwd(const void* qkv, void* out,
 
 // Row 11, _sect_kernel (:118): the section-major layout [Q_all | K_all |
 // V_all], head i's q at i*D, k at H*D + i*D, v at 2*H*D + i*D, read by the
-// strided forward of rows 1, 2, 5 and 6 at those offsets. Its own entry,
+// strided mma.sync / CUDA-core forward (rows 1, 2, 5 and 6's body for
+// operands the copy engine cannot read) at those offsets. Its own entry,
 // so that its launches count apart.
 extern "C" int vast_tmajor_sect_attention_fwd(const void* qkv, void* out,
                                               int dtype, int B, int L, int H,
@@ -3451,7 +3692,7 @@ extern "C" int vast_flash_attention_fwd(const void* q, const void* k,
 }
 
 // The same function, the same arguments, on the Hopper body (wgmma and the
-// copy engine; see "The head-major forward for Hopper" above). Returns
+// copy engine; see "The forward for Hopper" above). Returns
 // cudaErrorInvalidValue, and launches nothing, for operands that body does
 // not take: any dtype but bf16, D not a multiple of 8 or above 128, a
 // stride of q, k or v that is 0 or not a multiple of 8 elements, a base of
@@ -3472,24 +3713,28 @@ extern "C" int vast_flash_attention_fwd_sm90(
 // qkv, o (the forward's output) and dout (its cotangent), all (B, L, ...)
 // as above, writes dqkv in qkv's fused per-head [dq | dk | dv] layout and
 // type and, with a bias, dbias = ds, (B, H, L, L) in the bias's type
-// (qkv's). lse and delta are (B, H, L) fp32 scratch. Keys >= kend are
-// masked and get dk = dv = 0; dbias is not written past the last key tile
-// that holds a key < kend (tiles of 32 keys here, of 64 on the Hopper
-// body), so the caller zero-fills it when kend < L. Two launches (dQ, then dK/dV);
-// returns the first error.
+// (qkv's). lse is (B, H, L) fp32: the forward's, read, where lse_given
+// is non-zero; else scratch, written by the dQ kernel after a sweep of the
+// keys for each row's max and sum. delta is (B, H, L) fp32 scratch. Keys
+// >= kend are masked and get dk = dv = 0; dbias is not written past the
+// last key tile that holds a key < kend (tiles of 32 keys here, of 64 on
+// the Hopper body), so the caller zero-fills it when kend < L. Two
+// launches (dQ, then dK/dV); returns the first error.
 extern "C" int vast_tmajor_attention_bwd(const void* qkv, const void* o,
                                          const void* dout, const void* bias,
                                          void* dqkv, void* dbias, float* lse,
-                                         float* delta, int dtype, int B,
-                                         int L, int H, int D, int kend,
+                                         float* delta, int lse_given,
+                                         int dtype, int B, int L, int H,
+                                         int D, int kend,
                                          long long bias_batch_stride,
                                          float scale, void* stream) {
   if ((bias == nullptr) != (dbias == nullptr) ||
       (dtype != kF32 && dtype != kBf16))
     return (int)cudaErrorInvalidValue;
   return (int)run_bwd(
-      tmajor_bwd_params(qkv, o, dout, bias, dqkv, dbias, lse, delta, dtype,
-                        B, L, H, D, kend, bias_batch_stride, scale),
+      tmajor_bwd_params(qkv, o, dout, bias, dqkv, dbias, lse, delta,
+                        lse_given, dtype, B, L, H, D, kend, bias_batch_stride,
+                        scale),
       dtype, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -3502,14 +3747,15 @@ extern "C" int vast_tmajor_attention_bwd(const void* qkv, const void* o,
 // cudaErrorNotSupported where the driver has no tensor maps.
 extern "C" int vast_tmajor_attention_bwd_sm90(
     const void* qkv, const void* o, const void* dout, const void* bias,
-    void* dqkv, void* dbias, float* lse, float* delta, int dtype, int B,
-    int L, int H, int D, int kend, long long bias_batch_stride, float scale,
-    void* stream) {
+    void* dqkv, void* dbias, float* lse, float* delta, int lse_given,
+    int dtype, int B, int L, int H, int D, int kend,
+    long long bias_batch_stride, float scale, void* stream) {
   if ((bias == nullptr) != (dbias == nullptr) || dtype != kBf16)
     return (int)cudaErrorInvalidValue;
   return (int)run_bwd_sm90(
-      tmajor_bwd_params(qkv, o, dout, bias, dqkv, dbias, lse, delta, dtype,
-                        B, L, H, D, kend, bias_batch_stride, scale),
+      tmajor_bwd_params(qkv, o, dout, bias, dqkv, dbias, lse, delta,
+                        lse_given, dtype, B, L, H, D, kend, bias_batch_stride,
+                        scale),
       dtype, dtype, static_cast<cudaStream_t>(stream));
 }
 

@@ -5,10 +5,14 @@ from ``csrc/flash_attention.cu``:
 
 * :func:`self_attention_tmajor` (token-major fused qkv, with and without
   a score bias) replaces the Pallas kernels ``_tmajor_fwd_kernel``
-  (flash_attention.py:762) and ``_tmajor_fwd_kernel_bias`` (:789); it is
-  differentiable, its gradient being
+  (flash_attention.py:762) and ``_tmajor_fwd_kernel_bias`` (:789), in
+  bf16 through the Hopper body (wgmma fed by the copy engine) wherever
+  the copy engine can read qkv and the bias (:func:`_sm90_ok`); it is
+  differentiable, writing the lse while autograd records, its gradient
+  being
 * :func:`self_attention_tmajor_bwd`, which replaces
-  ``_tmajor_bwd_kernel`` (:795) and ``_tmajor_bwd_kernel_bias`` (:841);
+  ``_tmajor_bwd_kernel`` (:795) and ``_tmajor_bwd_kernel_bias`` (:841)
+  and reads the forward's lse where it is given;
 * :func:`flash_attention` (head-major q, k, v) replaces the forward
   kernels of ``flash_attention`` (:156): ``_single_kernel_nolse`` (:87)
   and ``_looped_kernel_nolse`` (:137) without a gradient to record,
@@ -50,7 +54,11 @@ import torch
 
 # kernel launches by variant; tests and chip_smoke.py reset and read them
 LAUNCHES = {"tmajor_attention_fwd": 0, "tmajor_attention_fwd_bias": 0,
+            # of those two, the launches of the Hopper body (wgmma + TMA)
+            "tmajor_attention_fwd_sm90": 0,
             "tmajor_attention_bwd": 0, "tmajor_attention_bwd_bias": 0,
+            # of those two, the launches given the forward's lse
+            "tmajor_attention_bwd_lse": 0,
             "flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
             # of those two, the launches of the Hopper body (wgmma + TMA)
             "flash_attention_fwd_sm90": 0,
@@ -72,9 +80,9 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _tmajor_probs_plain(qkv, bias, heads, lk_true, scale):
-    """q, k, v (B, H, L, D) of a fused token-major qkv and the softmax p
-    (B, H, L, L) of the scaled, biased and masked scores, in fp32."""
+def _tmajor_scores_plain(qkv, bias, heads, lk_true, scale):
+    """q, k, v (B, H, L, D) of a fused token-major qkv and the scaled,
+    biased and masked scores s (B, H, L, L), in fp32."""
     b, l, total = qkv.shape
     d = total // (3 * heads)
     x = qkv.float().view(b, l, heads, 3, d).permute(3, 0, 2, 1, 4)
@@ -84,17 +92,38 @@ def _tmajor_probs_plain(qkv, bias, heads, lk_true, scale):
         s = s + bias.float()
     if lk_true:
         s[..., lk_true:] = float("-inf")
-    return q, k, v, torch.softmax(s, dim=-1)
+    return q, k, v, s
+
+
+def _lse_plain(s):
+    """Each row's logsumexp of the scores s, (..., L) fp32; +inf for a row
+    with no finite score (as the kernels write it)."""
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(torch.isneginf(lse), float("inf"), lse)
+
+
+def _tmajor_probs_plain(qkv, bias, heads, lk_true, scale, lse=None):
+    """q, k, v (B, H, L, D) of a fused token-major qkv and the softmax p
+    (B, H, L, L) of the scaled, biased and masked scores, in fp32: p =
+    exp(s - lse) from a given ``lse`` (B, H, L), as the backward reads
+    the forward's."""
+    q, k, v, s = _tmajor_scores_plain(qkv, bias, heads, lk_true, scale)
+    if lse is None:
+        return q, k, v, torch.softmax(s, dim=-1)
+    return q, k, v, torch.exp(s - lse.float()[..., None])
 
 
 def _self_attention_tmajor_plain(qkv, bias=None, *, heads: int,
-                                 lk_true: int = 0, scale: float = 1.0):
+                                 lk_true: int = 0, scale: float = 1.0,
+                                 return_lse: bool = False):
     """The same function in plain PyTorch, computed in fp32 from the
-    inputs; returns the input dtype."""
+    inputs; returns the input dtype, and with ``return_lse`` also the lse
+    (B, H, L) fp32."""
     b, l, total = qkv.shape
-    _, _, v, p = _tmajor_probs_plain(qkv, bias, heads, lk_true, scale)
-    o = torch.matmul(p, v)                              # (B, H, L, D)
-    return o.transpose(1, 2).reshape(b, l, total // 3).to(qkv.dtype)
+    _, _, v, s = _tmajor_scores_plain(qkv, bias, heads, lk_true, scale)
+    o = torch.matmul(torch.softmax(s, dim=-1), v)       # (B, H, L, D)
+    o = o.transpose(1, 2).reshape(b, l, total // 3).to(qkv.dtype)
+    return (o, _lse_plain(s)) if return_lse else o
 
 
 def _check(qkv, bias, heads, lk_true):
@@ -134,62 +163,102 @@ def self_attention_tmajor(qkv, bias=None, *, heads: int, lk_true: int = 0,
     The counterpart of vast_tpu's ``_tmajor_call`` / ``_tmajor_biased_call``
     custom VJPs (ops/attention.py:153-228): one ``torch.library`` op,
     ``vast::tmajor_attention`` (``TMAJOR_OP``), so that a selective
-    checkpoint policy can name it (models/remat.py). Its backward is
-    :func:`self_attention_tmajor_bwd` from the saved (qkv, bias, output)
-    alone, softmax and delta recomputed. On CUDA the forward and backward
+    checkpoint policy can name it (models/remat.py). Without a gradient
+    to record it runs the forward alone; with one, the forward that also
+    writes the lse (B, H, L), which the op saves with its output, and its
+    backward is :func:`self_attention_tmajor_bwd` from the saved (qkv,
+    bias, output, lse), p = exp(s - lse) and delta recomputed (vast_tpu
+    recomputes the row statistics too). On CUDA the forward and backward
     kernels run, whatever needs a gradient; there is no other route.
     """
     _check(qkv, bias, heads, lk_true)
-    return TMAJOR_OP(qkv, bias, heads, lk_true, float(scale))
+    need_lse = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (qkv, bias))
+    return TMAJOR_OP(qkv, bias, heads, lk_true, float(scale), need_lse)[0]
+
+
+def _tmajor_fwd_launch(symbol, qkv, bias, heads, lk_true, scale, need_lse):
+    """One launch of the token-major forward entry ``symbol``
+    (``vast_tmajor_attention_fwd`` or ``..._sm90``) on checked CUDA
+    operands: (out, lse), the lse empty unless ``need_lse``. Raises if the
+    entry refuses the operands or the launch fails. Counts nothing: the
+    op counts its launches."""
+    b, l, total = qkv.shape
+    d = total // (3 * heads)
+    out = torch.empty((b, l, heads * d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, heads, l) if need_lse else (0,),
+                      dtype=torch.float32, device=qkv.device)
+    bias_stride = 0 if bias is None or bias.shape[0] == 1 else bias.stride(0)
+    with torch.cuda.device(qkv.device):
+        err = _kernel(symbol)(
+            _ptr(qkv), _ptr(bias), _ptr(out), _ptr(lse if need_lse else None),
+            _DTYPE_CODES[qkv.dtype], b, l, heads, d, lk_true or l,
+            bias_stride, float(scale), _stream())
+    if err:
+        raise RuntimeError(f"tmajor attention kernel launch failed "
+                           f"({symbol}): CUDA error {err}")
+    return out, lse
 
 
 @torch.library.custom_op(
     "vast::tmajor_attention", mutates_args=(),
-    schema="(Tensor qkv, Tensor? bias, int heads, int lk_true, float scale)"
-           " -> Tensor")
-def _tmajor_attention(qkv, bias, heads, lk_true, scale):
-    """The forward on checked operands: the plain version on the CPU, the
-    kernel on CUDA."""
-    b, l, total = qkv.shape
-    d = total // (3 * heads)
+    schema="(Tensor qkv, Tensor? bias, int heads, int lk_true, float scale, "
+           "bool need_lse) -> (Tensor, Tensor)")
+def _tmajor_attention(qkv, bias, heads, lk_true, scale, need_lse):
+    """The forward on checked operands: the plain version on the CPU, a
+    kernel on CUDA. The lse is empty unless ``need_lse``. bf16 operands
+    that the copy engine can read (:func:`_sm90_ok` of qkv and the bias)
+    take the Hopper body, the rest (fp32, D not a multiple of 8, a bias
+    whose rows are not 16-byte multiples) the mma.sync / CUDA-core
+    bodies; decided before the launch, and a failed launch raises:
+    neither falls back to the other."""
     if qkv.device.type == "cpu":
-        return _self_attention_tmajor_plain(qkv, bias, heads=heads,
-                                            lk_true=lk_true, scale=scale)
+        if need_lse:
+            return _self_attention_tmajor_plain(
+                qkv, bias, heads=heads, lk_true=lk_true, scale=scale,
+                return_lse=True)
+        return (_self_attention_tmajor_plain(qkv, bias, heads=heads,
+                                             lk_true=lk_true, scale=scale),
+                qkv.new_empty(0, dtype=torch.float32))
     _check_cuda_operands(qkv, bias)
-    out = torch.empty((b, l, heads * d), dtype=qkv.dtype, device=qkv.device)
-    bias_stride = 0 if bias is None or bias.shape[0] == 1 else bias.stride(0)
-    with torch.cuda.device(qkv.device):
-        err = _kernel("vast_tmajor_attention_fwd")(
-            _ptr(qkv), _ptr(bias), _ptr(out), _DTYPE_CODES[qkv.dtype],
-            b, l, heads, d, lk_true or l, bias_stride, float(scale),
-            _stream())
-    if err:
-        raise RuntimeError(f"tmajor attention kernel launch failed: CUDA "
-                           f"error {err}")
+    d = qkv.shape[2] // (3 * heads)
+    sm90 = _sm90_ok(d, qkv) if bias is None else _sm90_ok(d, qkv, bias)
+    out, lse = _tmajor_fwd_launch(
+        "vast_tmajor_attention_fwd_sm90" if sm90 else
+        "vast_tmajor_attention_fwd", qkv, bias, heads, lk_true, scale,
+        need_lse)
     LAUNCHES["tmajor_attention_fwd" if bias is None
              else "tmajor_attention_fwd_bias"] += 1
-    return out
+    if sm90:
+        LAUNCHES["tmajor_attention_fwd_sm90"] += 1
+    return out, lse
 
 
 @_tmajor_attention.register_fake
-def _(qkv, bias, heads, lk_true, scale):
+def _(qkv, bias, heads, lk_true, scale, need_lse):
     b, l, total = qkv.shape
-    return qkv.new_empty((b, l, total // 3))
+    return (qkv.new_empty((b, l, total // 3)),
+            qkv.new_empty((b, heads, l) if need_lse else (0,),
+                          dtype=torch.float32))
 
 
 def _tmajor_setup(ctx, inputs, output):
-    qkv, bias, heads, lk_true, scale = inputs
-    ctx.save_for_backward(qkv, bias, output)
+    qkv, bias, heads, lk_true, scale, _ = inputs
+    o, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(qkv, bias, o, lse)
     ctx.args = dict(heads=heads, lk_true=lk_true, scale=scale)
 
 
-def _tmajor_backward(ctx, grad):
-    qkv, bias, out = ctx.saved_tensors
+def _tmajor_backward(ctx, grad, _):
+    qkv, bias, out, lse = ctx.saved_tensors
     grad = grad.to(qkv.dtype).contiguous()
-    res = self_attention_tmajor_bwd(qkv, out, grad, bias, **ctx.args)
+    res = self_attention_tmajor_bwd(qkv, out, grad, bias,
+                                    lse=lse if lse.numel() else None,
+                                    **ctx.args)
     if bias is None:
-        return res, None, None, None, None
-    return res[0], res[1], None, None, None
+        return res, None, None, None, None, None
+    return res[0], res[1], None, None, None, None
 
 
 _tmajor_attention.register_autograd(_tmajor_backward,
@@ -212,13 +281,14 @@ def _check_cuda_operands(qkv, bias, *others):
             raise ValueError("bias must be contiguous")
 
 
-def _tmajor_bwd_parts_plain(qkv, o, do, bias, heads, lk_true, scale):
-    """q, k, p (B, H, L, ·) as :func:`_tmajor_probs_plain`, the cotangent
-    do (B, H, L, D) and ds = p (do . v^T - delta), delta = rowsum(do . o),
-    in fp32."""
+def _tmajor_bwd_parts_plain(qkv, o, do, bias, heads, lk_true, scale,
+                            lse=None):
+    """q, k, p (B, H, L, ·) as :func:`_tmajor_probs_plain` (from ``lse``
+    where given), the cotangent do (B, H, L, D) and ds = p (do . v^T -
+    delta), delta = rowsum(do . o), in fp32."""
     b, l, total = qkv.shape
     d = total // (3 * heads)
-    q, k, v, p = _tmajor_probs_plain(qkv, bias, heads, lk_true, scale)
+    q, k, v, p = _tmajor_probs_plain(qkv, bias, heads, lk_true, scale, lse)
     of = o.float().view(b, l, heads, d).transpose(1, 2)
     dof = do.float().view(b, l, heads, d).transpose(1, 2)
     delta = (dof * of).sum(dim=-1, keepdim=True)
@@ -227,16 +297,18 @@ def _tmajor_bwd_parts_plain(qkv, o, do, bias, heads, lk_true, scale):
 
 
 def _self_attention_tmajor_bwd_plain(qkv, o, do, bias=None, *, heads: int,
-                                     lk_true: int = 0, scale: float = 1.0):
+                                     lk_true: int = 0, scale: float = 1.0,
+                                     lse=None):
     """The gradient in plain PyTorch, in fp32 from the inputs, as the
-    Pallas kernel writes it (flash_attention.py:806-838): softmax and
-    delta recomputed, ds the cotangent of the score before the scale.
-    Returns dqkv in qkv's dtype and, with a bias, (dqkv, dbias), dbias in
-    the bias's shape and dtype (summed over the batch for a shared bias).
+    Pallas kernel writes it (flash_attention.py:806-838): softmax (or p =
+    exp(s - lse) from a given forward's ``lse``) and delta recomputed, ds
+    the cotangent of the score before the scale. Returns dqkv in qkv's
+    dtype and, with a bias, (dqkv, dbias), dbias in the bias's shape and
+    dtype (summed over the batch for a shared bias).
     """
     b, l, total = qkv.shape
     q, k, p, dof, ds = _tmajor_bwd_parts_plain(qkv, o, do, bias, heads,
-                                               lk_true, scale)
+                                               lk_true, scale, lse)
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
@@ -268,12 +340,16 @@ def _self_attention_tmajor_bwd_abs_terms(qkv, o, do, bias=None, *,
 
 
 def self_attention_tmajor_bwd(qkv, o, do, bias=None, *, heads: int,
-                              lk_true: int = 0, scale: float = 1.0):
+                              lk_true: int = 0, scale: float = 1.0,
+                              lse=None):
     """Gradient of :func:`self_attention_tmajor` w.r.t. qkv (and the bias).
 
     qkv and the bias as the forward took them, ``o`` its output and
-    ``do`` the output's cotangent, (B, L, H*D) in qkv's dtype. Softmax and
-    delta = rowsum(do . o) are recomputed from these. Returns dqkv in
+    ``do`` the output's cotangent, (B, L, H*D) in qkv's dtype; ``lse``
+    the forward's (B, H, L) fp32, or None. delta = rowsum(do . o) is
+    recomputed, and p = exp(s - lse) from the given lse; without one the
+    row statistics are recomputed too (the dQ kernel sweeps the keys once
+    more for them, as vast_tpu's backward does). Returns dqkv in
     qkv's fused per-head [dq | dk | dv] layout and dtype; with a bias,
     (dqkv, dbias), where dbias is the raw per-score cotangent ds in the
     bias's shape and dtype (summed over the batch for a (1, H, L, L)
@@ -287,21 +363,31 @@ def self_attention_tmajor_bwd(qkv, o, do, bias=None, *, heads: int,
             raise ValueError(f"{name} must be {(b, l, heads * d)} "
                              f"{qkv.dtype} on {qkv.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if lse is not None and (tuple(lse.shape) != (b, heads, l)
+                            or lse.device != qkv.device):
+        raise ValueError(f"lse must be {(b, heads, l)} on {qkv.device}, got "
+                         f"{tuple(lse.shape)} on {lse.device}")
     if qkv.device.type == "cpu":
         return _self_attention_tmajor_bwd_plain(
-            qkv, o, do, bias, heads=heads, lk_true=lk_true, scale=scale)
+            qkv, o, do, bias, heads=heads, lk_true=lk_true, scale=scale,
+            lse=lse)
     _check_cuda_operands(qkv, bias, ("o", o), ("do", do))
+    if lse is not None and lse.dtype != torch.float32:
+        raise TypeError(f"the kernels read an fp32 lse, got {lse.dtype}")
     # decided before the launch; a refused or failed launch raises
     # (q, k and v lie D apart in qkv's rows, 3D a head: the copy engine
     # reads them wherever it reads qkv)
     sm90 = _sm90_ok(d, qkv, o, do)
     dqkv, dbias = _tmajor_bwd_launch(
         "vast_tmajor_attention_bwd_sm90" if sm90 else
-        "vast_tmajor_attention_bwd", qkv, o, do, bias, heads, lk_true, scale)
+        "vast_tmajor_attention_bwd", qkv, o, do, bias, heads, lk_true, scale,
+        lse)
     LAUNCHES["tmajor_attention_bwd" if bias is None
              else "tmajor_attention_bwd_bias"] += 1
     if sm90:
         LAUNCHES["tmajor_attention_bwd_sm90"] += 1
+    if lse is not None:
+        LAUNCHES["tmajor_attention_bwd_lse"] += 1
     if bias is None:
         return dqkv
     if bias.shape[0] == 1 and b != 1:
@@ -309,12 +395,14 @@ def self_attention_tmajor_bwd(qkv, o, do, bias=None, *, heads: int,
     return dqkv, dbias
 
 
-def _tmajor_bwd_launch(symbol, qkv, o, do, bias, heads, lk_true, scale):
+def _tmajor_bwd_launch(symbol, qkv, o, do, bias, heads, lk_true, scale,
+                       lse=None):
     """One launch of the token-major backward entry ``symbol``
     (``vast_tmajor_attention_bwd`` or ``..._sm90``) on checked CUDA
-    operands: (dqkv, dbias), dbias (B, H, L, L) unreduced, None without a
-    bias. Raises if the entry refuses the operands or the launch fails.
-    Counts nothing: the wrapper counts its launches."""
+    operands, given the forward's ``lse`` or (None) sweeping for it:
+    (dqkv, dbias), dbias (B, H, L, L) unreduced, None without a bias.
+    Raises if the entry refuses the operands or the launch fails. Counts
+    nothing: the wrapper counts its launches."""
     b, l, total = qkv.shape
     d = total // (3 * heads)
     dev = qkv.device
@@ -324,14 +412,21 @@ def _tmajor_bwd_launch(symbol, qkv, o, do, bias, heads, lk_true, scale):
         # keys past lk_true's last tile are not written by the kernel
         alloc = torch.zeros if 0 < lk_true < l else torch.empty
         dbias = alloc((b, heads, l, l), dtype=bias.dtype, device=dev)
-    lse = torch.empty((b, heads, l), dtype=torch.float32, device=dev)
-    delta = torch.empty_like(lse)
+    given = lse is not None
+    if not given:                     # scratch, written by the dQ kernel
+        lse = torch.empty((b, heads, l), dtype=torch.float32, device=dev)
+    else:
+        lse = lse.contiguous()
+        if lse.data_ptr() % 16:
+            lse = lse.clone()          # the copy engine reads it from 16 B
+    delta = torch.empty((b, heads, l), dtype=torch.float32, device=dev)
     bias_stride = 0 if bias is None or bias.shape[0] == 1 else bias.stride(0)
     with torch.cuda.device(dev):
         err = _kernel(symbol)(
             _ptr(qkv), _ptr(o), _ptr(do), _ptr(bias), _ptr(dqkv),
-            _ptr(dbias), _ptr(lse), _ptr(delta), _DTYPE_CODES[qkv.dtype], b,
-            l, heads, d, lk_true or l, bias_stride, float(scale), _stream())
+            _ptr(dbias), _ptr(lse), _ptr(delta), int(given),
+            _DTYPE_CODES[qkv.dtype], b, l, heads, d, lk_true or l,
+            bias_stride, float(scale), _stream())
     if err:
         raise RuntimeError(f"tmajor attention backward launch failed "
                            f"({symbol}): CUDA error {err}")
@@ -499,8 +594,9 @@ def flash_attention(q, k, v, bias=None, *, scale: float = 1.0,
 
 def _sm90_ok(d, *tensors):
     """Whether the Hopper bodies (wgmma, every tile brought by the copy
-    engine) take these operands of head width ``d``: the forward's q, k
-    and v, the head-major backward's q, k, v, o and do, or the token-major
+    engine) take these operands of head width ``d``: the head-major
+    forward's q, k and v, the token-major forward's qkv (and bias), the
+    head-major backward's q, k, v, o and do, or the token-major
     backward's qkv, o and do. bf16, d a multiple of 8 up to 128, every
     stride but the last (contiguous) a non-zero multiple of 8 elements (16
     bytes), every base 16-byte aligned. The outputs, laid out as their
@@ -722,19 +818,22 @@ _PROBE_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
 # scale, stream: both head-major forward entries
 _HMAJOR_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
-# qkv, o, dout, bias, dqkv, dbias, lse, delta, dtype, B, L, H, D, kend,
-# bias_batch_stride, scale, stream: both token-major backward entries
-_TMAJOR_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+# qkv, bias, out, lse, dtype, B, L, H, D, kend, bias_batch_stride, scale,
+# stream: both token-major forward entries
+_TMAJOR_FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+# qkv, o, dout, bias, dqkv, dbias, lse, delta, lse_given, dtype, B, L, H,
+# D, kend, bias_batch_stride, scale, stream: both token-major backward
+# entries
+_TMAJOR_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
 # q, k, v, o, dout, bias, dq, dk, dv, dbias, lse, delta, dtype, B, H, Lq,
 # Lk, D, kend, strides, scale, stream: both head-major backward entries
 _HMAJOR_BWD_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
 _ARGTYPES = {
-    "vast_tmajor_attention_fwd": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p],
+    "vast_tmajor_attention_fwd": _TMAJOR_FWD_ARGS,
+    "vast_tmajor_attention_fwd_sm90": _TMAJOR_FWD_ARGS,
     "vast_tmajor_attention_bwd": _TMAJOR_BWD_ARGS,
     "vast_tmajor_attention_bwd_sm90": _TMAJOR_BWD_ARGS,
     "vast_flash_attention_fwd": _HMAJOR_FWD_ARGS,

@@ -91,8 +91,10 @@ def entry_call(torch, fa, fn, shape, ops):
         outs = (torch.empty_like(qkv),
                 None if bias is None else torch.empty_like(bias))
         stat = [torch.empty(b, h, l, device="cuda") for _ in range(2)]
+        # lse_given 0 (the lse is scratch), where the entry takes it
+        given = [0] * (len(fn.argtypes) - 17)
         args = [fa._ptr(t) for t in (qkv, o, do, bias, *outs, *stat)] + [
-            fa._DTYPE_CODES[qkv.dtype], b, l, h, d, l,
+            *given, fa._DTYPE_CODES[qkv.dtype], b, l, h, d, l,
             0 if bias is None else bias.stride(0), float(scale),
             fa._stream()]
     else:

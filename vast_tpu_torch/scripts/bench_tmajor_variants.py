@@ -6,13 +6,15 @@ the same data at EVA01-g's flagship attention (B 256 = 32 clips x 8
 frames, Lp 272, H 16, D 88, bf16, keys masked past 257, scale 1):
 
   cur    - the fused per-head [q|k|v] layout through the token-major
-           forward (``ops.flash_attention.self_attention_tmajor``):
-           threads copy each head's strips with cp.async.
-  sect   - the section-major layout [Q_all | K_all | V_all]: the same
-           kernel body at other offsets (:func:`attention_sect`).
-  dma    - the fused layout, each head's strips brought into shared memory
-           by the copy engine (TMA) onto an mbarrier
-           (:func:`attention_dma`).
+           forward (``ops.flash_attention.self_attention_tmajor``): in
+           bf16 its Hopper body, wgmma fed by the copy engine through
+           tensor maps over each head's strips.
+  sect   - the section-major layout [Q_all | K_all | V_all]: the
+           mma.sync body (threads' cp.async) at other offsets
+           (:func:`attention_sect`).
+  dma    - the fused layout, the mma.sync body with each head's strips
+           brought into shared memory by the copy engine (TMA) onto an
+           mbarrier (:func:`attention_dma`).
   pad128 - the fused layout zero-padded to D 128 through cur's op (the
            TPU's head packing has no counterpart: the kernel reads any
            D <= 128).
@@ -140,8 +142,9 @@ def attention_sect(qkv, *, heads: int, lk_true: int = 0):
 
     The counterpart of the JAX script's ``attention_sect`` (:130,
     ``_sect_kernel`` :118): on CUDA the kernel
-    ``vast_tmajor_sect_attention_fwd``, the strided forward of
-    ``self_attention_tmajor`` at those offsets; on the CPU the plain
+    ``vast_tmajor_sect_attention_fwd``, the strided mma.sync forward
+    (``self_attention_tmajor``'s body for views the copy engine cannot
+    read) at those offsets; on the CPU the plain
     version. No autograd, as :func:`attention_dma`.
     """
     return _launch("vast_tmajor_sect_attention_fwd", "attention_sect", qkv,
