@@ -90,13 +90,20 @@ exits non-zero with no result line:
               (``vast_tpu_torch.scripts.bench_tmajor_variants``) at its full
               shape (B 256, Lp 272, H 16, D 88, lk_true 257, bf16): its
               ``run`` with the counters zeroed (exactly one launch per call
-              of each variant's wrapper, cur's and pad128's backwards on
+              of each variant's wrapper; every bf16 dma and sect call on
+              its Hopper body, attention_fwd_strip_sm90_kernel and
+              attention_fwd_sm90_kernel; cur's and pad128's backwards on
               the Hopper backward), each variant's fwd and fwd+bwd
               times, bound and SDPA time; cur, dma and sect in turns at its
-              shape and at EVA's slice shape, with the profiler's device
-              times; then the two kernels of its own (attention_dma
-              through the copy engine, attention_sect) in bf16 and fp32
-              against their plain versions and against cur.
+              shape, at EVA's slice shape and at the two between them (and
+              cur, sect as four launches of 64 batch rows), with the
+              profiler's device times, SDPA's and the bound's share;
+              strip_turns: the
+              resident strip against attention_fwd_tma_kernel (mma.sync
+              fed by the copy engine, its C entry called as a yardstick)
+              in turns at both shapes; then the two kernels of its own
+              (attention_dma, attention_sect) in bf16 and fp32 against
+              their plain versions and against cur, with device times.
 12. hmajor_turns - the head-major forward's two bf16 bodies in turns
               (sm90, mma, mma, sm90; the mma.sync body's C entry called
               directly, a yardstick only) at CLIP 577^2, AST 257^2, the
@@ -256,10 +263,10 @@ BODIES = {
     "hmajor": "attention_fwd_sm90_kernel (wgmma, copy engine)",
     "tmajor_bwd": "attention_bwd_dq_sm90_kernel + "
                   "attention_bwd_dkv_sm90_kernel (wgmma, copy engine)",
-    "probe": {"attention_dma": "attention_fwd_tma_kernel (mma.sync, copy "
-                               "engine)",
-              "attention_sect": "attention_fwd_mma_kernel (mma.sync, "
-                                "cp.async)"},
+    "probe": {"attention_dma": "attention_fwd_strip_sm90_kernel (wgmma, "
+                               "copy engine, K/V resident)",
+              "attention_sect": "attention_fwd_sm90_kernel (wgmma, copy "
+                                "engine)"},
 }
 BODIES["hmajor_bwd"] = BODIES["tmajor_bwd"]
 
@@ -461,10 +468,10 @@ def fwd_kernel_row(torch, spec, dtype, gen, case=None):
     from vast_tpu_torch.ops import flash_attention as fa
 
     case = case or fwd_case(torch, spec, dtype, gen)
-    # the Hopper body's counter of the row's op (the probe's kernels have
-    # none)
+    # the Hopper body's counter of the row's op
     sm90_key = {"hmajor": "flash_attention_fwd_sm90",
-                "tmajor": "tmajor_attention_fwd_sm90"}.get(spec["layout"])
+                "tmajor": "tmajor_attention_fwd_sm90",
+                "probe": spec["name"] + "_sm90"}.get(spec["layout"])
     sm90_before = fa.LAUNCHES.get(sm90_key, 0)
     out = case["run"]()
     torch.cuda.synchronize()
@@ -994,16 +1001,41 @@ def probe_case(torch, spec, inputs, dtype):
         as_out=lambda o: o.transpose(1, 2).reshape(b, lq, h * d))
 
 
-def probe_turns(torch, tv, inputs, heads, lk):
+def probe_bound(torch, device_name, q, k, v, kend):
+    """The bound of one forward over (B, H, L, D) views, keys masked from
+    ``kend``: q and k's and v's first kend keys read, the output written,
+    4 B H L kend D operations."""
+    b, h, l, d = q.shape
+    return bound(torch, device_name,
+                 qkv_bytes(q, k, v, kend) + b * l * h * d * 2,
+                 4.0 * b * h * l * kend * d, torch.bfloat16)
+
+
+def probe_turns(torch, tv, inputs, heads, lk, device_name):
     """The layouts' forwards in turns (cur, dma, sect, sect, dma, cur,
-    cur, dma, sect; each :func:`time_ms`) at the probe's shape and at
-    EVA's slice shape (B 64, L 257, no mask: the probe's first rows), so
-    that row 1's cp.async body and the copy engine's are compared within
-    one call on one card; and each one's device time per launch (one a
-    call) by the profiler (:func:`device_ms`; None if not measured)."""
+    cur, dma, sect; each :func:`time_ms`) at the probe's shape, at EVA's
+    slice shape (B 64, L 257, no mask: the probe's first rows) and at the
+    two shapes between them (B 64 at the probe's L and mask, B 256 at
+    EVA's), so that cur against sect is the layout alone (one body) and
+    cur against dma the streaming ring against the resident strip, within
+    one call on one card; at the probe's shape cur and sect also as four
+    launches of 64 batch rows on views of the same tensors (the same
+    addresses, shorter launches: "cur_4x64", "sect_4x64"). Each one's
+    device time per call by the profiler (:func:`device_ms` times the
+    launches a call; None if not measured), SDPA's events and device time
+    per call on the same q, k, v views over the first kend keys, the
+    bound, and each variant's device time over SDPA's and the bound's
+    share of it."""
+    import torch.nn.functional as F
+
     from vast_tpu_torch.ops import flash_attention as fa
 
-    for b, l, lk_true in ((tv.B, tv.LP, lk), (64, 257, 0)):
+    def quarters(fn, x, lk_true):
+        return lambda: [fn(x[i:i + tv.B // 4], heads=heads, lk_true=lk_true)
+                        for i in range(0, tv.B, tv.B // 4)]
+
+    for b, l, lk_true in ((tv.B, tv.LP, lk), (64, 257, 0), (64, tv.LP, lk),
+                          (tv.B, 257, 0)):
         fused = inputs["fused"][:b, :l].contiguous()
         sect = inputs["sect"][:b, :l].contiguous()
         fns = {"cur": lambda: fa.self_attention_tmajor(
@@ -1012,24 +1044,91 @@ def probe_turns(torch, tv, inputs, heads, lk):
                                                lk_true=lk_true),
                "sect": lambda: tv.attention_sect(sect, heads=heads,
                                                  lk_true=lk_true)}
+        order = ["cur", "dma", "sect", "sect", "dma", "cur", "cur", "dma",
+                 "sect"]
+        if (b, l) == (tv.B, tv.LP):
+            fns["cur_4x64"] = quarters(fa.self_attention_tmajor, fused,
+                                       lk_true)
+            fns["sect_4x64"] = quarters(tv.attention_sect, sect, lk_true)
+            order += ["cur_4x64", "sect_4x64", "sect_4x64", "cur_4x64"]
         turns = {k: [] for k in fns}
-        for k in ("cur", "dma", "sect", "sect", "dma", "cur", "cur", "dma",
-                  "sect"):
+        for k in order:
             turns[k].append(time_ms(torch, fns[k]))
+        kend = lk_true or l
+        q, k, v = tv.qkv_views(fused, heads)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k[:, :, :kend], v[:, :, :kend], scale=1.0)
+
+        # per launch (robust to a session that records only some launches),
+        # times the launches a call
+        dev = {name: device_ms(torch, fn) for name, fn in fns.items()}
+        for name in ("cur_4x64", "sect_4x64"):
+            if dev.get(name) is not None:
+                dev[name] *= 4
+        sdpa_dev = call_device_ms(torch, sdpa)
+        bound_ms, bound_by = probe_bound(torch, device_name, q, k, v, kend)
         emit({"phase": "tmajor_variants_turns", "b": b, "l": l,
-              "lk_true": lk_true, "ms_in_turns": turns,
-              "device_ms": {k: device_ms(torch, fn)
-                            for k, fn in fns.items()}})
+              "lk_true": lk_true, "ms_in_turns": turns, "device_ms": dev,
+              "sdpa_ms": time_ms(torch, sdpa), "sdpa_device_ms": sdpa_dev,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "sect_over_cur_device": None if None in (
+                  dev["sect"], dev["cur"]) else dev["sect"] / dev["cur"],
+              "over_sdpa_device": {
+                  name: None if None in (t, sdpa_dev) else t / sdpa_dev
+                  for name, t in dev.items()},
+              "bound_share_of_device": {
+                  name: None if t is None else bound_ms / t
+                  for name, t in dev.items()}})
+        del fused, sect, q, k, v
+        torch.cuda.empty_cache()
+
+
+def strip_turns(torch, tv, inputs, heads, lk, device_name):
+    """attention_dma's two bf16 bodies in turns (sm90, mma, mma, sm90;
+    each :func:`time_ms`) at the probe's shape and EVA's: the resident
+    strip against attention_fwd_tma_kernel (mma.sync fed by the copy
+    engine), both through their C entries, the latter a yardstick only
+    (the wrapper takes it for fp32 and longer keys); the profiler's device
+    time per launch of each, the bound's share of it and the largest
+    difference between the two outputs."""
+    for b, l, lk_true in ((tv.B, tv.LP, lk), (64, 257, 0)):
+        fused = inputs["fused"][:b, :l].contiguous()
+        fns = {body: (lambda e=entry: tv._launch(e, fused, heads, lk_true))
+               for body, entry in (("sm90", tv.DMA_SM90),
+                                   ("mma", tv.DMA_MMA))}
+        outs = {body: fn().float() for body, fn in fns.items()}
+        turns = {body: [] for body in fns}
+        for body in ("sm90", "mma", "mma", "sm90"):
+            turns[body].append(time_ms(torch, fns[body]))
+        dev = {body: device_ms(torch, fn) for body, fn in fns.items()}
+        q, k, v = tv.qkv_views(fused, heads)
+        bound_ms, bound_by = probe_bound(torch, device_name, q, k, v,
+                                         lk_true or l)
+        emit({"phase": "strip_turns", "b": b, "l": l, "lk_true": lk_true,
+              "ms_in_turns": turns, "device_ms": dev, "bound_ms": bound_ms,
+              "bound_by": bound_by,
+              "bound_share_of_device": {
+                  body: None if t is None else bound_ms / t
+                  for body, t in dev.items()},
+              "bodies_max_abs_diff": (outs["sm90"] - outs["mma"]
+                                      ).abs().max().item()})
+        del fused, outs, q, k, v
+        torch.cuda.empty_cache()
 
 
 def phase_tmajor_variants(torch, device_name):
     """The port's layout probe at its full shape: its ``run`` with the
     launch counters zeroed just before and read just after (one launch
-    per wrapper call: its dma and sect kernels, cur's and pad128's
-    token-major forward and backward), then per variant the bound and
-    SDPA's time, the layouts in turns (:func:`probe_turns`), then the
-    rows of its two kernels (bf16 and fp32, against their plain versions
-    and against cur). Returns those rows and the run's launches."""
+    per wrapper call: its dma and sect kernels, each on its Hopper body,
+    cur's and pad128's token-major forward and backward), then per
+    variant the bound and SDPA's time, the layouts in turns
+    (:func:`probe_turns`), the resident strip against the mma.sync body
+    (:func:`strip_turns`), then the rows of its two kernels (bf16 and
+    fp32, against their plain versions and against cur, with the
+    profiler's device time). Returns those rows and the run's
+    launches."""
     import torch.nn.functional as F
 
     from vast_tpu_torch.ops import flash_attention as fa
@@ -1050,6 +1149,10 @@ def phase_tmajor_variants(torch, device_name):
     want = {k: 0 for k in launches} | {
         "attention_dma": calls["dma"]["fwd"],
         "attention_sect": calls["sect"]["fwd"],
+        # every bf16 call of the two at the probe's shape on their Hopper
+        # bodies: the resident strip, the shared forward body
+        "attention_dma_sm90": calls["dma"]["fwd"],
+        "attention_sect_sm90": calls["sect"]["fwd"],
         "tmajor_attention_fwd": calls["cur"]["fwd"] + calls["pad128"]["fwd"],
         "tmajor_attention_bwd": calls["cur"]["bwd"] + calls["pad128"]["bwd"],
         # both layouts' forwards and backwards take the Hopper bodies, and
@@ -1068,17 +1171,14 @@ def phase_tmajor_variants(torch, device_name):
                                                       rec["variant"])
         x = inputs[layout]
         q, k, v = tv.qkv_views(x, heads, section_major=layout == "sect")
-        b, _, lp, d = q.shape
-        bound_ms, bound_by = bound(
-            torch, device_name,
-            qkv_bytes(q, k, v, lk) + b * lp * heads * d * 2,
-            4.0 * b * heads * lp * lk * d, torch.bfloat16)
+        bound_ms, bound_by = probe_bound(torch, device_name, q, k, v, lk)
         sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k[:, :, :lk], v[:, :, :lk], scale=1.0))
         emit({"phase": "tmajor_variants_summary"} | rec
              | {"bound_ms": bound_ms, "bound_by": bound_by,
                 "sdpa_ms": sdpa_ms})
-    probe_turns(torch, tv, inputs, heads, lk)
+    probe_turns(torch, tv, inputs, heads, lk, device_name)
+    strip_turns(torch, tv, inputs, heads, lk, device_name)
 
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):

@@ -17,16 +17,21 @@ forward and the backward (with and without a bias and its ds); and the
 token-major layout probe's two kernels (attention_dma through the copy
 engine, attention_sect) at the probe's shape (256 x 272 x 16 x 88,
 lk_true 257) and a ragged one, and attention_dma's refusal of rows the
-copy engine cannot read; the head-major forward's Hopper body (wgmma fed
-by the copy engine) at D 16 to 128, Lq 1 to 577, Lk 1 to 4873, lk_true,
-packed, token-major and contiguous views, fp32 and bf16 biases broadcast
-over heads or the batch, with and without the lse, and its entry's
-refusal of layouts the copy engine cannot read; the token-major
-forward's Hopper body at EVA01-g's, BEATs' (per-sample and shared bias),
-the probe's lk_true-padded shape and the edges of its tiles, with its lse,
-and its entry's refusals; and the backward's Hopper body (both entries)
-at L 1 to 4873, Lq != Lk, lk_true, D 8 to 128, with and without a bias
-and its ds, the token-major one also given the forward's lse: each output
+copy engine cannot read; their Hopper bodies (attention_dma's resident
+strip, attention_sect on the shared forward body) at the probe's shape,
+one head, D 64, last query tiles of 1, 15, 16, 17 and 63 rows, kend
+below L and at the strip's room, against the plain versions and cur, a
+kend above the room on the mma.sync body, and the entries' refusals; the
+head-major forward's Hopper body (wgmma fed by the copy engine) at D 16
+to 128, Lq 1 to 577, Lk 1 to 4873, lk_true, packed, token-major and
+contiguous views, fp32 and bf16 biases broadcast over heads or the
+batch, with and without the lse, and its entry's refusal of layouts the
+copy engine cannot read; the token-major forward's Hopper body at
+EVA01-g's, BEATs' (per-sample and shared bias), the probe's
+lk_true-padded shape and the edges of its tiles, with its lse, and its
+entry's refusals; and the backward's Hopper body (both entries) at L 1
+to 4873, Lq != Lk, lk_true, D 8 to 128, with and without a bias and its
+ds, the token-major one also given the forward's lse: each output
 against the plain version, bitwise repeats, its counters, and its
 entry's refusals.
 """
@@ -631,7 +636,10 @@ def test_tmajor_variant_kernel_matches_plain(cuda, kernel, case, dtype):
     out = getattr(tv, kernel)(qkv, heads=h, lk_true=lk_true)
     torch.cuda.synchronize()
     launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {k: int(k == kernel) for k in before}
+    # bf16 takes the kernel's Hopper body (both cases fit the resident
+    # strip), fp32 its mma.sync / CUDA-core one
+    hopper = {kernel + "_sm90"} if dtype == torch.bfloat16 else set()
+    assert launched == {k: int(k == kernel or k in hopper) for k in before}
     assert out.dtype == dtype and tuple(out.shape) == (b, l, h * d)
     plain = getattr(tv, "_" + kernel + "_plain")
     ref = plain(qkv, heads=h, lk_true=lk_true).float()
@@ -680,6 +688,124 @@ def test_dma_kernel_raises_on_rows_the_copy_engine_cannot_read(cuda, dtype,
     v_max = qkv.view(b, l, 3, h, d)[:, :, 2].float().abs().max().item()
     assert (out.float() - ref).abs().max().item() <= probe_tolerance(
         ref.abs().max().item(), v_max, dtype)
+
+
+PROBE_SM90_CASES = {
+    # name: (B, L, H, D, lk_true); bf16, every one on the Hopper bodies
+    "probe": (256, 272, 16, 88, 257),
+    "ragged": (3, 257, 16, 88, 200),
+    "one_head": (4, 272, 1, 88, 257),
+    "d64": (4, 272, 16, 64, 257),
+    # the last query tile's rows 1, 15, 16 (the key tiles split between
+    # the warpgroups), 17 and 63, each with as many keys (a last key tile
+    # of as many: wgmma N 16, 16, 16, 64, 64)
+    "last_rows_1": (3, 257, 4, 88, 0),
+    "last_rows_15": (3, 271, 4, 88, 0),
+    "last_rows_16": (3, 272, 4, 88, 0),
+    "last_rows_17": (3, 273, 4, 88, 0),
+    "last_rows_63": (3, 319, 4, 88, 0),
+    # kend below L; three query tiles, two rows in the last, split over
+    # two key tiles; kend at the resident room (320 keys at D above 64,
+    # 768 at D 64, six key tiles)
+    "kend_below_l": (3, 300, 4, 88, 130),
+    "split_two_key_tiles": (2, 130, 3, 128, 0),
+    "room_d88": (2, 320, 4, 88, 0),
+    "room_d64": (2, 768, 2, 64, 0),
+}
+
+
+def probe_qkv(b, l, h, d, dtype, cuda, seed=7):
+    """Random values as a fused per-head [q|k|v] qkv (B, L, H*3*D) and
+    section-major; q scaled by D^-0.5, as the probe's callers bake the
+    scale into q."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, l, h, 3, d, device=cuda, generator=gen)
+    x[:, :, :, 0] *= d ** -0.5
+    x = x.to(dtype)
+    return (x.reshape(b, l, h * 3 * d),
+            x.transpose(2, 3).reshape(b, l, 3 * h * d))
+
+
+@pytest.mark.parametrize("case", list(PROBE_SM90_CASES))
+@pytest.mark.parametrize("kernel", ["attention_dma", "attention_sect"])
+def test_probe_hopper_body_matches_plain(cuda, kernel, case):
+    """bf16 attention_dma on the resident strip and attention_sect on the
+    shared Hopper forward body (one launch of each wrapper counted in its
+    ``_sm90`` key too), each against its plain version and its first two
+    rows against cur's (the token-major op on the fused layout), at the
+    probe's shapes, the edges of the query and key tiles and the
+    resident room."""
+    from vast_tpu_torch.scripts import bench_tmajor_variants as tv
+
+    b, l, h, d, lk_true = PROBE_SM90_CASES[case]
+    fused, sect = probe_qkv(b, l, h, d, torch.bfloat16, cuda)
+    qkv = fused if kernel == "attention_dma" else sect
+    before = dict(fa.LAUNCHES)
+    out = getattr(tv, kernel)(qkv, heads=h, lk_true=lk_true)
+    torch.cuda.synchronize()
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: int(k in (kernel, kernel + "_sm90"))
+                        for k in before}
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (b, l, h * d)
+    ref = getattr(tv, "_" + kernel + "_plain")(qkv, heads=h,
+                                               lk_true=lk_true).float()
+    diff = out.float() - ref
+    err = diff.abs().max().item()
+    ref_max = ref.abs().max().item()
+    v_max = fused.view(b, l, h, 3, d)[..., 2, :].float().abs().max().item()
+    assert err <= probe_tolerance(ref_max, v_max, torch.bfloat16), (
+        err, ref_max)
+    rms = (diff.square().mean() / ref.square().mean()).sqrt().item()
+    assert rms <= 2 ** -6, rms
+    cur = fa.self_attention_tmajor(fused[:2], heads=h, lk_true=lk_true)
+    assert (out[:2].float() - cur.float()).abs().max().item() <= \
+        tv.CROSS_ATOL
+
+
+@pytest.mark.parametrize("shape", [(2, 640, 2, 88, 600), (1, 800, 2, 64, 780)],
+                         ids=["d88_kend_600", "d64_kend_780"])
+def test_dma_above_the_resident_room_takes_the_mma_body(cuda, shape):
+    """A kend whose keys do not fit in shared memory (above 320 at D 88,
+    768 at D 64) takes attention_fwd_tma_kernel: one attention_dma launch,
+    none of the resident strip, against the plain version."""
+    from vast_tpu_torch.scripts import bench_tmajor_variants as tv
+
+    b, l, h, d, lk_true = shape
+    fused, _ = probe_qkv(b, l, h, d, torch.bfloat16, cuda)
+    assert tv.dma_entry(fused, h, lk_true) == tv.DMA_MMA
+    before = dict(fa.LAUNCHES)
+    out = tv.attention_dma(fused, heads=h, lk_true=lk_true)
+    torch.cuda.synchronize()
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: int(k == "attention_dma") for k in before}
+    ref = tv._attention_dma_plain(fused, heads=h, lk_true=lk_true).float()
+    v_max = fused.view(b, l, h, 3, d)[..., 2, :].float().abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= probe_tolerance(
+        ref.abs().max().item(), v_max, torch.bfloat16)
+
+
+def test_probe_hopper_entries_refuse(cuda):
+    """The two Hopper entries refuse what their bodies do not take: the
+    probe's launch raises and no wrapper counts a launch (fp32, D 12, a
+    base 2 elements off a 16-byte boundary; for the resident strip a kend
+    above its room)."""
+    from vast_tpu_torch.scripts import bench_tmajor_variants as tv
+
+    b, l, h = 2, 40, 3
+    fp32, _ = probe_qkv(b, l, h, 16, torch.float32, cuda)
+    d12, _ = probe_qkv(b, l, h, 12, torch.bfloat16, cuda)
+    off = torch.zeros(b * l * h * 3 * 16 + 2, device=cuda,
+                      dtype=torch.bfloat16)[2:].view(b, l, h * 3 * 16)
+    before = dict(fa.LAUNCHES)
+    for symbol in (tv.DMA_SM90, tv.SECT_SM90):
+        for qkv, heads in ((fp32, h), (d12, h), (off, h)):
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                tv._launch(symbol, qkv, heads, 0)
+    long_keys, _ = probe_qkv(1, 640, 1, 88, torch.bfloat16, cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tv._launch(tv.DMA_SM90, long_keys, 1, 600)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before
 
 
 SM90_CASES = {

@@ -16,7 +16,9 @@
 //   fused and tiled kernels (:321, :363, :372, :413, :451)
 // and the two of scripts/bench_tmajor_variants.py, the token-major layout
 // probe: attention_dma (:78) and _sect_kernel (:118), described at their
-// entries at the end of this file.
+// entries at the end of this file; in bf16 _sect_kernel runs on the
+// Hopper forward body and attention_dma on a Hopper body of its own, the
+// resident strip ("The layout probe's attention_dma for Hopper" below).
 // Each forward body reads q, k, v, the output and the bias through (batch,
 // head, row) element strides, so the token-major fused qkv layout and the
 // head-major layout differ only in the strides the C entry points pass;
@@ -49,26 +51,26 @@
 // memory: loads and stores are masked at D and at the sequence ends, and
 // the padding to the tensor-core tile lives in shared memory only. Every
 // bf16 forward whose operands the copy engine can read (vast_tpu's :52,
-// :87, :94, :137, :762, :789) runs on wgmma with every tile brought by the
-// copy engine (its section below says what bounds it at each path shape
-// and what its design does about it). The other bodies still use mma.sync
-// and threads' cp.async, the copy engine only at attention_dma's entry;
-// and the query tiles of one head each re-read its K/V (from L2).
+// :87, :94, :137, :762, :789, and the probe's two) runs on wgmma with every
+// tile brought by the copy engine (its section below says what bounds it
+// at each path shape and what its design does about it). The other bodies
+// still use mma.sync and threads' cp.async, the copy engine only at
+// attention_dma's mma.sync entry; and the query tiles of one head each
+// re-read its K/V (from L2).
 //
 // Two forward kernels besides the Hopper one:
-// * bf16 (operands the copy engine cannot read, and the layout probe's
-//   section-major entry): tensor cores through mma.sync m16n8k16, bf16
-//   operands and fp32 accumulators. 8 warps x 16 query rows; key tiles of
-//   64, double-buffered: cp.async brings tile i+1 (16 bytes a thread, when
-//   D and every stride are multiples of 8; plain one-value stores
-//   otherwise) while tile i is computed. D is padded to DP (a multiple of
-//   16) in shared memory. Registers are capped at 128 a thread so that 2
-//   blocks share an SM (ptxas gave 158 at DP 96 uncapped); warps whose
-//   rows all lie past Lq only help load. V stays row-major and its B
-//   fragments come through ldmatrix.trans. The scores stay in registers,
-//   the row max/sum are reduced over each quad of lanes, and the
-//   probabilities are rounded to bf16 as the A operand of p . v (as the
-//   Pallas kernel casts p to v's dtype).
+// * bf16 (operands the copy engine cannot read): tensor cores through
+//   mma.sync m16n8k16, bf16 operands and fp32 accumulators. 8 warps x 16
+//   query rows; key tiles of 64, double-buffered: cp.async brings tile
+//   i+1 (16 bytes a thread, when D and every stride are multiples of 8;
+//   plain one-value stores otherwise) while tile i is computed. D is
+//   padded to DP (a multiple of 16) in shared memory. Registers are capped
+//   at 128 a thread so that 2 blocks share an SM (ptxas gave 158 at DP 96
+//   uncapped); warps whose rows all lie past Lq only help load. V stays
+//   row-major and its B fragments come through ldmatrix.trans. The scores
+//   stay in registers, the row max/sum are reduced over each quad of
+//   lanes, and the probabilities are rounded to bf16 as the A operand of
+//   p . v (as the Pallas kernel casts p to v's dtype).
 // * fp32: CUDA cores in full fp32 (tensor cores would round the products
 //   to TF32). 8 warps x 8 query rows; in q . k^T each lane owns one key
 //   of a 32-key tile, in p . v each lane owns head dims lane + 32c.
@@ -3590,6 +3592,494 @@ BwdParams hmajor_bwd_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+// ---------------------------------------------------------------------
+// The layout probe's attention_dma for Hopper: a resident strip
+// ---------------------------------------------------------------------
+//
+// Replaces scripts/bench_tmajor_variants.py attention_dma (:78, inline
+// body :87, pallas_call :102) for bf16 qkv that the copy engine can read
+// and a kend whose keys fit in shared memory (strip_takes), through
+// vast_tmajor_dma_attention_fwd_sm90. There each (group of 4 batch rows,
+// head) grid step copies one head's whole [q|k|v] strip into VMEM and
+// computes that head's softmax(q . k^T masked to lk_true) . v, unscaled,
+// from there. Here a work unit is one (batch row, head), since four do not
+// fit in 227 KB: the head's K and V stay resident in shared memory while
+// every query tile of the head runs over them. fp32, longer keys and the
+// views the copy engine cannot read keep attention_fwd_tma_kernel through
+// vast_tmajor_dma_attention_fwd, so the probe's dma row means "the strips
+// come by the copy engine" on every route.
+//
+// What bounds it on an H100: bytes, as the forward ("The forward for
+// Hopper" above): q, the first kend keys of k and v read once, the output
+// written once; the time is set by each warpgroup's serial chain of
+// products and softmax steps.
+// What the design does about it:
+// * As the shared body: a persistent block an SM takes work units in
+//   turn; one producer thread issues every copy, two consumer warpgroups
+//   run wgmma (q . k^T over KD k-steps, 96 deep at D 88; p . v from
+//   registers), setmaxnreg gives them the producer's registers (24 and
+//   240); the online softmax runs over key tiles of 128, a narrow last key
+//   tile first.
+// * K and V come once per work unit in key tiles, each on a full barrier
+//   of its own, as boxes of 16 key rows by 64 columns in 128-byte swizzle
+//   (rows past kend and columns past D read as zeros), into regions of
+//   DP / 64 column blocks of `rows` x 128 bytes each. rows is 128 a key
+//   tile but the last, which takes 16, 64 or 128 rows as its keys need
+//   (wgmma N 16, 64 or 128): 257 keys take 272 rows, not 384. That room
+//   caps kend at 320 keys at DP 128 and 768 at DP 64 (kMaxRows).
+// * q streams: each warpgroup has two buffers of a 64-row query tile, each
+//   with a full and an empty barrier; warpgroup 0 takes the head's query
+//   tiles 0, 2, 4, ..., warpgroup 1 tiles 1, 3, ....
+// * The lone last query tile: where a head has an odd number of query
+//   tiles, the last of at most 16 rows (L 257: one row), and more than one
+//   key tile, the two warpgroups split that tile's key tiles (warpgroup 0
+//   the first half in the order taken, warpgroup 1 the rest), so that
+//   neither runs a whole extra tile's chain (at L 257, 8 and 7 key-tile
+//   steps a head where the shared body's ring runs 9 and 9). Warpgroup 1
+//   writes its partial (m, l, o) into its q buffer of that tile and
+//   arrives on a named barrier; warpgroup 0 merges it into its own, stores
+//   the rows and frees that buffer. The host decides the split from L and
+//   kend (strip_split): an instantiation of its own, so that a launch
+//   carries no test it never takes.
+// * Overlap: a key tile is refilled for the next work unit as soon as both
+//   warpgroups have passed it in their last query tile of the head (an
+//   empty barrier a key tile); a q buffer as soon as its warpgroup has run
+//   that tile's last q . k^T. So the next head's first q tiles and its K
+//   and V come in while this head's last tiles run.
+
+constexpr int kStripQ = 64;          // rows of a query tile (a warpgroup's)
+constexpr int kStripSlots = 2;       // q buffers of a warpgroup
+constexpr int kStripBoxK = 16;       // key rows of a k or v box
+constexpr int kStripMaxTiles = 6;    // resident key tiles, at most
+constexpr int kStripSplitRows = 16;  // rows of a last query tile split
+
+// the rows a resident key tile of `keys` keys takes: wgmma's N
+__host__ __device__ constexpr int strip_width(int keys) {
+  return keys <= 16 ? 16 : keys <= 64 ? 64 : kSm90BlockK;
+}
+
+// the rows of the resident K (or V) of kend keys: 128 a key tile but the
+// last, whose strip_width
+__host__ __device__ __forceinline__ int strip_rows(int kend) {
+  const int n = (kend + kSm90BlockK - 1) / kSm90BlockK;
+  return (n - 1) * kSm90BlockK + strip_width(kend - (n - 1) * kSm90BlockK);
+}
+
+// A block's shared memory, each tile 1024-byte aligned: the q buffers
+// (warpgroup w's buffer s at (w kStripSlots + s) kQTileBytes), K and V of
+// `rows` rows each, then the barriers: each key tile's full and empty,
+// then each q buffer's full and empty. A split tile's partials (m and l of
+// its 16 rows, then o as [16][DP], fp32) take a q buffer's place.
+template <int DP>
+struct StripSmem {
+  static constexpr int kBlocks = DP / kSm90Box;
+  static constexpr int kMaxRows = DP == kSm90Box ? 768 : 320;
+  static constexpr unsigned kQTileBytes = kStripQ * DP * 2;
+  static constexpr unsigned kQBytes =
+      kSm90Consumers * kStripSlots * kQTileBytes;
+  static constexpr int kBars =
+      2 * kStripMaxTiles + 2 * kSm90Consumers * kStripSlots;
+  __host__ __device__ static constexpr size_t kv_bytes(int rows) {
+    return (size_t)rows * DP * 2;
+  }
+  __host__ __device__ static constexpr size_t bar_offset(int rows) {
+    return kQBytes + 2 * kv_bytes(rows);
+  }
+  __host__ __device__ static constexpr size_t bytes(int rows) {
+    return bar_offset(rows) + kBars * 8 + 1024;
+  }
+};
+static_assert(StripSmem<64>::bytes(StripSmem<64>::kMaxRows) <= 232448 &&
+                  StripSmem<128>::bytes(StripSmem<128>::kMaxRows) <= 232448,
+              "a block's shared memory on sm_90");
+static_assert(768 <= kStripMaxTiles * kSm90BlockK, "a barrier a key tile");
+static_assert(kStripSplitRows * (128 + 2) * 4 <= StripSmem<128>::kQTileBytes &&
+                  kStripSplitRows * (64 + 2) * 4 <= StripSmem<64>::kQTileBytes,
+              "a split tile's partials in a q buffer");
+
+// Whether the lone last query tile's key tiles are split between the two
+// warpgroups: an odd number of query tiles, the last of at most
+// kStripSplitRows rows, and more than one key tile
+bool strip_split(int lq, int kend) {
+  const int n_q = (lq + kStripQ - 1) / kStripQ;
+  return n_q % 2 == 1 && lq - (n_q - 1) * kStripQ <= kStripSplitRows &&
+         kend > kSm90BlockK;
+}
+
+// the query tiles warpgroup wg takes of a head of n_q: its own, wg, wg +
+// 2, ... below n_q (below n_q - 1 with the split), then the split tile,
+// which both take
+template <bool kSplit>
+__device__ __forceinline__ int strip_q_count(int wg, int n_q) {
+  return ((kSplit ? n_q - 1 : n_q) - wg + 1) / 2 + kSplit;
+}
+
+// the query tile at index i of warpgroup wg's
+template <bool kSplit>
+__device__ __forceinline__ int strip_q_tile(int wg, int i, int n_q) {
+  return kSplit && i == strip_q_count<kSplit>(wg, n_q) - 1 ? n_q - 1
+                                                           : wg + 2 * i;
+}
+
+// the threads of both consumer warpgroups at named barrier `id`:
+// warpgroup 1 arrives (its partials written), warpgroup 0 waits for them
+__device__ __forceinline__ void strip_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n"
+               :: "r"(id), "n"(128 * kSm90Consumers) : "memory");
+}
+
+__device__ __forceinline__ void strip_bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n"
+               :: "r"(id), "n"(128 * kSm90Consumers) : "memory");
+}
+
+// generic accesses to shared memory before the copy engine's later writes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One consumer warpgroup's query tile (q in its buffer qw) over the key
+// tiles taken at positions [pa, pb) of n_kt (sm90_key_tile's order, the
+// narrow last tile first), each waited for on its full barrier in phase
+// `parity`: o, m (log2 units) and this lane's part of l, as sm90_consumer
+// keeps them. q's buffer is released (qempty, unless null) after the last
+// q . k^T; each key tile (release) after its p . v. Accumulator layouts as
+// in sm90_consumer.
+template <int DP, int KD>
+__device__ __forceinline__ void strip_tile(
+    const unsigned char* qw, const unsigned char* ks, const unsigned char* vs,
+    int rows, uint64_t* full, uint64_t* empty, uint64_t* qempty, int pa,
+    int pb, int n_kt, bool narrow, int kend, float f, unsigned parity,
+    bool release, float (&o)[DP / kSm90Box][32], float (&m)[2],
+    float (&l)[2]) {
+  constexpr int kBlocks = DP / kSm90Box;
+  static_assert(KD * 16 <= DP, "q . k^T over at most DP columns");
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+  // key tile kt, the last of the tile's when last_q, as wgmma N 8 NJ
+  auto step = [&](auto nj_c, int kt, bool last_q) {
+    constexpr int NJ = decltype(nj_c)::value;
+    const int k0 = kt * kSm90BlockK;
+    float s[4 * NJ];
+#pragma unroll
+    for (int i = 0; i < 4 * NJ; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      const uint64_t da =
+          wgmma_desc(qw + c * kStripQ * kSm90RowBytes + off, 16, 1024);
+      const uint64_t db =
+          wgmma_desc(ks + (c * rows + k0) * kSm90RowBytes + off, 16, 1024);
+      if constexpr (NJ == 16)
+        wgmma_m64n128k16_ss(s, da, db, kk > 0);
+      else if constexpr (NJ == 8)
+        wgmma_m64n64k16_ss(s, da, db, kk > 0);
+      else
+        wgmma_m64n16k16_ss(s, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (last_q && qempty) mbar_arrive(qempty);   // the next q may come
+    float alpha[2];
+    sm90_softmax<NJ>(s, m, l, alpha, kend, k0, t, f);
+#pragma unroll
+    for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[c][4 * j] *= alpha[0];
+        o[c][4 * j + 1] *= alpha[0];
+        o[c][4 * j + 2] *= alpha[1];
+        o[c][4 * j + 3] *= alpha[1];
+      }
+    uint32_t pk[NJ / 2][4];
+    pack_p<NJ>(s, pk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk)
+#pragma unroll
+      for (int c = 0; c < kBlocks; ++c)
+        wgmma_m64n64k16_rs(
+            o[c], pk[kk],
+            wgmma_desc(vs + (c * rows + k0 + 16 * kk) * kSm90RowBytes,
+                       rows * kSm90RowBytes, 1024),
+            1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kBlocks; ++c) fence_regs(o[c]);
+    if (release) mbar_arrive(empty + kt);     // refill for the next head
+  };
+  for (int i = pa; i < pb; ++i) {
+    const int kt = sm90_key_tile(i, n_kt, narrow);
+    const int width = min(kSm90BlockK, rows - kt * kSm90BlockK);
+    mbar_wait_or_trap(full + kt, parity);
+    __syncwarp();                   // the warp converged for wgmma
+    if (width == kSm90BlockK)
+      step(std::integral_constant<int, 16>{}, kt, i == pb - 1);
+    else if (width == 64)
+      step(std::integral_constant<int, 8>{}, kt, i == pb - 1);
+    else
+      step(std::integral_constant<int, 2>{}, kt, i == pb - 1);
+  }
+}
+
+// Persistent: a block per SM takes work units w = blockIdx.x, + gridDim.x,
+// ... (head fastest, then batch row). Warpgroups 0 and 1 consume; the last
+// one produces, one thread issuing every copy: for each work unit the two
+// warpgroups' first q tiles, then the head's K and V key tiles in the
+// order the consumers take them, each once both warpgroups have released
+// it for the last head, then the other q tiles, each into its
+// warpgroup's next buffer once released.
+template <int DP, int KD, bool kSplit>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+attention_fwd_strip_sm90_kernel(const Params p,
+                                const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const Sm90Slot sq, const Sm90Slot sk,
+                                const Sm90Slot sv, int n_work) {
+  using S = StripSmem<DP>;
+  extern __shared__ __align__(1024) unsigned char strip_smem[];
+  unsigned char* qs = align_1024(strip_smem);
+  const int rows = strip_rows(p.kend);
+  unsigned char* ks = qs + S::kQBytes;
+  unsigned char* vs = ks + S::kv_bytes(rows);
+  auto* full = reinterpret_cast<uint64_t*>(qs + S::bar_offset(rows));
+  uint64_t* empty = full + kStripMaxTiles;
+  uint64_t* qfull = empty + kStripMaxTiles;   // warpgroup w's buffer s at
+  uint64_t* qempty = qfull + kSm90Consumers * kStripSlots;  // w slots + s
+  const int n_kt = (p.kend + kSm90BlockK - 1) / kSm90BlockK;
+  const int n_q = (p.lq + kStripQ - 1) / kStripQ;
+  const bool narrow = rows - (n_kt - 1) * kSm90BlockK < kSm90BlockK;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n_kt; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 128 * kSm90Consumers);
+    }
+    for (int i = 0; i < kSm90Consumers * kStripSlots; ++i) {
+      mbar_init(qfull + i, 1);
+      mbar_init(qempty + i, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  const int cnt0 = strip_q_count<kSplit>(0, n_q),
+            cnt1 = strip_q_count<kSplit>(1, n_q);
+  if (wg == kSm90Consumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ProducerRegs));
+    if (threadIdx.x != 128 * kSm90Consumers) return;
+    for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+      const int h = w % p.heads, b = w / p.heads;
+      // q tile i of warpgroup g into its next buffer
+      auto load_q = [&](int g, int i) {
+        const int seq = n * (g ? cnt1 : cnt0) + i;
+        const int at = g * kStripSlots + seq % kStripSlots;
+        mbar_wait_or_trap(qempty + at, ((seq / kStripSlots) & 1) ^ 1);
+        mbar_arrive_expect_tx(qfull + at, S::kQTileBytes);
+        unsigned char* dst = qs + at * S::kQTileBytes;
+        const int q0 = kStripQ * strip_q_tile<kSplit>(g, i, n_q);
+        for (int c = 0; c < S::kBlocks; ++c)
+          tma_load_at(dst + c * kStripQ * kSm90RowBytes, &qmap, qfull + at,
+                      sq, c * kSm90Box, b, h, q0);
+      };
+      for (int i = 0; i < cnt0; ++i) {        // cnt0 >= cnt1
+        load_q(0, i);
+        if (i < cnt1) load_q(1, i);
+        if (i > 0) continue;
+        for (int pos = 0; pos < n_kt; ++pos) {
+          const int kt = sm90_key_tile(pos, n_kt, narrow);
+          const int k0 = kt * kSm90BlockK;
+          const int width = min(kSm90BlockK, rows - k0);
+          mbar_wait_or_trap(empty + kt, (n & 1) ^ 1);
+          mbar_arrive_expect_tx(full + kt, 2u * width * DP * 2);
+          for (int c = 0; c < S::kBlocks; ++c)
+            for (int r = 0; r < width; r += kStripBoxK) {
+              const int at = (c * rows + k0 + r) * kSm90RowBytes;
+              tma_load_at(ks + at, &kmap, full + kt, sk, c * kSm90Box, b, h,
+                          k0 + r);
+              tma_load_at(vs + at, &vmap, full + kt, sv, c * kSm90Box, b, h,
+                          k0 + r);
+            }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kSm90ConsumerRegs));
+  constexpr int kBlocks = S::kBlocks;
+  const int cnt = wg ? cnt1 : cnt0;
+  const int half = (n_kt + 1) / 2;   // the split tile's key tiles of wg 0
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float f = p.scale * kLog2e;  // the scale folded into the exponent
+  for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+    const int h = w % p.heads, b = w / p.heads;
+    const unsigned parity = n & 1;
+    // a key tile this warpgroup no longer reads in this head, released
+    // after its arrival in this head (so that the release counts for it)
+    auto release = [&](int kt) {
+      mbar_wait_or_trap(full + kt, parity);
+      mbar_arrive(empty + kt);
+    };
+    if (cnt == 0)                    // warpgroup 1 of a one-tile head
+      for (int kt = 0; kt < n_kt; ++kt) release(kt);
+    for (int i = 0; i < cnt; ++i) {
+      const int seq = n * cnt + i;
+      const int at = wg * kStripSlots + seq % kStripSlots;
+      const bool last = i == cnt - 1, split = kSplit && last;
+      const int pa = split && wg == 1 ? half : 0;
+      const int pb = split && wg == 0 ? half : n_kt;
+      if (split)                     // the key tiles the other one takes
+        for (int pos = 0; pos < n_kt; ++pos)
+          if (pos < pa || pos >= pb) release(sm90_key_tile(pos, n_kt, narrow));
+      mbar_wait_or_trap(qfull + at, (seq / kStripSlots) & 1);
+      float o[kBlocks][32], m[2], l[2];
+      strip_tile<DP, KD>(qs + at * S::kQTileBytes, ks, vs, rows, full, empty,
+                         split && wg == 1 ? nullptr : qempty + at, pa, pb,
+                         n_kt, narrow, p.kend, f, parity, last, o, m, l);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(kFull, l[r], 1);
+        l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      }
+      if (split) {
+        // warpgroup 1's buffer of this tile holds its partials; its rows
+        // (at most 16) lie in warp 0 of each warpgroup
+        const int seq1 = n * cnt1 + cnt1 - 1;
+        const int at1 = kStripSlots + seq1 % kStripSlots;
+        float* part = reinterpret_cast<float*>(qs + at1 * S::kQTileBytes);
+        float* po = part + 2 * kStripSplitRows;
+        if (wg == 1) {
+          if (warp == 0) {
+            if (t == 0) {
+              part[g] = m[0];
+              part[g + 8] = m[1];
+              part[kStripSplitRows + g] = l[0];
+              part[kStripSplitRows + g + 8] = l[1];
+            }
+#pragma unroll
+            for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const int d = c * kSm90Box + 8 * j + 2 * t;
+                *reinterpret_cast<float2*>(po + g * DP + d) =
+                    make_float2(o[c][4 * j], o[c][4 * j + 1]);
+                *reinterpret_cast<float2*>(po + (g + 8) * DP + d) =
+                    make_float2(o[c][4 * j + 2], o[c][4 * j + 3]);
+              }
+          }
+          fence_proxy_async();
+          strip_bar_arrive(1 + seq1 % kStripSlots);
+          continue;                  // warpgroup 0 stores the rows
+        }
+        strip_bar_sync(1 + seq1 % kStripSlots);
+        if (warp == 0) {
+          float a0[2], a1[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float m1 = part[g + 8 * r],
+                        l1 = part[kStripSplitRows + g + 8 * r];
+            const float mn = fmaxf(m[r], m1), ne = -exp_ref(mn);
+            a0[r] = ex2(m[r] + ne);
+            a1[r] = ex2(m1 + ne);
+            l[r] = l[r] * a0[r] + l1 * a1[r];
+          }
+#pragma unroll
+          for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int d = c * kSm90Box + 8 * j + 2 * t;
+              const float2 x0 = *reinterpret_cast<const float2*>(po + g * DP + d);
+              const float2 x1 =
+                  *reinterpret_cast<const float2*>(po + (g + 8) * DP + d);
+              o[c][4 * j] = o[c][4 * j] * a0[0] + x0.x * a1[0];
+              o[c][4 * j + 1] = o[c][4 * j + 1] * a0[0] + x0.y * a1[0];
+              o[c][4 * j + 2] = o[c][4 * j + 2] * a0[1] + x1.x * a1[1];
+              o[c][4 * j + 3] = o[c][4 * j + 3] * a0[1] + x1.y * a1[1];
+            }
+        }
+        fence_proxy_async();
+        mbar_arrive(qempty + at1);   // warpgroup 1's buffer may be refilled
+      }
+      // a row with no finite score has l == 0 and gives zeros
+      const float inv0 = l[0] > 0.f ? 1.f / l[0] : 0.f;
+      const float inv1 = l[1] > 0.f ? 1.f / l[1] : 0.f;
+      const int row0 = kStripQ * strip_q_tile<kSplit>(wg, i, n_q) +
+                       16 * warp + g, row1 = row0 + 8;
+      auto* og = plane<__nv_bfloat16>(p.out, p.st[kO][0], p.st[kO][1], b, h);
+      const long long o_rs = p.st[kO][2];
+#pragma unroll
+      for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int d = c * kSm90Box + 8 * j + 2 * t;   // D even: d + 1 < D
+          if (d >= p.d) continue;
+          if (row0 < p.lq)
+            *reinterpret_cast<__nv_bfloat162*>(og + row0 * o_rs + d) =
+                __floats2bfloat162_rn(o[c][4 * j] * inv0,
+                                      o[c][4 * j + 1] * inv0);
+          if (row1 < p.lq)
+            *reinterpret_cast<__nv_bfloat162*>(og + row1 * o_rs + d) =
+                __floats2bfloat162_rn(o[c][4 * j + 2] * inv1,
+                                      o[c][4 * j + 3] * inv1);
+        }
+    }
+  }
+}
+
+template <int DP, int KD, bool kSplit>
+cudaError_t launch_strip(const Params& p, int B, int H, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  Sm90Slot slots[3];
+  const int rows[3] = {p.lq, p.kend, p.kend};
+  const int box_rows[3] = {kStripQ, kStripBoxK, kStripBoxK};
+  for (int o = kQ; o <= kV; ++o) {
+    const cudaError_t err = encode_hmajor_map(
+        &maps[o], &slots[o], p.in[o], p.st[o], B, H, rows[o], p.d,
+        box_rows[o]);
+    if (err != cudaSuccess) return err;
+  }
+  auto kern = attention_fwd_strip_sm90_kernel<DP, KD, kSplit>;
+  const size_t smem = StripSmem<DP>::bytes(strip_rows(p.kend));
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  // a persistent block an SM (the registers of all 384 threads fill it)
+  int blocks;
+  if ((err = persistent_blocks((long long)B * H, &blocks)) != cudaSuccess)
+    return err;
+  kern<<<blocks, kSm90Threads, smem, stream>>>(
+      p, maps[kQ], maps[kK], maps[kV], slots[kQ], slots[kK], slots[kV], B * H);
+  return cudaGetLastError();
+}
+
+// D 64 and below on one 64-column box; above, two boxes, q . k^T stopping
+// at 96 where D allows (dispatch_sm90's widths)
+template <bool kSplit>
+cudaError_t dispatch_strip(const Params& p, int B, int H, cudaStream_t s) {
+  if (p.d <= 64) return launch_strip<64, 4, kSplit>(p, B, H, s);
+  if (p.d <= 96) return launch_strip<128, 6, kSplit>(p, B, H, s);
+  return launch_strip<128, 8, kSplit>(p, B, H, s);
+}
+
+// The resident strip's rule (mirrored by the probe's _strip_ok): the
+// Hopper body's (sm90_takes) and a kend whose resident rows fit: 320 keys
+// at D above 64, 768 at and below
+bool strip_takes(const Params& p, int dtype, int B, int H) {
+  return sm90_takes(p, dtype, B, H) && p.kend <= p.lq &&
+         strip_rows(p.kend) <= (p.d <= kSm90Box ? StripSmem<64>::kMaxRows
+                                                : StripSmem<128>::kMaxRows);
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. dtype codes: 0 = float32,
@@ -3637,7 +4127,9 @@ extern "C" int vast_tmajor_attention_fwd_sm90(
 
 // Row 10, attention_dma (:78): the fused per-head [q|k|v] layout, each
 // head's strips brought into shared memory by the copy engine (see "The
-// copy engine" above). Returns cudaErrorInvalidValue, and launches
+// copy engine" above) for the mma.sync / CUDA-core body: fp32, and bf16
+// that the resident strip (vast_tmajor_dma_attention_fwd_sm90, below) does
+// not take. Returns cudaErrorInvalidValue, and launches
 // nothing, where the copy engine cannot read the strips: D * esize or the
 // row stride not a multiple of 16 bytes, qkv not 16-byte aligned, or D >
 // 128; cudaErrorNotSupported where the driver has no tensor maps.
@@ -3657,11 +4149,33 @@ extern "C" int vast_tmajor_dma_attention_fwd(const void* qkv, void* out,
                              : dispatch_tma(p, qkv, B, H, s));
 }
 
+// Row 10 on Hopper: the same function, the same arguments, on the resident
+// strip (attention_fwd_strip_sm90_kernel: wgmma, the copy engine, each
+// head's K and V resident in shared memory; see "The layout probe's
+// attention_dma for Hopper" above). Returns cudaErrorInvalidValue, and
+// launches nothing, for what that body does not take (strip_takes): any
+// dtype but bf16, D not a multiple of 8 or above 128, qkv not 16-byte
+// aligned, kend above L or above the resident room (320 keys at D above
+// 64, 768 at and below); cudaErrorNotSupported where CUDA offers no
+// tensor maps.
+extern "C" int vast_tmajor_dma_attention_fwd_sm90(const void* qkv, void* out,
+                                                  int dtype, int B, int L,
+                                                  int H, int D, int kend,
+                                                  void* stream) {
+  const Params p =
+      tmajor_params(qkv, out, dtype, L, H, D, kend, 1.f, 3LL * D, D);
+  if (!strip_takes(p, dtype, B, H)) return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return (int)(strip_split(L, kend) ? dispatch_strip<true>(p, B, H, s)
+                                    : dispatch_strip<false>(p, B, H, s));
+}
+
 // Row 11, _sect_kernel (:118): the section-major layout [Q_all | K_all |
 // V_all], head i's q at i*D, k at H*D + i*D, v at 2*H*D + i*D, read by the
 // strided mma.sync / CUDA-core forward (rows 1, 2, 5 and 6's body for
-// operands the copy engine cannot read) at those offsets. Its own entry,
-// so that its launches count apart.
+// operands the copy engine cannot read) at those offsets: fp32, and bf16
+// that vast_tmajor_sect_attention_fwd_sm90 (below) does not take. Its own
+// entry, so that its launches count apart.
 extern "C" int vast_tmajor_sect_attention_fwd(const void* qkv, void* out,
                                               int dtype, int B, int L, int H,
                                               int D, int kend, void* stream) {
@@ -3670,6 +4184,25 @@ extern "C" int vast_tmajor_sect_attention_fwd(const void* qkv, void* out,
   const Params p = tmajor_params(qkv, out, dtype, L, H, D, kend, 1.f, D,
                                  (long long)H * D);
   return (int)run(p, dtype, dtype, B, H, static_cast<cudaStream_t>(stream));
+}
+
+// Row 11 on Hopper: the same function, the same arguments, on the shared
+// Hopper forward body (attention_fwd_sm90_kernel, the instantiation cur's
+// EVA launches take: q . k^T 96 deep at D 88) through tensor maps of the
+// section-major views: head stride D, so a map's column dimension ends at
+// D and the columns of a box past it read as zeros, not the next head's.
+// Returns cudaErrorInvalidValue, and launches nothing, for what that body
+// does not take (run_sm90): any dtype but bf16, D not a multiple of 8 or
+// above 128, qkv not 16-byte aligned, kend above L; cudaErrorNotSupported
+// where CUDA offers no tensor maps.
+extern "C" int vast_tmajor_sect_attention_fwd_sm90(const void* qkv,
+                                                   void* out, int dtype,
+                                                   int B, int L, int H, int D,
+                                                   int kend, void* stream) {
+  if (kend > L) return (int)cudaErrorInvalidValue;
+  return (int)run_sm90(tmajor_params(qkv, out, dtype, L, H, D, kend, 1.f, D,
+                                     (long long)H * D),
+                       dtype, dtype, B, H, static_cast<cudaStream_t>(stream));
 }
 
 // Head-major attention (flash_attention): q (B, H, Lq, D), k and v (B, H,

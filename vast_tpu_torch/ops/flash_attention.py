@@ -37,7 +37,8 @@ CPU tensors. ``LAUNCHES`` counts kernel launches, so a run can show that
 its path went through the kernels. The two kernels of the token-major
 layout probe (``attention_dma``, ``attention_sect``) are built from the
 same source; their wrappers are in
-``vast_tpu_torch/scripts/bench_tmajor_variants.py`` and count here too.
+``vast_tpu_torch/scripts/bench_tmajor_variants.py`` and count here too,
+their Hopper bodies' rules beside :func:`_sm90_ok` (:func:`_strip_ok`).
 
 The TPU mechanisms around the Pallas kernels (head packing, VMEM-sized
 batch groups, 16/128 padding of L and of D, shard_map) have no
@@ -66,7 +67,10 @@ LAUNCHES = {"tmajor_attention_fwd": 0, "tmajor_attention_fwd_bias": 0,
             # of the backwards, the launches of the Hopper body (wgmma + TMA)
             "tmajor_attention_bwd_sm90": 0, "flash_attention_bwd_sm90": 0,
             # the token-major layout probe (scripts/bench_tmajor_variants.py)
-            "attention_dma": 0, "attention_sect": 0}
+            "attention_dma": 0, "attention_sect": 0,
+            # of those two, the launches of their Hopper bodies (wgmma +
+            # TMA: the resident strip, the shared forward body)
+            "attention_dma_sm90": 0, "attention_sect_sm90": 0}
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -615,6 +619,32 @@ def _sm90_ok(d, *tensors):
     return True
 
 
+# the resident strip's room for the keys of a head (rows of K, and of V),
+# by the padded head width: 64 at D <= 64, else 128
+STRIP_MAX_ROWS = {64: 768, 128: 320}
+
+
+def _strip_rows(kend):
+    """The rows the resident strip gives ``kend`` keys: 128 a key tile
+    but the last, which takes 16, 64 or 128 as its keys need (wgmma's N)."""
+    full = (kend - 1) // 128 * 128
+    rest = kend - full
+    return full + (16 if rest <= 16 else 64 if rest <= 64 else 128)
+
+
+def _strip_ok(d, kend, qkv):
+    """Whether the layout probe's resident strip
+    (``attention_fwd_strip_sm90_kernel``, through
+    ``vast_tmajor_dma_attention_fwd_sm90``) takes a fused qkv of head width
+    ``d`` with keys masked from ``kend``: the Hopper bodies' rule
+    (:func:`_sm90_ok`) and a head's K and V that fit in shared memory
+    (:data:`STRIP_MAX_ROWS`: 320 keys at D above 64, 768 at and below).
+    Decided before any launch; the C entry checks the same (strip_takes)
+    and refuses the rest."""
+    return (_sm90_ok(d, qkv) and 0 < kend
+            and _strip_rows(kend) <= STRIP_MAX_ROWS[64 if d <= 64 else 128])
+
+
 def _flash_fwd_args(q, k, v, bias, out, lse, scale, lk_true):
     """The arguments of either head-major forward entry
     (``vast_flash_attention_fwd`` or ``..._sm90``) for these tensors; a
@@ -841,7 +871,9 @@ _ARGTYPES = {
     "vast_flash_attention_bwd": _HMAJOR_BWD_ARGS,
     "vast_flash_attention_bwd_sm90": _HMAJOR_BWD_ARGS,
     "vast_tmajor_dma_attention_fwd": _PROBE_ARGS,
+    "vast_tmajor_dma_attention_fwd_sm90": _PROBE_ARGS,
     "vast_tmajor_sect_attention_fwd": _PROBE_ARGS,
+    "vast_tmajor_sect_attention_fwd_sm90": _PROBE_ARGS,
 }
 
 

@@ -9,12 +9,18 @@ frames, Lp 272, H 16, D 88, bf16, keys masked past 257, scale 1):
            forward (``ops.flash_attention.self_attention_tmajor``): in
            bf16 its Hopper body, wgmma fed by the copy engine through
            tensor maps over each head's strips.
-  sect   - the section-major layout [Q_all | K_all | V_all]: the
-           mma.sync body (threads' cp.async) at other offsets
-           (:func:`attention_sect`).
-  dma    - the fused layout, the mma.sync body with each head's strips
-           brought into shared memory by the copy engine (TMA) onto an
-           mbarrier (:func:`attention_dma`).
+  sect   - the section-major layout [Q_all | K_all | V_all]: in bf16
+           cur's Hopper body (the same instantiation) through tensor maps
+           of the section-major views, so that cur against sect is the
+           layout alone; fp32 the mma.sync / CUDA-core body at those
+           offsets (:func:`attention_sect`).
+  dma    - the fused layout, each head's strips brought into shared
+           memory by the copy engine: in bf16 the resident strip, a
+           Hopper body (wgmma) that keeps each head's K and V in shared
+           memory while its query tiles run, so that cur against dma is
+           the streaming ring against a resident strip on one kind of
+           body; fp32 and kend above its room the mma.sync / CUDA-core
+           body (:func:`attention_dma`).
   pad128 - the fused layout zero-padded to D 128 through cur's op (the
            TPU's head packing has no counterpart: the kernel reads any
            D <= 128).
@@ -98,11 +104,20 @@ def _attention_sect_plain(qkv, *, heads: int, lk_true: int = 0):
     return _plain(qkv, heads, lk_true, section_major=True)
 
 
-def _launch(symbol, key, qkv, heads, lk_true, plain, hint=""):
-    b, l, d = fa._check(qkv, None, heads, lk_true)
-    if qkv.device.type == "cpu":
-        with torch.no_grad():
-            return plain(qkv, heads=heads, lk_true=lk_true)
+# the probe kernels' C entries: the Hopper bodies (wgmma, the copy engine)
+# and the mma.sync / CUDA-core ones for what those do not take
+DMA_SM90 = "vast_tmajor_dma_attention_fwd_sm90"
+DMA_MMA = "vast_tmajor_dma_attention_fwd"
+SECT_SM90 = "vast_tmajor_sect_attention_fwd_sm90"
+SECT_MMA = "vast_tmajor_sect_attention_fwd"
+
+
+def _launch(symbol, qkv, heads, lk_true, hint=""):
+    """One launch of the probe entry ``symbol`` on a checked CUDA qkv: the
+    output (B, L, H*D). Raises if the entry refuses qkv or the launch
+    fails. Counts nothing: the wrappers count their launches."""
+    b, l, total = qkv.shape
+    d = total // (3 * heads)
     fa._check_cuda_operands(qkv, None)
     out = torch.empty((b, l, heads * d), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -110,10 +125,46 @@ def _launch(symbol, key, qkv, heads, lk_true, plain, hint=""):
                                  fa._DTYPE_CODES[qkv.dtype], b, l, heads, d,
                                  lk_true or l, fa._stream())
     if err:
-        raise RuntimeError(f"{key} kernel launch failed: CUDA error {err}"
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}"
                            + hint)
-    fa.LAUNCHES[key] += 1
     return out
+
+
+def _route(key, qkv, heads, lk_true, plain, entry, hint=""):
+    """Both wrappers' route: the checks, the plain version on the CPU, else
+    one launch of the C entry that ``entry()`` picks, counted in
+    ``LAUNCHES[key]`` and, for a Hopper body, ``LAUNCHES[key + "_sm90"]``
+    too."""
+    fa._check(qkv, None, heads, lk_true)
+    if qkv.device.type == "cpu":
+        with torch.no_grad():
+            return plain(qkv, heads=heads, lk_true=lk_true)
+    symbol = entry()
+    out = _launch(symbol, qkv, heads, lk_true, hint)
+    fa.LAUNCHES[key] += 1
+    if symbol in (DMA_SM90, SECT_SM90):
+        fa.LAUNCHES[key + "_sm90"] += 1
+    return out
+
+
+def dma_entry(qkv, heads, lk_true=0):
+    """The C entry :func:`attention_dma` launches for a CUDA ``qkv``:
+    the resident strip (``DMA_SM90``) where :func:`fa._strip_ok` takes qkv
+    and its kend, else the mma.sync / CUDA-core body fed by the copy
+    engine (``DMA_MMA``). Decided before the launch from dtype, shape,
+    strides and data_ptr."""
+    l, total = qkv.shape[1:]
+    return DMA_SM90 if fa._strip_ok(total // (3 * heads), lk_true or l,
+                                    qkv) else DMA_MMA
+
+
+def sect_entry(qkv, heads):
+    """The C entry :func:`attention_sect` launches for a CUDA ``qkv``: the
+    shared Hopper forward body (``SECT_SM90``) where :func:`fa._sm90_ok`
+    takes qkv, else the strided mma.sync / CUDA-core body
+    (``SECT_MMA``)."""
+    return SECT_SM90 if fa._sm90_ok(qkv.shape[2] // (3 * heads), qkv) \
+        else SECT_MMA
 
 
 def attention_dma(qkv, *, heads: int, lk_true: int = 0):
@@ -122,18 +173,23 @@ def attention_dma(qkv, *, heads: int, lk_true: int = 0):
     returns (B, L, H*D) in qkv's dtype (fp32 or bf16).
 
     The counterpart of the JAX script's ``attention_dma`` (:78). On CUDA
-    the kernel ``vast_tmajor_dma_attention_fwd`` (csrc/flash_attention.cu)
-    brings each head's q, k and v strips into shared memory with the copy
-    engine; it raises where the copy engine cannot read them (D times the
-    element size, or the row, not a multiple of 16 bytes; qkv not 16-byte
-    aligned). There is no other route. On the CPU the plain version. No
-    autograd: the output records no gradient, as the raw Pallas call has
-    no AD rule.
+    every route brings each head's strips into shared memory with the
+    copy engine (:func:`dma_entry`): bf16 that the copy engine can read,
+    with a kend whose K and V fit in shared memory, takes the resident
+    strip (``attention_fwd_strip_sm90_kernel``: wgmma, each head's K and V
+    resident while its query tiles run; counted in
+    ``LAUNCHES["attention_dma_sm90"]`` too); fp32 and longer keys the
+    mma.sync / CUDA-core body (``attention_fwd_tma_kernel``), which raises
+    where the copy engine cannot read the strips (D times the element
+    size, or the row, not a multiple of 16 bytes; qkv not 16-byte
+    aligned). Neither gives way to the other after a refusal. On the CPU
+    the plain version. No autograd: the output records no gradient, as
+    the raw Pallas call has no AD rule.
     """
-    return _launch("vast_tmajor_dma_attention_fwd", "attention_dma", qkv,
-                   heads, lk_true, _attention_dma_plain,
-                   " (the copy engine reads rows of D x itemsize bytes, a "
-                   "multiple of 16, from a 16-byte-aligned qkv)")
+    return _route("attention_dma", qkv, heads, lk_true, _attention_dma_plain,
+                  lambda: dma_entry(qkv, heads, lk_true),
+                  " (the copy engine reads rows of D x itemsize bytes, a "
+                  "multiple of 16, from a 16-byte-aligned qkv)")
 
 
 def attention_sect(qkv, *, heads: int, lk_true: int = 0):
@@ -141,14 +197,17 @@ def attention_sect(qkv, *, heads: int, lk_true: int = 0):
     K_all | V_all]): head i's q at i*D, k at H*D + i*D, v at 2*H*D + i*D.
 
     The counterpart of the JAX script's ``attention_sect`` (:130,
-    ``_sect_kernel`` :118): on CUDA the kernel
-    ``vast_tmajor_sect_attention_fwd``, the strided mma.sync forward
-    (``self_attention_tmajor``'s body for views the copy engine cannot
-    read) at those offsets; on the CPU the plain
-    version. No autograd, as :func:`attention_dma`.
+    ``_sect_kernel`` :118). On CUDA (:func:`sect_entry`) bf16 that the
+    copy engine can read takes the shared Hopper forward body
+    (``attention_fwd_sm90_kernel``, cur's instantiation, through tensor
+    maps of the section-major views; counted in
+    ``LAUNCHES["attention_sect_sm90"]`` too), the rest the strided
+    mma.sync / CUDA-core forward (``self_attention_tmajor``'s body for
+    views the copy engine cannot read) at those offsets; on the CPU the
+    plain version. No autograd, as :func:`attention_dma`.
     """
-    return _launch("vast_tmajor_sect_attention_fwd", "attention_sect", qkv,
-                   heads, lk_true, _attention_sect_plain)
+    return _route("attention_sect", qkv, heads, lk_true,
+                  _attention_sect_plain, lambda: sect_entry(qkv, heads))
 
 
 def make_inputs(b=B, lp=LP, heads=H, d=D, device=None):
