@@ -39,7 +39,8 @@ exits non-zero with no result line:
               grouped ITM scores at a shape that takes the head-major
               kernel; then one train step on each (under the 'attn'
               checkpoint policy, injected ITM negatives): losses, every
-              gradient and every parameter after the step.
+              gradient and every parameter after the step; and ret%tvas,
+              the subtitle stream's features and the ITC + ITM losses.
 5. slice    - the flagship model (EVA01-g 40 layers + BEATs 12 + BERT 12,
               bf16, random weights from a seeded generator) runs the port's
               ``evaluate_ret`` over 16 synthetic clips in batches of 8:
@@ -127,16 +128,40 @@ exits non-zero with no result line:
               profiler's device time per launch of the dQ kernel and of
               the dK/dV kernel apart, SDPA's backward alone, and the
               largest difference between the bodies' gradients.
+15. cli_ret_tvas - the port's CLI (``vast_tpu_torch.run.main``, in
+              process) on the released retrieval-msrvtt.json (ret%tvas:
+              EVA01-g 40 layers, BEATs 12, BERT-base; random seeded
+              weights) over a synthetic MSR-VTT-shaped set under a
+              temporary VAST_DATA: 32 train and 16 test clips, a caption
+              and a 60-word subtitle each, 16 JPEG frames a clip
+              (vision_format video_frame: the machine has no video
+              decoder; the decoders line says what it found) and a 10.3 s
+              wav. Reduced by flags only: batch 8 (train and test),
+              'attn' checkpointing, 6 steps, valid_freq 1. first_eval at
+              step 0, evaluations and saves after steps 4 and 6, then
+              ``--mode testing --checkpoint model_step_6.pt``, whose R@k
+              must equal the run's at step 6. Exact launch counts per
+              evaluation (80 EVA and 24 BEATs forwards on the Hopper
+              body; 48 head-major ones, all at 640 queries over 4438
+              keys: row 6) and per train step (52 forwards, 52 backwards
+              given the lse, all on the Hopper bodies); the saved model
+              reloaded with no key missing or unexpected, a moment per
+              trainable tensor in the saved
+              optimizer; seconds per stage, train and eval clips/s
+              (host-paced), peak memory, the checkpoint's bytes and save
+              seconds, and one profiled train step's idle share.
 
 Then the ``{"kernels": [...]}`` line (each row's launches from its path's
 counted run: the slice for forwards, the train step for lse forwards and
-backwards, the probe's run for its two kernels; 0 for the rows no path
+backwards, the probe's run for its two kernels, the CLI's training run
+for the 16-frame rerank; 0 for the rows no path
 reaches; each row names its bf16 body) and, last, the ``{"ok": true,
 ...}`` line. Imports nothing of JAX or of ``vast_tpu``.
 """
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -160,6 +185,18 @@ CA = dict(vision_encoder_type="clip_vit_large_14_336px",
 CA_TOP_K = 16                        # every text reranks every clip
 CA_COND_TOKENS = FRAMES * 577 + 257  # 4873
 CA_RERANK_TEXTS = N_CLIPS * CA_TOP_K // N_CLIPS     # 16: Lq 640
+
+# the cli_ret_tvas phase: the released retrieval-msrvtt.json (ret%tvas,
+# 8 train and 16 eval frames, 70 subtitle tokens) over 32 train and 16
+# test clips of synthetic MSR-VTT-shaped data
+CLI_TRAIN_CLIPS, CLI_TEST_CLIPS, CLI_STEPS = 32, 16, 6
+CLI_EVAL_FRAMES, CLI_SUBTITLE_LEN = 16, 70
+TVAS_COND_TOKENS = CLI_EVAL_FRAMES * 257 + 256 + CLI_SUBTITLE_LEN   # 4438
+# rerank_scores: top min(itm_rerank_num 50, 16 clips) = 16 clips per text,
+# so each clip's segment holds all 16 texts (texts_per_seg 32), and
+# conds_per_call 4 segments share a call: 4 calls of 640 queries
+TVAS_RERANK_TEXTS = CLI_TEST_CLIPS
+CLI_RERANK_CALLS = CLI_TEST_CLIPS // RERANK_CANDS
 
 # published dense peaks of the card this script is written for (NVIDIA's
 # data sheet, H100 SXM at 700 W): bf16 tensor and fp32 CUDA-core FLOP/s,
@@ -207,6 +244,13 @@ KERNELS = [
          views="token_major", b=RERANK_CANDS,
          lq=CA_RERANK_TEXTS * TEXT_LEN, lk=CA_COND_TOKENS, h=12, d=64,
          scale=0.125, bias=False),
+    # the ret%tvas evaluation at MSR-VTT's 16 frames (phase cli_ret_tvas):
+    # 16 texts of a candidate over its 16 x 257 + 256 + 70 = 4438
+    # condition tokens (Lk > 4096: vast_tpu's looped kernel)
+    dict(name="flash_attention_fwd", at="tvas_rerank", path="cli_ret_tvas",
+         replaces=f"{PALLAS}:137", layout="hmajor", views="token_major",
+         b=RERANK_CANDS, lq=TVAS_RERANK_TEXTS * TEXT_LEN,
+         lk=TVAS_COND_TOKENS, h=12, d=64, scale=0.125, bias=False),
     # their training: the forward with the lse, and the backward (AST's
     # shape takes vast_tpu's fused kernel, CLIP's its tiled pair)
     dict(name="flash_attention_fwd_lse", at="clip_l14_336",
@@ -1258,7 +1302,7 @@ def tiny_clip_ast_config(remat_policy="none"):
         bert_cfg=tiny_bert(**remat))
 
 
-def tiny_batch(np, rs, mask_tail=False, distinct=False):
+def tiny_batch(np, rs, mask_tail=False, distinct=False, subtitle=False):
     """Three clips of noise frames and waveform, and captions. With
     ``distinct`` the clips differ in brightness and loudness: a CLS token
     over 257 tokens averages 256 patches, so clips of equal statistics
@@ -1271,19 +1315,27 @@ def tiny_batch(np, rs, mask_tail=False, distinct=False):
         mask[0, 9:] = 0
     level = np.array([0.25, 0.6, 1.0]) if distinct else np.ones(3)
     frames = rs.randint(0, 256, (3, 2, 40, 48, 3))
-    return {"vision_frames": (frames * level[:, None, None, None, None]
-                              ).astype(np.uint8),
-            # one 64-frame clip: the training clip choice has one option
-            "audio_waveforms": (rs.randn(3, 63 * 160 + 400) * 3000
-                                * (4 * level if distinct else level)[:, None]
-                                ).astype(np.float32),
-            "caption_tokens": rs.randint(106, 170, (3, 12)).astype(np.int32),
-            "caption_attention_mask": mask}
+    batch = {"vision_frames": (frames * level[:, None, None, None, None]
+                               ).astype(np.uint8),
+             # one 64-frame clip: the training clip choice has one option
+             "audio_waveforms": (rs.randn(3, 63 * 160 + 400) * 3000
+                                 * (4 * level if distinct else level)[:, None]
+                                 ).astype(np.float32),
+             "caption_tokens": rs.randint(106, 170, (3, 12)).astype(np.int32),
+             "caption_attention_mask": mask}
+    if subtitle:                     # 12 tokens, the last 4 of one padding
+        sub_mask = np.ones((3, 12), np.int32)
+        sub_mask[1, 8:] = 0
+        batch |= {"subtitle_tokens": rs.randint(106, 170, (3, 12)
+                                                ).astype(np.int32),
+                  "subtitle_attention_mask": sub_mask}
+    return batch
 
 
-def tiny_features(torch, np, config, launched_want, distinct=False):
-    """ret%tva features of ``config``'s model, seeded weights, on the GPU
-    (kernels) against the CPU (plain versions); the models."""
+def tiny_features(torch, np, config, launched_want, distinct=False,
+                  subtask="tva"):
+    """ret%``subtask`` features of ``config``'s model, seeded weights, on
+    the GPU (kernels) against the CPU (plain versions); the models."""
     from vast_tpu_torch.convert.from_jax import init_random_
     from vast_tpu_torch.models.vast import VASTModel
     from vast_tpu_torch.ops import flash_attention as fa
@@ -1293,14 +1345,15 @@ def tiny_features(torch, np, config, launched_want, distinct=False):
                        torch.Generator().manual_seed(SEED))
     gpu = VASTModel(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
-    batch = tiny_batch(np, np.random.RandomState(SEED), distinct=distinct)
+    batch = tiny_batch(np, np.random.RandomState(SEED), distinct=distinct,
+                       subtitle="s" in subtask)
     outs, launched = [], {}
     with torch.inference_mode():
         for model in (cpu, gpu):
             before = dict(fa.LAUNCHES)
             tb = {k: torch.from_numpy(v).to(model.device)
                   for k, v in batch.items()}
-            outs.append(model(tb, "ret%tva"))
+            outs.append(model(tb, f"ret%{subtask}"))
             launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
     want = {k: launched_want.get(k, 0) for k in fa.LAUNCHES}
     check(launched == want, f"tiny features launches {launched} != {want}")
@@ -1308,7 +1361,8 @@ def tiny_features(torch, np, config, launched_want, distinct=False):
            "tolerance_reason": "fp32 on both sides (TF32 off), other "
                                "summation orders through 2+2+2 layers",
            "launches": launched}
-    for key in ("feat_t", "feat_cond_tva", "condition_feats_tva"):
+    for key in ("feat_t", f"feat_cond_{subtask}",
+                f"condition_feats_{subtask}"):
         ref, got = outs[0][key], outs[1][key].cpu()
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
         row[key] = rel
@@ -1353,7 +1407,42 @@ def phase_tiny(torch, np):
          "tmajor_attention_bwd": 2, "tmajor_attention_bwd_bias": 2,
          # fp32: the CUDA-core bodies, the forward's lse handed over
          "tmajor_attention_bwd_lse": 4})
+    row["ret_tvas"] = tiny_tvas(torch, np)
     emit({"phase": "tiny"} | row)
+
+
+def tiny_tvas(torch, np):
+    """ret%tvas, the subtitle stream's features and the ITC + ITM losses
+    (injected negatives), on the GPU against the CPU. The subtitle's
+    70-token BERT pass takes the plain route: the kernels launched are
+    EVA's and BEATs' (2 + 2 forwards a pass)."""
+    from vast_tpu_torch.models.vast import VASTModel
+
+    row, _, _ = tiny_features(
+        torch, np, tiny_config,
+        {"tmajor_attention_fwd": 2, "tmajor_attention_fwd_bias": 2},
+        subtask="tvas")
+    # the losses from tiny_train_inputs' weights (temperature 0.07,
+    # LayerNorm gains near 1), where fp32 on two devices agrees
+    cpu, batch = tiny_train_inputs(torch, np)
+    gpu = VASTModel(cpu.cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    batch |= tiny_batch(np, np.random.RandomState(SEED + 1), mask_tail=True,
+                        subtitle=True)
+    losses = []
+    with torch.no_grad():
+        for model in (cpu, gpu):
+            tb = {k: torch.from_numpy(v).to(model.device)
+                  for k, v in batch.items()}
+            losses.append({k: v.item() for k, v in
+                           model(tb, "ret%tvas", compute_loss=True).items()})
+    check(losses[0].keys() == {"loss_itc", "loss_itm"}, f"{losses[0]}")
+    for k in losses[0]:
+        rel = abs(losses[1][k] - losses[0][k]) / abs(losses[0][k])
+        check(math.isfinite(rel) and rel <= 1e-4,
+              f"tiny ret%tvas {k}: relative error {rel}")
+        row[f"{k}_rel_err"] = rel
+    return row | {"losses_cpu": losses[0], "losses_gpu": losses[1]}
 
 
 def phase_tiny_clip_ast(torch, np):
@@ -1851,6 +1940,352 @@ def phase_train_clip_ast(torch, np):
     return lse_by_tower, bwd_by_lq
 
 
+CLI_WORDS = ("a man woman dog cat is run walk play ball park red blue green "
+             "car bike street water beach sing music guitar drum bird talk "
+             "jump ride eat food table chair room house tree sky sun rain "
+             "snow boy girl child people crowd two three with at near over "
+             "under small big fast slow video audio").split()
+
+
+def decoders():
+    """Which host decoders this machine has: the repo's native runtime
+    (its JPEG and FFmpeg paths), decord, the ffmpeg CLI and PIL."""
+    import importlib.util
+    import shutil
+
+    out = {"ffmpeg": shutil.which("ffmpeg") is not None,
+           "decord": importlib.util.find_spec("decord") is not None,
+           "pil": importlib.util.find_spec("PIL") is not None}
+    try:
+        import runtime
+        out["runtime"] = bool(runtime.available())
+        out["runtime_media"] = bool(out["runtime"]
+                                    and runtime.media_available())
+    except ImportError as e:
+        out["runtime"] = out["runtime_media"] = False
+        out["runtime_error"] = str(e)
+    return out
+
+
+def write_msrvtt(np, root):
+    """A synthetic MSR-VTT under ``root``/msrvtt: ret_train.json (32
+    clips) and ret_test.json (16), each clip with a caption and a
+    60-word subtitle from the tiny vocabulary; 16 JPEG frames a clip at
+    MSR-VTT's 320 x 240 (smooth seeded noise) under videos/<id>/; a
+    16 kHz mono wav of 10.3 s under audios/<id>.wav (1024 fbank frames:
+    BEATs' whole input)."""
+    import wave
+
+    from PIL import Image
+
+    rs = np.random.RandomState(SEED + 9)
+    base = os.path.join(root, "msrvtt")
+    for sub in ("annotations", "videos", "audios"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    annos = {"ret_train": [], "ret_test": []}
+    n = CLI_TRAIN_CLIPS + CLI_TEST_CLIPS
+    t = np.arange(164800) / 16000.0
+    for i in range(n):
+        vid = f"video{i}"
+        split = "ret_train" if i < CLI_TRAIN_CLIPS else "ret_test"
+        annos[split].append({
+            "video_id": vid,
+            "desc": " ".join(rs.choice(CLI_WORDS, 10)),
+            "subtitle": " ".join(rs.choice(CLI_WORDS, 60))})
+        frame_dir = os.path.join(base, "videos", vid)
+        os.makedirs(frame_dir, exist_ok=True)
+        for f in range(CLI_EVAL_FRAMES):
+            small = (rs.rand(12, 16, 3) * 255).astype(np.uint8)
+            Image.fromarray(small).resize((320, 240), Image.BILINEAR).save(
+                os.path.join(frame_dir, f"{f:03d}.jpg"), quality=90)
+        tone = (np.sin(2 * np.pi * (150 + 20 * i) * t) * 3000
+                + rs.randn(t.size) * 300).astype(np.int16)
+        with wave.open(os.path.join(base, "audios", vid + ".wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(tone.tobytes())
+    for split, rows in annos.items():
+        with open(os.path.join(base, "annotations", split + ".json"),
+                  "w") as f:
+            json.dump(rows, f)
+
+
+class CliCounters:
+    """Counts of the CLI run, hooked into the pipeline's module names:
+    kernel launches per evaluation and per train step, the head-major
+    forwards by (Lq, Lk), each evaluation's and save's seconds, the
+    checkpoint's bytes, the step metrics, and one step under the
+    profiler."""
+
+    def __init__(self, torch, profile_step):
+        from vast_tpu_torch.ops import attention
+        from vast_tpu_torch.ops import flash_attention as fa
+        from vast_tpu_torch.training import pipeline, saver
+
+        self.torch, self.fa = torch, fa
+        self.mods = {(pipeline, "evaluate_mm"), (pipeline, "make_train_step"),
+                     (attention, "flash_attention"),
+                     (saver.ModelSaver, "save")}
+        self.saved = {(m, n): getattr(m, n) for m, n in self.mods}
+        self.evals, self.steps, self.saves, self.metrics = [], [], [], []
+        self.step_s = []
+        self.hmajor_shapes = {}
+        self.profile_step = profile_step
+
+    def _delta(self, fn):
+        before = dict(self.fa.LAUNCHES)
+        out = fn()
+        return out, {k: v - before[k] for k, v in self.fa.LAUNCHES.items()
+                     if v != before[k]}
+
+    def __enter__(self):
+        from vast_tpu_torch.ops import attention
+        from vast_tpu_torch.training import pipeline, saver
+
+        torch = self.torch
+        evaluate, make = pipeline.evaluate_mm, pipeline.make_train_step
+        flash, save = attention.flash_attention, saver.ModelSaver.save
+
+        def counted_evaluate(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, launched = self._delta(lambda: evaluate(*a, **k))
+            torch.cuda.synchronize()
+            self.evals.append({"step": a[4], "launches": launched,
+                               "seconds": time.perf_counter() - t0})
+            return out
+
+        def counted_make(*a, **k):
+            step = make(*a, **k)
+
+            def run(state, batch, gen):
+                res = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if len(self.steps) == self.profile_step:
+                    profile_run(torch, "cli_ret_tvas_step_profile",
+                                lambda: res.append(step(state, batch, gen)))
+                    out, launched = res[0], {}
+                else:
+                    out, launched = self._delta(
+                        lambda: step(state, batch, gen))
+                torch.cuda.synchronize()
+                self.step_s.append(time.perf_counter() - t0)
+                self.steps.append(launched)
+                self.metrics.append(out[1])
+                return out
+            return run
+
+        def counted_flash(q, k, *a, **kw):
+            key = (q.shape[2], k.shape[2])
+            self.hmajor_shapes[key] = self.hmajor_shapes.get(key, 0) + 1
+            return flash(q, k, *a, **kw)
+
+        def timed_save(sv, state, step, *a, **k):
+            t0 = time.perf_counter()
+            save(sv, state, step, *a, **k)
+            self.saves.append({
+                "step": step, "seconds": time.perf_counter() - t0,
+                "bytes": {kind: os.path.getsize(sv.path(kind, step))
+                          for kind in ("model", "optimizer")}})
+
+        pipeline.evaluate_mm, pipeline.make_train_step = (counted_evaluate,
+                                                          counted_make)
+        attention.flash_attention = counted_flash
+        saver.ModelSaver.save = timed_save
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in self.saved.items():
+            setattr(m, n, fn)
+
+
+def phase_cli_ret_tvas(torch, np):
+    """``python -m vast_tpu_torch.run`` in-process through its ``main``:
+    the released retrieval-msrvtt.json (ret%tvas; EVA01-g 40 layers,
+    BEATs 12, BERT-base, random seeded weights) over a synthetic
+    MSR-VTT-shaped set. first_eval at step 0, 6 train steps (evaluations
+    and saves after steps 4 and 6: valid_steps = 6 // 1 - 1 = 5), then
+    ``--mode testing --checkpoint model_step_6.pt``, whose R@k must equal
+    the training run's at step 6. Launch counts per evaluation (EVA 40 a
+    batch of 8 clips x 16 frames, BEATs 12, the rerank's 4 calls x 12
+    BERT layers of 640 queries over 4438 keys) and per train step (52
+    forwards and 52 backwards on the Hopper bodies, each backward given
+    its forward's lse); the saved model reloads with no key missing or
+    unexpected and the optimizer file holds a moment per trainable
+    tensor."""
+    import shutil
+    import tempfile
+
+    from vast_tpu_torch import run
+    from vast_tpu_torch.ops import flash_attention as fa
+
+    found = decoders()
+    check(found["pil"], f"no decoder for the video_frame route: {found}")
+    emit({"phase": "cli_ret_tvas_decoders", **found,
+          "route": "video_frame",
+          "why": "no ffmpeg CLI, no decord and no native media runtime "
+                 "on this machine for video_rawvideo (mp4); PIL decodes "
+                 "16-frame JPEG directories, vision_format video_frame in "
+                 "a copy of the released config"
+          if not (found["ffmpeg"] or found["decord"]
+                  or found["runtime_media"]) else
+          "one route for every machine: JPEG frame directories, decoded "
+          "by PIL or the native runtime"})
+    root = tempfile.mkdtemp(prefix="vast_cli_ret_tvas_")
+    old_data = os.environ.get("VAST_DATA")
+    try:
+        t0 = time.perf_counter()
+        write_msrvtt(np, root)
+        data_s = time.perf_counter() - t0
+        here = os.path.dirname(os.path.abspath(__file__))
+        with open(os.path.join(here, "vast_tpu", "configs", "finetune_cfg",
+                               "retrieval-msrvtt.json")) as f:
+            cfg = json.load(f)
+        for d in cfg["data_cfg"]["train"] + cfg["data_cfg"]["val"]:
+            d["vision_format"] = "video_frame"
+        cfg_path = os.path.join(root, "retrieval-msrvtt.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        os.environ["VAST_DATA"] = root
+        out_dir = os.path.join(root, "output")
+        reduced = ["--train_batch_size", "8", "--test_batch_size", "8",
+                   "--checkpointing", "true",
+                   "--num_train_steps", str(CLI_STEPS),
+                   "--valid_freq", "1", "--output_dir", out_dir]
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        with CliCounters(torch, profile_step=2) as cc:
+            zero_launches(fa)
+            t0 = time.perf_counter()
+            state, logged = run.main(["--config", cfg_path] + reduced,
+                                     timings=timings)
+            train_wall = time.perf_counter() - t0
+            launches = dict(fa.LAUNCHES)
+        peak_mem = torch.cuda.max_memory_allocated()
+        n_trainable = sum(p.requires_grad for p in state.model.parameters())
+        losses = [{k: v.item() for k, v in m.items()} for m in cc.metrics]
+        ckpt = os.path.join(out_dir, "ckpt", f"model_step_{CLI_STEPS}.pt")
+        # the saved step's weights back into the model that saved them
+        reload = run.load_checkpoint(state.model, ckpt)
+        del state
+        torch.cuda.empty_cache()
+
+        opt_file = os.path.join(out_dir, "ckpt",
+                                f"optimizer_step_{CLI_STEPS}.pt")
+        saved_opt = torch.load(opt_file, map_location="cpu", mmap=True,
+                               weights_only=True)
+        n_mu, n_nu = (len(saved_opt["optimizer"][k]) for k in ("mu", "nu"))
+        saved_step = saved_opt["step"]
+        del saved_opt
+        test_timings = {}
+        with CliCounters(torch, profile_step=-1) as tc:
+            t0 = time.perf_counter()
+            tested = run.main(["--config", cfg_path, "--mode", "testing",
+                               "--checkpoint", ckpt] + reduced,
+                              timings=test_timings)
+            test_wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    finally:
+        if old_data is None:
+            os.environ.pop("VAST_DATA", None)
+        else:
+            os.environ["VAST_DATA"] = old_data
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the losses: finite, ITC and ITM of ret%tvas at every step
+    check(len(losses) == CLI_STEPS, f"{len(losses)} train steps")
+    for row in losses:
+        check(row.keys() == {"loss_itc", "loss_itm", "total_loss"}
+              and all(math.isfinite(v) for v in row.values()),
+              f"step losses {row}")
+    # per evaluation: two batches of 8 clips x 16 frames; 4 rerank calls
+    n_batches = CLI_TEST_CLIPS // 8
+    rerank = CLI_RERANK_CALLS * 12
+    want_eval = {"tmajor_attention_fwd": 40 * n_batches,
+                 "tmajor_attention_fwd_bias": 12 * n_batches,
+                 "tmajor_attention_fwd_sm90": 52 * n_batches,
+                 "flash_attention_fwd": rerank,
+                 "flash_attention_fwd_sm90": rerank}
+    evals = cc.evals + tc.evals
+    check(len(cc.evals) == 3 and [e["step"] for e in cc.evals]
+          == [0, CLI_STEPS - 2, CLI_STEPS] and len(tc.evals) == 1,
+          f"evaluations at {[e['step'] for e in evals]}")
+    for e in evals:
+        check(e["launches"] == want_eval,
+              f"evaluation launches {e['launches']} != {want_eval}")
+    want_shapes = {(TVAS_RERANK_TEXTS * TEXT_LEN, TVAS_COND_TOKENS):
+                   rerank * len(cc.evals)}
+    check(cc.hmajor_shapes == want_shapes and tc.hmajor_shapes ==
+          {k: rerank for k in want_shapes},
+          f"head-major forwards by (Lq, Lk) {cc.hmajor_shapes} (training "
+          f"run), {tc.hmajor_shapes} (testing): want {rerank} an "
+          f"evaluation at {next(iter(want_shapes))}")
+    # per train step (the profiled one is counted in the total only)
+    want_step = {"tmajor_attention_fwd": 40, "tmajor_attention_fwd_bias": 12,
+                 "tmajor_attention_bwd": 40, "tmajor_attention_bwd_bias": 12,
+                 "tmajor_attention_fwd_sm90": 52,
+                 "tmajor_attention_bwd_sm90": 52,
+                 "tmajor_attention_bwd_lse": 52}
+    counted = [st for i, st in enumerate(cc.steps) if i != 2]
+    for st in counted:
+        check(st == want_step, f"train step launches {st} != {want_step}")
+    want_total = {k: want_step.get(k, 0) * CLI_STEPS
+                  + want_eval.get(k, 0) * len(cc.evals) for k in launches}
+    check(launches == want_total,
+          f"the training run's launches {launches} != {want_total}")
+    # the checkpoint: every key reloads, a moment per trainable tensor
+    check(not reload.missing_keys and not reload.unexpected_keys,
+          f"reload of {ckpt}: {reload}")
+    check(n_mu == n_nu == n_trainable and saved_step == CLI_STEPS,
+          f"optimizer file: {n_mu} / {n_nu} moments, step {saved_step}; "
+          f"{n_trainable} trainable tensors")
+    # testing from the saved .pt reproduces the run's R@k at that step
+    key = next(iter(tested))
+    at_step = {name[len(key) + 1:]: hist[str(CLI_STEPS)]
+               for name, hist in logged.items()}
+    check(tested[key] == at_step,
+          f"testing R@k {tested[key]} != training's at step {CLI_STEPS} "
+          f"{at_step}")
+    for part in tested[key].values():
+        for k, v in part.items():
+            if k.endswith(("_r1", "_ravg")):
+                check(0.0 <= v <= 100.0, f"{k} = {v}")
+    # steady state: the steps after the first (its one-off costs) but the
+    # profiled one
+    steady = [t for i, t in enumerate(cc.step_s) if i not in (0, 2)]
+    eval_s = sum(e["seconds"] for e in cc.evals[1:])
+    emit({"phase": "cli_ret_tvas", "config": "vast_tpu/configs/finetune_cfg/"
+          "retrieval-msrvtt.json", "route": "video_frame",
+          "reduced": {"train_batch_size": [64, 8], "test_batch_size": [64, 8],
+                      "checkpointing": [False, True],
+                      "num_train_steps": ["3.6 epochs", CLI_STEPS],
+                      "valid_freq": [10, 1],
+                      "vision_format": ["video_rawvideo", "video_frame"],
+                      "clips": {"train": CLI_TRAIN_CLIPS,
+                                "test": CLI_TEST_CLIPS}},
+          "data_s": data_s, "train_run_s": train_wall,
+          "test_run_s": test_wall, "stage_s": timings,
+          "test_stage_s": test_timings,
+          "step_s": cc.step_s,
+          "train_clips_per_s": 8 / statistics.median(steady),
+          "eval_clips_per_s": CLI_TEST_CLIPS * (len(cc.evals) - 1) / eval_s,
+          "rates": "host-paced, each step and evaluation synchronised at "
+                   "its edges; train: 8 clips over the median step after "
+                   "the first, the profiled one left out; eval: 16 clips "
+                   "an evaluation after the first",
+          "eval_s": [e["seconds"] for e in evals],
+          "max_memory_allocated": peak_mem, "saves": cc.saves,
+          "launches": launches, "launches_per_eval": want_eval,
+          "launches_per_step": want_step,
+          "hmajor_by_lq_lk": {f"{a}x{b}": n
+                              for (a, b), n in cc.hmajor_shapes.items()},
+          "losses": losses, "metrics_at_step": at_step,
+          "metrics_testing": tested[key]})
+    return {"tvas_rerank": launches["flash_attention_fwd_sm90"]}
+
+
 def body_of(spec):
     body = BODIES[spec["layout"]]
     return body[spec["name"]] if isinstance(body, dict) else body
@@ -1911,6 +2346,8 @@ def main():
     _, ca_by_stage = phase_slice_clip_ast(torch, np)
     torch.cuda.empty_cache()
     ca_lse_by_tower, ca_bwd_by_lq = phase_train_clip_ast(torch, np)
+    torch.cuda.empty_cache()
+    cli_launches = phase_cli_ret_tvas(torch, np)
     # each row's launches on its path's counted run (a train block: five
     # steps); the rows of shapes no path reaches have none
     launches_at = {
@@ -1930,6 +2367,7 @@ def main():
         ("flash_attention_fwd_lse", "ast"): ca_lse_by_tower["audio"],
         ("flash_attention_bwd", "clip_l14_336"): ca_bwd_by_lq[577],
         ("flash_attention_bwd", "ast"): ca_bwd_by_lq[257],
+        ("flash_attention_fwd", "tvas_rerank"): cli_launches["tvas_rerank"],
         ("attention_dma", "probe"): probe_launches["attention_dma"],
         ("attention_sect", "probe"): probe_launches["attention_sect"],
     }

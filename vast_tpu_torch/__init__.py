@@ -6,6 +6,8 @@ counterpart is easy to find. The attention kernels that ``vast_tpu`` wrote
 in Pallas for the TPU are hand-written CUDA here (``csrc/``), built with
 ``nvcc`` at first use and bound with ctypes.
 
-Entry points (``models.vast.VASTModel``, ``evaluation.evaluation_mm.
-evaluate_ret``) run on the GPU unless the caller passes ``device="cpu"``.
+Entry points (``python -m vast_tpu_torch.run``, the CLI of the repo's
+``run.py``; ``models.vast.VASTModel``; ``evaluation.evaluation_mm.
+evaluate_ret``) run on the GPU unless the caller passes ``device="cpu"``
+(``--device cpu``).
 """

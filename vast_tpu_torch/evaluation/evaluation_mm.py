@@ -1,15 +1,24 @@
-"""Retrieval evaluation (``ret%...``): features, ITC ranking, ITM rerank.
+"""Multi-modal evaluation: retrieval (``ret%...``).
 
-Counterpart of the retrieval part of ``vast_tpu.evaluation.evaluation_mm``
-for one process on one device. ``evaluate_ret`` takes an iterable of
-numpy batches (the data loader and tokenizer are a later slice): each
-holds the model's input arrays plus ``ids`` (one per sample) and
-``ids_txt`` (one per caption). Condition sequences stay on the device;
-only the pooled features and the score matrices come to the host.
+Counterpart of ``vast_tpu.evaluation.evaluation_mm`` for one process on
+one device. ``evaluate_mm`` runs each ``{task--name: loader}`` and each
+head of its task; ``evaluate_ret`` takes a loader (``BatchLoader``) or
+any iterable of numpy batches, each holding the model's input arrays
+plus ``ids`` (one per sample) and ``ids_txt`` (one per caption).
+Condition sequences stay on the device; only the pooled features and
+the score matrices come to the host.
+
+Batches go through ``_full_batches``' row accounting (evaluation_mm.py:
+86-149 of ``vast_tpu``): a ragged batch is repeat-padded to the loader's
+batch size and only its first ``nv`` sample rows and ``nvt`` text rows
+are kept (they differ when a sample has several captions), and the
+loader's ``padded_tail`` rows, duplicates that align hosts, are dropped
+at the end.
 
 The ITM rerank scores the ITC top-k (text, candidate) pairs grouped by
 candidate, so each candidate's cross-attention K/V is projected once per
-call (``compute_slice_scores_grouped``).
+call (``compute_slice_scores_grouped``). Captioning and QA heads are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +28,9 @@ import time
 import numpy as np
 import torch
 
+from vast_tpu_torch.config import parse_task_string
 from vast_tpu_torch.device import resolve_device
+from vast_tpu_torch.logger import LOGGER
 
 
 class _StageClock:
@@ -49,53 +60,131 @@ def _to_device(batch, device):
             for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
+def evaluate_mm(model, tokenizer, val_loaders: dict, run_cfg,
+                global_step: int = 0, *, device=None,
+                timings: dict | None = None):
+    """``{f"{task}--{name}": loader}`` -> ``{key: {metric: ...}}``, as
+    ``vast_tpu``'s ``evaluate_mm`` (evaluation_mm.py:45-72)."""
+    del tokenizer, global_step   # the captioning and QA heads use them
+    eval_log = {}
+    for key, loader in val_loaders.items():
+        task = key.split("--")[0]
+        LOGGER.info("evaluate on %s", key)
+        val_log = {}
+        for head, subtasks in parse_task_string(task):
+            if head.startswith("ret"):
+                val_log.update(evaluate_ret(model, subtasks, loader, run_cfg,
+                                            device=device, timings=timings))
+            else:
+                raise NotImplementedError(
+                    f"evaluation of the {head!r} head is not ported yet "
+                    f"(ROADMAP queue 1, item 6: captioning and QA)")
+        eval_log[key] = val_log
+    return eval_log
+
+
+_TXT_KEYS = ("caption_tokens", "caption_attention_mask")
+
+
+def _full_batches(loader):
+    """Yield ``(batch, nv, nvt)``: each batch repeat-padded to the
+    loader's ``batch_size`` (text arrays to the next multiple of it), with
+    ``nv`` its real sample rows and ``nvt`` its real text rows. An
+    iterable without ``batch_size`` passes through unpadded."""
+    bs = getattr(loader, "batch_size", None)
+    for batch in loader:
+        n = next((v.shape[0] for k, v in batch.items()
+                  if k not in _TXT_KEYS and isinstance(v, np.ndarray)), None)
+        nt = next((v.shape[0] for k in _TXT_KEYS
+                   if isinstance(v := batch.get(k), np.ndarray)), None)
+        if n is None and nt is not None:
+            n = len(batch["ids"]) if "ids" in batch else nt  # text-only
+        if n is None or bs is None:
+            yield batch, (n if n is not None else bs), (nt or n or bs)
+            continue
+        bst = None if nt is None else -(-nt // bs) * bs
+        if n == bs and (nt is None or nt == bst):
+            yield batch, n, (nt if nt is not None else n)
+            continue
+        padded = {}
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray):
+                target = bst if k in _TXT_KEYS else bs
+                padded[k] = v if v.shape[0] == target else np.concatenate(
+                    [v, np.repeat(v[-1:], target - v.shape[0], axis=0)])
+            elif isinstance(v, (list, tuple)) and len(v) == n:
+                padded[k] = list(v) + [v[-1]] * (bs - n)
+            else:
+                padded[k] = v
+        yield padded, n, (nt if nt is not None else n)
+
+
+def _loader_transforms(loader):
+    d_cfg = getattr(getattr(loader, "dataset", None), "d_cfg", None)
+    return (d_cfg or {}).get("vision_transforms", "none")
+
+
 @torch.inference_mode()
-def evaluate_ret(model, subtasks, batches, run_cfg, *,
-                 vision_transforms: str = "none", device=None,
+def evaluate_ret(model, subtasks, loader, run_cfg, *,
+                 vision_transforms: str | None = None, device=None,
                  timings: dict | None = None):
     """R@1/5/10 of ITC and of the ITM rerank per subtask.
 
-    ``device`` (None: the GPU) must be the model's device. ``timings``,
-    when given, receives seconds per stage: ``condition_features``,
-    ``text_features``, ``itc``, ``itm_rerank``.
+    ``loader``: a ``BatchLoader`` or an iterable of numpy batches.
+    ``vision_transforms`` (None: the loader's dataset config, else
+    'none') must match the batches' frames. ``device`` (None: the GPU)
+    must be the model's device. ``timings``, when given, receives seconds
+    per stage: ``condition_features``, ``text_features``, ``itc``,
+    ``itm_rerank``.
     """
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model is on {model.device}, evaluation asked "
                          f"for {device}")
+    if vision_transforms is None:
+        vision_transforms = _loader_transforms(loader)
     clock = _StageClock(timings, device)
     ids, ids_txt, feats_t, toks, masks = [], [], [], [], []
     cond_feats = {st: [] for st in subtasks}
     cond_seqs = {st: [] for st in subtasks}
-    for batch in batches:
+    for batch, nv, nvt in _full_batches(loader):
         db = _to_device(batch, device)
         db["vision_transforms"] = vision_transforms
-        ids += list(batch["ids"])
-        ids_txt += list(batch["ids_txt"])
+        ids += list(batch["ids"])[:nv]
+        ids_txt += list(batch["ids_txt"])[:nvt]
         out = clock("condition_features", model.condition_features, db,
                     tuple(subtasks))
         ft = clock("text_features", model.text_features,
                    db["caption_tokens"], db["caption_attention_mask"])
         for st in subtasks:
-            cond_feats[st].append(out[f"feat_cond_{st}"].float().cpu())
-            cond_seqs[st].append(out[f"condition_feats_{st}"])
-        feats_t.append(ft.float().cpu())
-        toks.append(np.asarray(batch["caption_tokens"]))
-        masks.append(np.asarray(batch["caption_attention_mask"]))
+            cond_feats[st].append(out[f"feat_cond_{st}"][:nv].float().cpu())
+            cond_seqs[st].append(out[f"condition_feats_{st}"][:nv])
+        feats_t.append(ft[:nvt].float().cpu())
+        toks.append(np.asarray(batch["caption_tokens"])[:nvt])
+        masks.append(np.asarray(batch["caption_attention_mask"])[:nvt])
 
-    feat_t = torch.cat(feats_t).numpy()
-    input_ids, attention_mask = np.concatenate(toks), np.concatenate(masks)
+    # drop the loader's cross-host alignment duplicates at the epoch's end
+    pt = getattr(loader, "padded_tail", 0)
+
+    def local(parts, cat):
+        x = cat(parts)
+        return x[: x.shape[0] - pt]
+
+    ids, ids_txt = ids[: len(ids) - pt], ids_txt[: len(ids_txt) - pt]
+    feat_t = local(feats_t, torch.cat).numpy()
+    input_ids = local(toks, np.concatenate)
+    attention_mask = local(masks, np.concatenate)
     top_k = int(run_cfg.get("itm_rerank_num", 50))
     both = bool(run_cfg.get("ret_bidirection_evaluation"))
     val_log = {}
     for st in subtasks:
-        fc = torch.cat(cond_feats[st]).numpy()
+        fc = local(cond_feats[st], torch.cat).numpy()
         score = clock("itc", np.matmul, feat_t, fc.T)
         log = _metric_log(score, ids, ids_txt, "forward")
         if both:
             log.update(_metric_log(score, ids, ids_txt, "backward"))
         val_log[f"ret_itc_{st}"] = log
-        cseq = torch.cat(cond_seqs[st])
+        cseq = local(cond_seqs[st], torch.cat)
         refined = clock("itm_rerank", rerank_scores, model, cseq, input_ids,
                         attention_mask, score, top_k, "forward")
         log = _metric_log(refined, ids, ids_txt, "forward")

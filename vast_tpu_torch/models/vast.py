@@ -1,13 +1,15 @@
-"""VAST for ``ret%tva`` retrieval: inference and the training losses.
+"""VAST for retrieval (``ret%tv``, ``ta``, ``tva``, ``tvs``, ``tvas``):
+inference and the training losses.
 
 Counterpart of ``vast_tpu.models.vast`` for the retrieval slices:
 on-device preprocessing (uint8 frames -> normalized pixels, with the
 random crop and flip when training; waveform -> kaldi fbank clips, a
 random clip per segment when training), a vision tower over the frames
 (EVA01, or a CLIP ViT: ``vision_encoder_type``), an audio tower over the
-fbank (BEATs, or AST: ``audio_encoder_type``), the BERT text encoder,
-the poolers and projection heads,
-the feature DAG (``get_feature``) for the keys ``ret%tva`` needs, the ITM
+fbank (BEATs, or AST: ``audio_encoder_type``), the BERT text encoder
+(captions, the vast27m per-modality caption streams and subtitles), the
+poolers and projection heads, the feature DAG (``get_feature``,
+vast.py:436-539 of ``vast_tpu``), the ITM
 scores of the rerank (``compute_slice_scores(_grouped)``), and the ITC +
 ITM losses of ``forward_ret(compute_loss=True)`` (vast.py:564-623). The
 other towers (EVA02, Swin, VideoSwin) and the captioning / QA heads come
@@ -46,7 +48,8 @@ from vast_tpu_torch.models.bert import BertConfig, BertForMaskedLM
 from vast_tpu_torch.models.clip_vit import (CLIP_PRESETS,
                                             ClipVisionTransformer,
                                             ClipVitConfig)
-from vast_tpu_torch.models.eva_vit import EVA_PRESETS, EvaVisionTransformer
+from vast_tpu_torch.models.eva_vit import (EVA_PRESETS, EvaVisionTransformer,
+                                           EvaVitConfig)
 from vast_tpu_torch.ops.activations import gelu
 from vast_tpu_torch.ops.fbank import ast_fbank, kaldi_fbank
 from vast_tpu_torch.ops.image import (CLIP_MEAN, CLIP_STD, preprocess_frames,
@@ -66,6 +69,11 @@ class VASTConfig:
     vision_resolution: int = 224
     audio_melbins: int = 64
     audio_target_length: int = 1024
+    max_caption_len: int = 40
+    max_omni_caption_len: int = 70
+    max_subtitle_len: int = 70
+    # "adaptive": the vision frame embedding is added (vast.py:350)
+    frame_embedding_type: str = "adaptive"
     itm_ratio: float = 0.1
     label_smoothing: float = 0.1
     # activation checkpointing of every encoder block (models/remat.py);
@@ -84,6 +92,35 @@ class VASTConfig:
     @property
     def pdtype(self) -> torch.dtype:
         return self.param_dtype or self.dtype
+
+    @classmethod
+    def from_model_cfg(cls, m, dtype=torch.float32, param_dtype=None):
+        """From a merged model_cfg (``config.get_args``), as
+        ``vast_tpu``'s ``VASTConfig.from_model_cfg`` (vast.py:108-137):
+        the keys that name a field. Dicts under
+        ``vision_cfg`` / ``audio_cfg`` / ``bert_cfg`` (scaled-down
+        configs) become the tower's config with ``dtype`` and
+        ``param_dtype``; ``checkpointing`` and ``remat_policy`` reach the
+        preset towers only, as in ``vast_tpu``."""
+        keys = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in dict(m).items() if k in keys}
+        kw.update(dtype=dtype, param_dtype=param_dtype)
+        sub = dict(dtype=dtype, param_dtype=param_dtype)
+        vtype = kw.get("vision_encoder_type", cls.vision_encoder_type)
+        atype = kw.get("audio_encoder_type", cls.audio_encoder_type)
+        if isinstance(kw.get("vision_cfg"), dict):
+            if vtype.startswith(("swin", "videoswin")):
+                raise NotImplementedError(f"vision encoder {vtype} is not "
+                                          f"ported")
+            vc_cls = ClipVitConfig if vtype.startswith("clip") \
+                else EvaVitConfig
+            kw["vision_cfg"] = _tower_config(vc_cls, kw["vision_cfg"], sub)
+        if isinstance(kw.get("audio_cfg"), dict):
+            ac_cls = AstConfig if atype.startswith("ast") else BeatsConfig
+            kw["audio_cfg"] = _tower_config(ac_cls, kw["audio_cfg"], sub)
+        if isinstance(kw.get("bert_cfg"), dict):
+            kw["bert_cfg"] = _tower_config(BertConfig, kw["bert_cfg"], sub)
+        return cls(**kw)
 
     def _sub(self):
         return dict(dtype=self.dtype, param_dtype=self.param_dtype,
@@ -118,6 +155,23 @@ class VASTConfig:
 
     def resolved_bert_cfg(self) -> BertConfig:
         return self.bert_cfg or BertConfig(**self._sub())
+
+
+# keys of vast_tpu's tower configs that its towers read nowhere
+_UNREAD_KEYS = {"BertConfig": ("attention_probs_dropout_prob",),
+                "BeatsConfig": ("dropout",)}
+
+
+def _tower_config(cls, d: dict, sub: dict):
+    """``cls`` from a model_cfg dict; a key the port's tower does not
+    have raises, unless ``vast_tpu`` reads it nowhere either."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unread = _UNREAD_KEYS.get(cls.__name__, ())
+    unknown = sorted(k for k in d if k not in fields and k not in unread)
+    if unknown:
+        raise NotImplementedError(f"{cls.__name__}: {unknown} are not "
+                                  f"ported")
+    return cls(**{k: v for k, v in d.items() if k in fields}, **sub)
 
 
 def label_smoothed_ce(logits, targets, smoothing: float):
@@ -249,14 +303,48 @@ class VASTModel(nn.Module):
             out = self.audio_encoder(x)
         return out.view(b, n, *out.shape[1:])
 
+    # ---------------- pooling (general_module.py:426-449) --------------
+
+    def pool_vision_for_contra(self, feature):
+        """The CLS token per frame, averaged over the frames."""
+        return feature[:, :, 0].mean(dim=1)
+
+    def pool_audio_for_contra(self, feature):
+        """AST's CLS token, BEATs' token mean; averaged over the clips."""
+        if self.cfg.audio_is_ast:
+            return feature[:, :, 0].mean(dim=1)
+        return feature.mean(dim=2).mean(dim=1)
+
+    def pool_text_for_contra(self, feature):
+        return feature[:, 0]
+
     # ---------------- fusion-space inputs (gm.py:476-525) ----------------
 
-    def _multimodal_input(self, output, proj, frame_embedding, type_embedding):
+    def _multimodal_input(self, output, proj, frame_embedding,
+                          type_embedding):
         b, n = output.shape[:2]
         x = proj(output)
-        x = x + _interp_nearest(frame_embedding, n)[:, :, None].to(x.dtype)
+        if frame_embedding is not None:
+            x = x + _interp_nearest(frame_embedding, n)[:, :, None].to(
+                x.dtype)
         return (x.reshape(b, -1, self.multimodal_dim)
                 + type_embedding.to(x.dtype))
+
+    def get_multimodal_forward_input_vision(self, vision_output):
+        adaptive = self.cfg.frame_embedding_type == "adaptive"
+        return self._multimodal_input(
+            vision_output, self.hidden_trans_vision_multimodal,
+            self.vision_frame_embedding if adaptive else None,
+            self.vision_type_embeddings)
+
+    def get_multimodal_forward_input_audio(self, audio_output):
+        return self._multimodal_input(
+            audio_output, self.hidden_trans_audio_multimodal,
+            self.audio_frame_embedding, self.audio_type_embeddings)
+
+    def get_multimodal_forward_input_subtitle(self, subtitle_output):
+        x = self.hidden_trans_subtitle_multimodal(subtitle_output)
+        return x + self.subtitle_type_embeddings.to(x.dtype)
 
     # ---------------- on-device preprocessing ----------------
 
@@ -337,48 +425,68 @@ class VASTModel(nn.Module):
             val = self.forward_audio_encoder(
                 self.get_feature(batch, "audio_spectrograms", cache,
                                  generator))
-        elif key == "caption_output":
+        elif key == "caption_output" or key.startswith("text_output@"):
+            # the caption, or a vast27m stream: vision_caption,
+            # audio_caption, omni_caption (vast.py:463-470)
+            stream = key.split("@", 1)[1] if "@" in key else "caption"
             val = self.multimodal_encoder.encode(
-                batch["caption_tokens"], batch["caption_attention_mask"],
+                batch[f"{stream}_tokens"], batch[f"{stream}_attention_mask"],
+                generator=generator)
+        elif key == "subtitle_output":
+            val = self.multimodal_encoder.encode(
+                batch["subtitle_tokens"], batch["subtitle_attention_mask"],
                 generator=generator)
         elif key == "condition_feats_v":
-            val = self._multimodal_input(
-                self.get_feature(batch, "vision_output", cache, generator),
-                self.hidden_trans_vision_multimodal,
-                self.vision_frame_embedding, self.vision_type_embeddings)
+            val = self.get_multimodal_forward_input_vision(
+                self.get_feature(batch, "vision_output", cache, generator))
         elif key == "condition_feats_a":
-            val = self._multimodal_input(
-                self.get_feature(batch, "audio_output", cache, generator),
-                self.hidden_trans_audio_multimodal,
-                self.audio_frame_embedding, self.audio_type_embeddings)
-        elif key == "condition_feats_va":
+            val = self.get_multimodal_forward_input_audio(
+                self.get_feature(batch, "audio_output", cache, generator))
+        elif key == "condition_feats_s":
+            val = self.get_multimodal_forward_input_subtitle(
+                self.get_feature(batch, "subtitle_output", cache, generator))
+        elif key in ("condition_feats_va", "condition_feats_vs",
+                     "condition_feats_vas"):
             val = torch.cat([self.get_feature(batch, f"condition_feats_{m}",
                                               cache, generator)
-                             for m in "va"], dim=1)
-        elif key == "feat_t":
-            co = self.get_feature(batch, "caption_output", cache, generator)
-            val = _l2norm(self.contra_head_t(co[:, 0]))
-        elif key == "feat_va":
-            vo = self.get_feature(batch, "vision_output", cache, generator)
-            ao = self.get_feature(batch, "audio_output", cache, generator)
-            # the CLS token per frame; BEATs' token mean, AST's CLS token
-            # (vast.py:331-340)
-            pa = (ao[:, :, 0] if self.cfg.audio_is_ast
-                  else ao.mean(dim=2)).mean(dim=1)
-            pooled = torch.cat([vo[:, :, 0].mean(dim=1), pa], dim=1)
-            val = _l2norm(self.contra_head_va(pooled))
+                             for m in key.split("_")[-1]], dim=1)
+        elif key == "feat_t" or key.startswith("feat_t@"):
+            stream = key.split("@", 1)[1] if "@" in key else "caption"
+            co = self.get_feature(
+                batch, "caption_output" if stream == "caption"
+                else f"text_output@{stream}", cache, generator)
+            val = _l2norm(self.contra_head_t(self.pool_text_for_contra(co)))
+        elif key in ("feat_s", "feat_v", "feat_a", "feat_va", "feat_vs",
+                     "feat_vas"):
+            mods = key.split("_")[-1]
+            pooled = torch.cat([self._pooled(batch, m, cache, generator)
+                                for m in mods], dim=1)
+            val = _l2norm(getattr(self, f"contra_head_{mods}")(pooled))
         else:
-            raise NotImplementedError(
-                f"feature {key!r} is outside the ret%tva slice")
+            raise KeyError(key)
         cache[key] = val
         return val
+
+    _POOL = {"v": ("vision_output", "pool_vision_for_contra"),
+             "a": ("audio_output", "pool_audio_for_contra"),
+             "s": ("subtitle_output", "pool_text_for_contra")}
+
+    def _pooled(self, batch, modality, cache, generator):
+        key, pool = self._POOL[modality]
+        return getattr(self, pool)(self.get_feature(batch, key, cache,
+                                                    generator))
 
     # ---------------- task forwards ----------------
 
     def forward_ret(self, batch, subtasks, compute_loss=False,
-                    generator=None):
-        cache = {}
-        feat_t = self.get_feature(batch, "feat_t", cache, generator)
+                    generator=None, cache=None, text_stream="caption"):
+        """Features (``compute_loss=False``) or the ITC + ITM losses of
+        ``subtasks`` against the text stream ``text_stream`` (the caption,
+        or a vast27m stream such as ``vision_caption``)."""
+        cache = {} if cache is None else cache
+        feat_t = self.get_feature(
+            batch, "feat_t" if text_stream == "caption"
+            else f"feat_t@{text_stream}", cache, generator)
         if not compute_loss:
             out = {"feat_t": feat_t, "input_ids": batch["caption_tokens"],
                    "attention_mask": batch["caption_attention_mask"]}
@@ -388,9 +496,11 @@ class VASTModel(nn.Module):
                 out[f"condition_feats_{st}"] = self.get_feature(
                     batch, f"condition_feats_{st[1:]}", cache, generator)
             return out
-        return self._ret_losses(batch, subtasks, cache, feat_t, generator)
+        return self._ret_losses(batch, subtasks, cache, feat_t, generator,
+                                text_stream)
 
-    def _ret_losses(self, batch, subtasks, cache, feat_t, generator):
+    def _ret_losses(self, batch, subtasks, cache, feat_t, generator,
+                    text_stream):
         """ITC and ITM over the batch (vast.py:564-623). Each ITC
         direction detaches its key side, as the reference's gather does;
         ITM pairs every caption with its clip, a hard-negative clip and a
@@ -398,8 +508,8 @@ class VASTModel(nn.Module):
         diagonal zeroed, or injected (``itm_neg_cond_idx`` /
         ``itm_neg_text_idx``, (n_subtasks, B))."""
         c = self.cfg
-        input_ids = batch["caption_tokens"]
-        attention_mask = batch["caption_attention_mask"]
+        input_ids = batch[f"{text_stream}_tokens"]
+        attention_mask = batch[f"{text_stream}_attention_mask"]
         bs = feat_t.shape[0]
         dev = feat_t.device
         targets = torch.arange(bs, device=dev)
@@ -495,6 +605,19 @@ class VASTModel(nn.Module):
         for head, subtasks in parse_task_string(task):
             if not head.startswith("ret"):
                 raise NotImplementedError(f"task head {head!r} is not ported")
-            out.update(self.forward_ret(batch, subtasks, compute_loss,
-                                        generator))
+            if "vision_caption_tokens" not in batch:
+                out.update(self.forward_ret(batch, subtasks, compute_loss,
+                                            generator))
+                continue
+            # vast27m: each subtask against its own caption stream, the
+            # losses averaged (vast.py:769-786)
+            cache = {}
+            for st in subtasks:
+                stream = {"tv": "vision_caption",
+                          "ta": "audio_caption"}.get(st, "omni_caption")
+                r = self.forward_ret(batch, [st], compute_loss, generator,
+                                     cache=cache, text_stream=stream)
+                for k, v in r.items():
+                    out[k] = (out.get(k, 0) + v / len(subtasks)
+                              if compute_loss else v)
         return out

@@ -122,6 +122,27 @@ class AdamW:
         self.acc = ({n: torch.zeros_like(p) for n, p in self.params.items()}
                     if self.accum > 1 else None)
 
+    def state_dict(self) -> dict:
+        """What a resumed run needs to continue exactly: the moments, the
+        update count (the schedule's position) and the accumulation
+        window's micro-batch count and mean gradient."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count,
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy ``state`` (:meth:`state_dict`'s form) into this optimizer's
+        tensors, in their dtypes and on their device."""
+        for key in ("mu", "nu") + (("acc",) if self.acc is not None else ()):
+            mine, theirs = getattr(self, key), state[key]
+            if theirs is None or set(theirs) != set(mine):
+                raise ValueError(f"optimizer state {key!r} does not match "
+                                 f"the model's trainable parameters")
+            for n, t in mine.items():
+                t.copy_(theirs[n])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
     def lr(self, group: str, update: int) -> float:
         """The LR of ``group`` at the 1-based ``update``."""
         return self.lrs[group] * get_lr_ratio(update, self.horizon,
