@@ -150,8 +150,39 @@ exits non-zero with no result line:
               optimizer; seconds per stage, train and eval clips/s
               (host-paced), peak memory, the checkpoint's bytes and save
               seconds, and one profiled train step's idle share.
+16. tiny_cap_qa (right after tiny) - captioning and QA on the tiny fp32
+              model, the GPU against the same weights on the CPU:
+              cap%tvas and qa%tvas losses with injected masks, every
+              gradient and one 'attn' train step (2 + 2 token-major
+              forwards and backwards); the logits of a padded QA prompt's
+              prefill and of three teacher-forced decode windows over the
+              KV cache; the tokens of greedy and beam-3 generation for
+              captions and the QA prompts, which must be equal. Decoding
+              launches no kernel (BERT's attentions take the plain route).
+17. cli_cap_tvas (after cli_ret_tvas, over its clips) - the port's CLI
+              on the released caption-msrvtt.json (cap%tvas), reduced as
+              cli_ret_tvas is but to 2 steps at a learning rate of 1e-6
+              (at 1e-4 the captions turn empty): first_eval at step 0, an
+              evaluation and a save after each step, then ``--mode
+              testing`` from model_step_2.pt, whose captions and metrics
+              must equal the run's at step 2. The losses exactly
+              {loss_cap, total_loss}; per step 52 forwards and 52
+              backwards on the Hopper bodies, given the lse; per
+              evaluation 40 + 12 token-major forwards a batch and no
+              head-major launch; one caption per test clip; Bleu_1-4,
+              METEOR (which scorer ran), ROUGE_L and CIDEr in [0, 100].
+              Printed: the steps' seconds, each evaluation's seconds split
+              into condition features and decode, its decode steps and
+              generated tokens/s, the saves, the peak memory; the testing
+              run's first generate call under the profiler (device time
+              by kernel, idle share: cli_cap_tvas_decode_profile).
+18. cli_qa_tvas - the same on the released VQA-msrvtt.json (qa%tvas, 8
+              eval frames), 1 step: {loss_qa, total_loss}, the accuracy
+              in [0, 100], one answer per test clip, and testing from
+              model_step_1.pt reproducing the answers and the accuracy.
 
-Then the ``{"kernels": [...]}`` line (each row's launches from its path's
+Then the seconds of every phase (``{"phase_seconds": {...}}``), the
+``{"kernels": [...]}`` line (each row's launches from its path's
 counted run: the slice for forwards, the train step for lse forwards and
 backwards, the probe's run for its two kernels, the CLI's training run
 for the 16-frame rerank; 0 for the rows no path
@@ -1492,9 +1523,10 @@ def tiny_train_inputs(torch, np, temperature=0.07, gain_offset=1.0,
     return cpu, batch
 
 
-def tiny_step(torch, model, batch):
-    """One train step of ``model`` on the numpy ``batch``; its metrics as
-    floats. Gradients stay in ``.grad``, parameters are updated."""
+def tiny_step(torch, model, batch, task="ret%tva"):
+    """One train step of ``task`` for ``model`` on the numpy ``batch``;
+    its metrics as floats. Gradients stay in ``.grad``, parameters are
+    updated."""
     from vast_tpu_torch.training.optimizer import build_optimizer
     from vast_tpu_torch.training.step import (create_train_state,
                                               make_train_step)
@@ -1502,7 +1534,7 @@ def tiny_step(torch, model, batch):
     opt, _ = build_optimizer(
         model, TINY_RUN_CFG,
         {"vision_encoder_type": model.cfg.vision_encoder_type}, 20)
-    step = make_train_step(model, opt, "ret%tva")
+    step = make_train_step(model, opt, task)
     tb = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
     _, m = step(create_train_state(model, opt), tb,
                 torch.Generator().manual_seed(SEED))
@@ -1515,22 +1547,23 @@ def tiny_step(torch, model, batch):
 KEY_BIASES = ("k_proj.bias", "self.key.bias", "attention.linears.1.bias")
 
 
-def tiny_train_step(torch, np, config, launches_want, distinct=False):
-    """One train step of a tiny model under the 'attn' policy on the GPU
-    (kernels) and on the CPU (plain versions), from the same weights and
-    batch (:func:`tiny_train_inputs`); exactly ``launches_want`` on the
-    GPU, nothing else."""
+def tiny_train_step(torch, np, config, launches_want, distinct=False,
+                    task="ret%tva", inputs=None):
+    """One train step of ``task`` for a tiny model under the 'attn' policy
+    on the GPU (kernels) and on the CPU (plain versions), from the same
+    weights and batch (``inputs``, else :func:`tiny_train_inputs`);
+    exactly ``launches_want`` on the GPU, nothing else."""
     from vast_tpu_torch.models.vast import VASTModel
     from vast_tpu_torch.ops import flash_attention as fa
 
-    cpu, batch = tiny_train_inputs(torch, np, config=config,
-                                   distinct=distinct)
+    cpu, batch = inputs or tiny_train_inputs(torch, np, config=config,
+                                             distinct=distinct)
     gpu = VASTModel(cpu.cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     metrics, launched = [], {}
     for model in (cpu, gpu):
         before = dict(fa.LAUNCHES)
-        metrics.append(tiny_step(torch, model, batch))
+        metrics.append(tiny_step(torch, model, batch, task))
         launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
     want = {k: launches_want.get(k, 0) for k in fa.LAUNCHES}
     check(launched == want, f"tiny train step launches {launched} != {want}")
@@ -1577,6 +1610,171 @@ def tiny_train_step(torch, np, config, launches_want, distinct=False):
     out |= {"grad_max_rel_err": grad_err, "grad_tolerance_rel": 1e-4,
             "param_max_abs_err": param_err, "param_tolerance_abs": 1e-4}
     return out
+
+
+def tiny_tokens(np, rs, length, pad_row, pad_from):
+    """Three rows of [CLS] and tiny-vocabulary ids, one row padded."""
+    ids = rs.randint(106, 170, (3, length)).astype(np.int32)
+    ids[:, 0] = 101
+    mask = np.ones((3, length), np.int32)
+    ids[pad_row, pad_from:] = mask[pad_row, pad_from:] = 0
+    return ids, mask
+
+
+def tiny_masked(np, rs, ids, mask):
+    """Masked tokens and labels by mask_tokens' rules, drawn on the host:
+    a GPU's generator draws other positions than a CPU's, so the GPU-CPU
+    comparison injects them (the ``*_masked_*`` keys)."""
+    sel = (rs.rand(*ids.shape) < 0.6) & (mask > 0)
+    sel[:, 0] = False
+    sel[np.arange(len(ids)), mask.sum(1) - 1] = True
+    kind = rs.rand(*ids.shape)
+    masked = np.where(sel & (kind < 0.8), 103, ids)
+    masked = np.where(sel & (kind >= 0.9), rs.randint(106, 170, ids.shape),
+                      masked)
+    return masked.astype(np.int32), np.where(sel, ids, -100).astype(np.int32)
+
+
+def tiny_cap_qa_inputs(torch, np):
+    """:func:`tiny_train_inputs`' model and batch with a subtitle, a
+    question (one row padded), an answer (one row padded) and injected
+    masks of the caption and the answer."""
+    cpu, batch = tiny_train_inputs(torch, np)
+    batch |= tiny_batch(np, np.random.RandomState(SEED + 1), mask_tail=True,
+                        subtitle=True)
+    rs = np.random.RandomState(SEED + 4)
+    batch["caption_tokens"][:, 0] = 101
+    q, qm = tiny_tokens(np, rs, 12, 1, 7)
+    a, am = tiny_tokens(np, rs, 6, 2, 4)
+    batch |= {"question_tokens": q, "question_attention_mask": qm,
+              "answer_tokens": a, "answer_attention_mask": am}
+    for key in ("caption", "answer"):
+        batch[f"{key}_masked_tokens"], batch[f"{key}_masked_labels"] = \
+            tiny_masked(np, rs, batch[f"{key}_tokens"],
+                        batch[f"{key}_attention_mask"])
+    return cpu, batch
+
+
+def tiny_qa_prompt(np):
+    """Three questions of 6 tokens (two rows padded) and BOS."""
+    ids, mask = tiny_tokens(np, np.random.RandomState(SEED + 5), 6, 1, 3)
+    ids[2, 5:] = mask[2, 5:] = 0
+    ones = np.ones((3, 1), np.int32)
+    return (np.concatenate([ids, 101 * ones], 1),
+            np.concatenate([mask, ones], 1))
+
+
+def tiny_decode(torch, np, model, batch):
+    """On ``model``: the condition sequences of cap%tvas, the logits of a
+    padded QA prompt's prefill and of three teacher-forced 2-token windows
+    over the cache, and the tokens of greedy and beam-3 generation for
+    captions (length penalty 0.6) and the QA prompts (1.0)."""
+    from vast_tpu_torch.models.bert import init_cache
+    from vast_tpu_torch.models.generation import (GenerationConfig,
+                                                  _prefill_mask, generate)
+
+    dev = model.device
+    enc = model.multimodal_encoder
+    prompt, pmask = (torch.from_numpy(x).to(dev) for x in tiny_qa_prompt(np))
+    with torch.inference_mode():
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        cond = model(tb, "cap%tvas")["condition_feats_tvas"]
+        b, p = prompt.shape
+        total = p + 4
+        m3 = torch.nn.functional.pad(_prefill_mask(pmask), (0, total - p))
+        kv = enc.precompute_cross_kv(cond)
+        logits, cache = enc(prompt, cache=init_cache(enc.cfg, b, total,
+                                                     device=dev),
+                            cache_index=0, cross_kv=kv, decode_self_mask=m3)
+        dec_mask = torch.cat([pmask, torch.ones_like(pmask[:, :total - p])],
+                             dim=1)
+        out = {"prefill": logits.cpu()}
+        rs = np.random.RandomState(SEED + 6)
+        for i in range(3):
+            w = torch.from_numpy(rs.randint(106, 170, (b, 2))).to(dev)
+            logits, cache = enc(w, cache=cache, cache_index=p - 1 + i,
+                                cache_mask=dec_mask, cross_kv=kv)
+            out[f"window_{i}"] = logits.cpu()
+        for name, kw, qa in (
+                ("greedy", {}, False),
+                ("beam3_lp0.6", dict(num_beams=3, length_penalty=0.6), False),
+                ("qa_greedy", {}, True),
+                ("qa_beam3_lp1.0", dict(num_beams=3, length_penalty=1.0),
+                 True)):
+            extra = dict(prompt_ids=prompt, prompt_mask=pmask) if qa else {}
+            out[name] = generate(model, cond, GenerationConfig(
+                max_new_tokens=8, **kw), **extra).cpu()
+    return out
+
+
+TINY_DECODE_TOKENS = ("greedy", "beam3_lp0.6", "qa_greedy", "qa_beam3_lp1.0")
+
+
+TINY_STEP_LAUNCHES = {"tmajor_attention_fwd": 2, "tmajor_attention_fwd_bias": 2,
+                      "tmajor_attention_bwd": 2,
+                      "tmajor_attention_bwd_bias": 2,
+                      # fp32: the CUDA-core bodies, the lse handed over
+                      "tmajor_attention_bwd_lse": 4}
+
+
+def tiny_cap_qa_step(torch, np, task):
+    """``task``'s losses (injected masks), every gradient and one train
+    step of the tiny model under 'attn', the GPU against the CPU."""
+    return tiny_train_step(torch, np, tiny_config, TINY_STEP_LAUNCHES,
+                           task=task, inputs=tiny_cap_qa_inputs(torch, np))
+
+
+def tiny_cap_qa_decode(torch, np):
+    """:func:`tiny_decode` on the GPU against the CPU, from the same
+    weights: logits within 1e-4 of their largest, every token equal, and
+    no launch but the condition's EVA and BEATs forwards (BERT's
+    attentions take the plain route). The matrices are drawn from N(0,
+    0.2) here: at N(0, 0.02) the condition barely reaches the logits and
+    every row and beam decodes alike. fp32 against fp64 on the CPU reads
+    within 8e-7 of the largest logit there, every token equal."""
+    from vast_tpu_torch.models.vast import VASTModel
+    from vast_tpu_torch.ops import flash_attention as fa
+
+    cpu, batch = tiny_cap_qa_inputs(torch, np)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if p.dim() >= 2:
+                p.mul_(10.0)
+    gpu = VASTModel(cpu.cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    ref = tiny_decode(torch, np, cpu, batch)
+    before = dict(fa.LAUNCHES)
+    got = tiny_decode(torch, np, gpu, batch)
+    launched = {k: v - before[k] for k, v in fa.LAUNCHES.items()
+                if v != before[k]}
+    want = {"tmajor_attention_fwd": 2, "tmajor_attention_fwd_bias": 2}
+    check(launched == want, f"tiny decode launches {launched} != {want}")
+    errs = {}
+    for k, v in ref.items():
+        if k in TINY_DECODE_TOKENS:
+            check(torch.equal(got[k], v),
+                  f"tiny {k} tokens: GPU {got[k].tolist()} != CPU "
+                  f"{v.tolist()}")
+            continue
+        errs[k] = ((got[k] - v).abs().max() / v.abs().max()).item()
+        check(math.isfinite(errs[k]) and errs[k] <= 1e-4,
+              f"tiny decode {k} logits: relative error {errs[k]}")
+    return {"logits_rel_err": errs, "tolerance_rel": 1e-4,
+            "launches": launched,
+            "tokens": {k: ref[k].tolist() for k in TINY_DECODE_TOKENS}}
+
+
+def phase_tiny_cap_qa(torch, np):
+    """Captioning and QA on a tiny fp32 model, the GPU (kernels) against
+    the same weights on the CPU (plain versions): cap%tvas and qa%tvas
+    losses with injected masks, every gradient and one train step; the
+    logits of a prefill and of teacher-forced decode windows; and the
+    tokens of greedy and beam-3 generation for captions and padded QA
+    prompts, which must be equal."""
+    emit({"phase": "tiny_cap_qa",
+          "cap%tvas": tiny_cap_qa_step(torch, np, "cap%tvas"),
+          "qa%tvas": tiny_cap_qa_step(torch, np, "qa%tvas"),
+          "decode": tiny_cap_qa_decode(torch, np)})
 
 
 def synthetic_batches(np, resolution=224):
@@ -1973,7 +2171,9 @@ def write_msrvtt(np, root):
     60-word subtitle from the tiny vocabulary; 16 JPEG frames a clip at
     MSR-VTT's 320 x 240 (smooth seeded noise) under videos/<id>/; a
     16 kHz mono wav of 10.3 s under audios/<id>.wav (1024 fbank frames:
-    BEATs' whole input)."""
+    BEATs' whole input). For captioning and QA over the same clips
+    (``write_cap_qa``): cap_train.json, cap_test.json and
+    cap_test_coco.json, qa_train.json and qa_test.json."""
     import wave
 
     from PIL import Image
@@ -2005,20 +2205,121 @@ def write_msrvtt(np, root):
             w.setsampwidth(2)
             w.setframerate(16000)
             w.writeframes(tone.tobytes())
+    annos |= write_cap_qa(np, annos["ret_train"], annos["ret_test"])
     for split, rows in annos.items():
         with open(os.path.join(base, "annotations", split + ".json"),
                   "w") as f:
             json.dump(rows, f)
 
 
+CAP_REFS = 3                         # references a test clip in the annfile
+
+
+def write_cap_qa(np, train, test):
+    """The captioning and QA annotations of the clips of ``train`` and
+    ``test`` (ret_*'s rows, with their subtitles): captions of 10 words,
+    ``CAP_REFS`` references a test clip in COCO format (the first is the
+    clip's caption), questions of 8 words and one-word answers, all from
+    ``CLI_WORDS``."""
+    rs = np.random.RandomState(SEED + 10)
+
+    def words(n):
+        return " ".join(rs.choice(CLI_WORDS, n))
+
+    out = {"cap_train": [], "cap_test": [], "qa_train": [], "qa_test": []}
+    coco = []
+    for split, rows in (("train", train), ("test", test)):
+        for r in rows:
+            vid, sub = r["video_id"], r["subtitle"]
+            refs = [words(10) for _ in range(CAP_REFS)]
+            out[f"cap_{split}"].append({"video_id": vid, "desc": refs[0],
+                                        "subtitle": sub})
+            out[f"qa_{split}"].append({"video_id": vid,
+                                       "question": words(8),
+                                       "answer": str(rs.choice(CLI_WORDS)),
+                                       "subtitle": sub})
+            if split == "test":
+                coco += [{"image_id": vid, "caption": c, "id": len(coco) + j}
+                         for j, c in enumerate(refs)]
+    out["cap_test_coco"] = {"annotations": coco}
+    return out
+
+
+def released_config(root, name):
+    """A copy under ``root`` of the released finetune config ``name`` with
+    ``vision_format: video_frame`` (the JPEG frame directories of
+    ``write_msrvtt``); its path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "vast_tpu", "configs", "finetune_cfg",
+                           name)) as f:
+        cfg = json.load(f)
+    for d in cfg["data_cfg"]["train"] + cfg["data_cfg"]["val"]:
+        d["vision_format"] = "video_frame"
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def write_vocab(path, size=30522):
+    """A vocab.txt of BERT-base's ``size`` ids: the built-in tiny
+    vocabulary at its ids (the released special-token ids, the words of
+    ``CLI_WORDS`` whole), then fillers ``w<id>``. Every id the model can
+    generate then decodes to a word of its own, not to [UNK], and the
+    tiny vocabulary's texts tokenize as before."""
+    from vast_tpu_torch.data.tokenizer import tiny_tokenizer
+
+    words = sorted(tiny_tokenizer().vocab, key=tiny_tokenizer().vocab.get)
+    words += [f"w{i}" for i in range(len(words), size)]
+    with open(path, "w") as f:
+        f.write("\n".join(words) + "\n")
+
+
+class msrvtt_data:
+    """``write_msrvtt`` and ``write_vocab`` into a temporary directory,
+    named by ``VAST_DATA`` and ``VAST_TPU_VOCAB`` while the context lasts;
+    yields ``(root, seconds to write it)``. The directory goes at the
+    end."""
+
+    ENV = ("VAST_DATA", "VAST_TPU_VOCAB")
+
+    def __init__(self, np):
+        self.np = np
+
+    def __enter__(self):
+        import tempfile
+
+        self.root = tempfile.mkdtemp(prefix="vast_cli_msrvtt_")
+        self.old = {k: os.environ.get(k) for k in self.ENV}
+        t0 = time.perf_counter()
+        write_msrvtt(self.np, self.root)
+        vocab = os.path.join(self.root, "vocab.txt")
+        write_vocab(vocab)
+        os.environ.update(VAST_DATA=self.root, VAST_TPU_VOCAB=vocab)
+        return self.root, time.perf_counter() - t0
+
+    def __exit__(self, *exc):
+        import shutil
+
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
 class CliCounters:
     """Counts of the CLI run, hooked into the pipeline's module names:
     kernel launches per evaluation and per train step, the head-major
-    forwards by (Lq, Lk), each evaluation's and save's seconds, the
-    checkpoint's bytes, the step metrics, and one step under the
-    profiler."""
+    forwards by (Lq, Lk), each evaluation's and save's seconds, each
+    evaluation's seconds by stage, decode steps and generated tokens (not
+    pad), the checkpoint's bytes, the step metrics, and one step under
+    the profiler."""
 
-    def __init__(self, torch, profile_step):
+    def __init__(self, torch, profile_step, profile_decode=None):
+        from vast_tpu_torch.evaluation import evaluation_mm
+        from vast_tpu_torch.models import generation
         from vast_tpu_torch.ops import attention
         from vast_tpu_torch.ops import flash_attention as fa
         from vast_tpu_torch.training import pipeline, saver
@@ -2026,12 +2327,16 @@ class CliCounters:
         self.torch, self.fa = torch, fa
         self.mods = {(pipeline, "evaluate_mm"), (pipeline, "make_train_step"),
                      (attention, "flash_attention"),
-                     (saver.ModelSaver, "save")}
+                     (saver.ModelSaver, "save"),
+                     (generation, "_bert_step"), (evaluation_mm, "generate")}
         self.saved = {(m, n): getattr(m, n) for m, n in self.mods}
         self.evals, self.steps, self.saves, self.metrics = [], [], [], []
         self.step_s = []
         self.hmajor_shapes = {}
+        self.decode_steps = self.generated = 0
         self.profile_step = profile_step
+        # the phase name under which the first generate call is profiled
+        self.profile_decode = profile_decode
 
     def _delta(self, fn):
         before = dict(self.fa.LAUNCHES)
@@ -2040,21 +2345,49 @@ class CliCounters:
                      if v != before[k]}
 
     def __enter__(self):
+        from vast_tpu_torch.evaluation import evaluation_mm
+        from vast_tpu_torch.models import generation
         from vast_tpu_torch.ops import attention
         from vast_tpu_torch.training import pipeline, saver
 
         torch = self.torch
         evaluate, make = pipeline.evaluate_mm, pipeline.make_train_step
         flash, save = attention.flash_attention, saver.ModelSaver.save
+        bert_step, generate = generation._bert_step, evaluation_mm.generate
 
         def counted_evaluate(*a, **k):
+            stages = k.get("timings")
+            stages = {} if stages is None else stages
+            before = dict(stages)
+            steps, tokens = self.decode_steps, self.generated
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out, launched = self._delta(lambda: evaluate(*a, **k))
             torch.cuda.synchronize()
-            self.evals.append({"step": a[4], "launches": launched,
-                               "seconds": time.perf_counter() - t0})
+            self.evals.append({
+                "step": a[4], "launches": launched,
+                "seconds": time.perf_counter() - t0,
+                "stage_s": {n: v - before.get(n, 0.0)
+                            for n, v in stages.items()
+                            if v != before.get(n)},
+                "decode_steps": self.decode_steps - steps,
+                "generated_tokens": self.generated - tokens})
             return out
+
+        def counted_bert_step(*a, **k):
+            self.decode_steps += 1
+            return bert_step(*a, **k)
+
+        def counted_generate(*a, **k):
+            if self.profile_decode:
+                res = []
+                profile_run(torch, self.profile_decode,
+                            lambda: res.append(generate(*a, **k)))
+                self.profile_decode, toks = None, res[0]
+            else:
+                toks = generate(*a, **k)
+            self.generated += int((toks != a[2].pad_id).sum())
+            return toks
 
         def counted_make(*a, **k):
             step = make(*a, **k)
@@ -2094,6 +2427,8 @@ class CliCounters:
                                                           counted_make)
         attention.flash_attention = counted_flash
         saver.ModelSaver.save = timed_save
+        generation._bert_step = counted_bert_step
+        evaluation_mm.generate = counted_generate
         return self
 
     def __exit__(self, *exc):
@@ -2101,11 +2436,12 @@ class CliCounters:
             setattr(m, n, fn)
 
 
-def phase_cli_ret_tvas(torch, np):
+def phase_cli_ret_tvas(torch, np, root, data_s):
     """``python -m vast_tpu_torch.run`` in-process through its ``main``:
     the released retrieval-msrvtt.json (ret%tvas; EVA01-g 40 layers,
-    BEATs 12, BERT-base, random seeded weights) over a synthetic
-    MSR-VTT-shaped set. first_eval at step 0, 6 train steps (evaluations
+    BEATs 12, BERT-base, random seeded weights) over the synthetic
+    MSR-VTT-shaped set under ``root`` (``write_msrvtt``, which took
+    ``data_s`` seconds). first_eval at step 0, 6 train steps (evaluations
     and saves after steps 4 and 6: valid_steps = 6 // 1 - 1 = 5), then
     ``--mode testing --checkpoint model_step_6.pt``, whose R@k must equal
     the training run's at step 6. Launch counts per evaluation (EVA 40 a
@@ -2116,7 +2452,6 @@ def phase_cli_ret_tvas(torch, np):
     unexpected and the optimizer file holds a moment per trainable
     tensor."""
     import shutil
-    import tempfile
 
     from vast_tpu_torch import run
     from vast_tpu_torch.ops import flash_attention as fa
@@ -2133,22 +2468,8 @@ def phase_cli_ret_tvas(torch, np):
                   or found["runtime_media"]) else
           "one route for every machine: JPEG frame directories, decoded "
           "by PIL or the native runtime"})
-    root = tempfile.mkdtemp(prefix="vast_cli_ret_tvas_")
-    old_data = os.environ.get("VAST_DATA")
     try:
-        t0 = time.perf_counter()
-        write_msrvtt(np, root)
-        data_s = time.perf_counter() - t0
-        here = os.path.dirname(os.path.abspath(__file__))
-        with open(os.path.join(here, "vast_tpu", "configs", "finetune_cfg",
-                               "retrieval-msrvtt.json")) as f:
-            cfg = json.load(f)
-        for d in cfg["data_cfg"]["train"] + cfg["data_cfg"]["val"]:
-            d["vision_format"] = "video_frame"
-        cfg_path = os.path.join(root, "retrieval-msrvtt.json")
-        with open(cfg_path, "w") as f:
-            json.dump(cfg, f)
-        os.environ["VAST_DATA"] = root
+        cfg_path = released_config(root, "retrieval-msrvtt.json")
         out_dir = os.path.join(root, "output")
         reduced = ["--train_batch_size", "8", "--test_batch_size", "8",
                    "--checkpointing", "true",
@@ -2188,11 +2509,7 @@ def phase_cli_ret_tvas(torch, np):
             test_wall = time.perf_counter() - t0
         torch.cuda.empty_cache()
     finally:
-        if old_data is None:
-            os.environ.pop("VAST_DATA", None)
-        else:
-            os.environ["VAST_DATA"] = old_data
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(os.path.join(root, "output"), ignore_errors=True)
 
     # the losses: finite, ITC and ITM of ret%tvas at every step
     check(len(losses) == CLI_STEPS, f"{len(losses)} train steps")
@@ -2286,6 +2603,205 @@ def phase_cli_ret_tvas(torch, np):
     return {"tvas_rerank": launches["flash_attention_fwd_sm90"]}
 
 
+# the cli_cap_tvas and cli_qa_tvas phases: the released captioning and
+# QA configs over write_msrvtt's clips; the fewest steps that give an
+# evaluation and a save after training (captioning two, so that one step
+# is past the first's one-off costs)
+CLI_GEN = {
+    "cap": {"config": "caption-msrvtt.json", "task": "cap%tvas",
+            "dset": "caption_msrvtt", "steps": 2, "loss": "loss_cap",
+            "max_new_tokens": 40,
+            "metrics": ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR",
+                        "ROUGE_L", "CIDEr")},
+    "qa": {"config": "VQA-msrvtt.json", "task": "qa%tvas",
+           "dset": "VQA_msrvtt", "steps": 1, "loss": "loss_qa",
+           "max_new_tokens": 10, "metrics": ("accuracy",)},
+}
+
+
+def generated_rows(out_dir, kind, step):
+    """The captions (cap) or answers (qa) that the evaluation at ``step``
+    wrote under ``out_dir``."""
+    spec = CLI_GEN[kind]
+    if kind == "cap":
+        path = os.path.join(out_dir, f"results_test_{spec['dset']}",
+                            f"step_{step}_tvas.json")
+    else:
+        path = os.path.join(out_dir, "predict_answers",
+                            f"step{step}_pred_{spec['dset']}_tvas.json")
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_cli_generation(torch, np, root, kind):
+    """``python -m vast_tpu_torch.run`` in process on the released
+    caption-msrvtt.json (``kind`` "cap": cap%tvas, beam 3 over at most 40
+    tokens, Bleu/METEOR/ROUGE_L/CIDEr against a COCO annfile) or
+    VQA-msrvtt.json ("qa": qa%tvas, beam 3 over at most 10 tokens after
+    the question, exact-match accuracy) over ``write_msrvtt``'s clips,
+    reduced by flags as cli_ret_tvas is: first_eval at step 0, an
+    evaluation and a save after each of ``CLI_GEN[kind]["steps"]`` steps
+    (at a learning rate of 1e-6), then ``--mode testing --checkpoint``
+    the last save, whose metrics and
+    captions or answers must equal the run's at that step (its first
+    generate call under the profiler). Exact launch
+    counts per evaluation (40 EVA and 12 BEATs forwards a batch on the
+    Hopper body, no head-major launch: BERT's decode and its
+    cross-attention take the plain route) and per train step (52
+    forwards, 52 backwards given the lse, all on the Hopper bodies)."""
+    import shutil
+
+    from vast_tpu_torch import run
+    from vast_tpu_torch.evaluation.metrics.coco_eval import meteor_source
+    from vast_tpu_torch.ops import flash_attention as fa
+
+    from vast_tpu_torch.training import pipeline
+
+    spec = CLI_GEN[kind]
+    steps = spec["steps"]
+    out_dir = os.path.join(root, f"output_{kind}")
+    init = pipeline.init_params
+
+    def init_gains_near_one(model, opts):
+        """The run's seeded N(0, 0.02) weights with 1 added to every
+        LayerNorm gain: with gains near 0 the fusion encoder's output is
+        near 0 and the logits are the decoder bias, so every clip would
+        decode to the same caption."""
+        init(model, opts)
+        with torch.no_grad():
+            for mod in model.modules():
+                if isinstance(mod, torch.nn.LayerNorm):
+                    mod.weight.add_(1.0)
+        return model
+
+    # at the released learning rate (1e-4) one AdamW step moves every
+    # caption to [SEP] first, and the re-test would compare empty strings
+    reduced = ["--train_batch_size", "8", "--test_batch_size", "8",
+               "--checkpointing", "true", "--num_train_steps", str(steps),
+               "--valid_freq", "1", "--learning_rate", "1e-6",
+               "--output_dir", out_dir]
+    try:
+        cfg_path = released_config(root, spec["config"])
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        pipeline.init_params = init_gains_near_one
+        with CliCounters(torch, profile_step=-1) as cc:
+            zero_launches(fa)
+            t0 = time.perf_counter()
+            state, logged = run.main(["--config", cfg_path] + reduced,
+                                     timings=timings)
+            train_wall = time.perf_counter() - t0
+            launches = dict(fa.LAUNCHES)
+        pipeline.init_params = init
+        peak_mem = torch.cuda.max_memory_allocated()
+        losses = [{k: v.item() for k, v in m.items()} for m in cc.metrics]
+        del state
+        torch.cuda.empty_cache()
+        trained = generated_rows(out_dir, kind, steps)
+        ckpt = os.path.join(out_dir, "ckpt", f"model_step_{steps}.pt")
+        test_timings = {}
+        with CliCounters(torch, profile_step=-1,
+                         profile_decode=f"cli_{kind}_tvas_decode_profile"
+                         ) as tc:
+            t0 = time.perf_counter()
+            tested = run.main(["--config", cfg_path, "--mode", "testing",
+                               "--checkpoint", ckpt] + reduced,
+                              timings=test_timings)
+            test_wall = time.perf_counter() - t0
+        retested = generated_rows(out_dir, kind, 0)
+        torch.cuda.empty_cache()
+    finally:
+        pipeline.init_params = init
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    phase = f"cli_{kind}_tvas"
+    check(len(losses) == steps, f"{phase}: {len(losses)} train steps")
+    for row in losses:
+        check(row.keys() == {spec["loss"], "total_loss"}
+              and all(math.isfinite(v) for v in row.values()),
+              f"{phase}: step losses {row}")
+    n_batches = CLI_TEST_CLIPS // 8
+    want_eval = {"tmajor_attention_fwd": 40 * n_batches,
+                 "tmajor_attention_fwd_bias": 12 * n_batches,
+                 "tmajor_attention_fwd_sm90": 52 * n_batches}
+    want_step = {"tmajor_attention_fwd": 40, "tmajor_attention_fwd_bias": 12,
+                 "tmajor_attention_bwd": 40, "tmajor_attention_bwd_bias": 12,
+                 "tmajor_attention_fwd_sm90": 52,
+                 "tmajor_attention_bwd_sm90": 52,
+                 "tmajor_attention_bwd_lse": 52}
+    evals = cc.evals + tc.evals
+    check([e["step"] for e in cc.evals] == list(range(steps + 1))
+          and len(tc.evals) == 1,
+          f"{phase}: evaluations at {[e['step'] for e in evals]}")
+    for e in evals:
+        check(e["launches"] == want_eval,
+              f"{phase}: evaluation launches {e['launches']} != {want_eval}")
+        most = n_batches * spec["max_new_tokens"]
+        check(0 < e["decode_steps"] <= most,
+              f"{phase}: {e['decode_steps']} decode steps (at most {most})")
+    check(not cc.hmajor_shapes and not tc.hmajor_shapes,
+          f"{phase}: head-major forwards {cc.hmajor_shapes} "
+          f"{tc.hmajor_shapes}")
+    for st in cc.steps:
+        check(st == want_step,
+              f"{phase}: train step launches {st} != {want_step}")
+    want_total = {k: want_step.get(k, 0) * steps
+                  + want_eval.get(k, 0) * len(cc.evals) for k in launches}
+    check(launches == want_total,
+          f"{phase}: the training run's launches {launches} != {want_total}")
+    # one caption or answer per test clip, in the loader's order
+    check(len(trained) == CLI_TEST_CLIPS
+          and (kind == "qa" or [r["video_id"] for r in trained]
+               == [f"video{CLI_TRAIN_CLIPS + i}"
+                   for i in range(CLI_TEST_CLIPS)]),
+          f"{phase}: {len(trained)} rows written")
+    key = next(iter(tested))
+    at_step = {name[len(key) + 1:]: hist[str(steps)]
+               for name, hist in logged.items()}
+    metrics = tested[key][f"{'cap' if kind == 'cap' else 'vqa'}_tvas"]
+    check(set(metrics) == set(spec["metrics"])
+          and all(0.0 <= v <= 100.0 for v in metrics.values()),
+          f"{phase}: metrics {metrics}")
+    # testing from the saved .pt: every metric and every row equal
+    check(tested[key] == at_step,
+          f"{phase}: testing {tested[key]} != training's at step {steps} "
+          f"{at_step}")
+    check(retested == trained,
+          f"{phase}: testing wrote other rows than the training run's")
+    decode = []
+    for e in evals:
+        dec_s = e["stage_s"].get("decode", 0.0)
+        decode.append({"step": e["step"], "seconds": e["seconds"],
+                       "stage_s": e["stage_s"],
+                       "decode_steps": e["decode_steps"],
+                       "generated_tokens": e["generated_tokens"],
+                       "generated_tokens_per_s":
+                           e["generated_tokens"] / dec_s if dec_s else None})
+    emit({"phase": phase,
+          "config": f"vast_tpu/configs/finetune_cfg/{spec['config']}",
+          "route": "video_frame",
+          "reduced": {"train_batch_size": [64, 8],
+                      "test_batch_size": [64 if kind == "cap" else 8, 8],
+                      "checkpointing": [False, True],
+                      "num_train_steps": ["5 epochs" if kind == "cap"
+                                          else "4.5 epochs", steps],
+                      "valid_freq": [10, 1], "learning_rate": [1e-4, 1e-6],
+                      "vision_format": ["video_rawvideo", "video_frame"],
+                      "clips": {"train": CLI_TRAIN_CLIPS,
+                                "test": CLI_TEST_CLIPS}},
+          "train_run_s": train_wall, "test_run_s": test_wall,
+          "step_s": cc.step_s, "stage_s": timings,
+          "test_stage_s": test_timings, "evaluations": decode,
+          "max_memory_allocated": peak_mem, "saves": cc.saves,
+          "launches": launches, "launches_per_eval": want_eval,
+          "launches_per_step": want_step, "losses": losses,
+          "metrics_at_step": at_step, "metrics_testing": tested[key],
+          "meteor": meteor_source() if kind == "cap" else None,
+          "distinct_texts": len({r["caption"] if kind == "cap" else r
+                                 for r in trained}),
+          "first_rows": trained[:2]})
+
+
 def body_of(spec):
     body = BODIES[spec["layout"]]
     return body[spec["name"]] if isinstance(body, dict) else body
@@ -2326,28 +2842,46 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = phase_device(torch)
-    phase_build()
-    rows = phase_kernels(torch, name)
-    phase_hmajor_turns(torch)
-    phase_tmajor_turns(torch, name)
-    phase_bwd_turns(torch)
-    probe_rows, probe_launches = phase_tmajor_variants(torch, name)
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t0
+        return out
+
+    name = timed("device", phase_device, torch)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, torch, name)
+    timed("hmajor_turns", phase_hmajor_turns, torch)
+    timed("tmajor_turns", phase_tmajor_turns, torch, name)
+    timed("bwd_turns", phase_bwd_turns, torch)
+    probe_rows, probe_launches = timed("tmajor_variants",
+                                       phase_tmajor_variants, torch, name)
     rows |= probe_rows
     torch.cuda.empty_cache()
-    phase_tiny(torch, np)
-    launches, model, batches, run_cfg = phase_slice(torch, np)
-    phase_profile(torch, model, batches, run_cfg)
+    timed("tiny", phase_tiny, torch, np)
+    timed("tiny_cap_qa", phase_tiny_cap_qa, torch, np)
+    launches, model, batches, run_cfg = timed("slice", phase_slice, torch,
+                                              np)
+    timed("profile", phase_profile, torch, model, batches, run_cfg)
     del model, batches
     torch.cuda.empty_cache()
-    train_launches = phase_train(torch, np)
+    train_launches = timed("train", phase_train, torch, np)
     torch.cuda.empty_cache()
-    phase_tiny_clip_ast(torch, np)
-    _, ca_by_stage = phase_slice_clip_ast(torch, np)
+    timed("tiny_clip_ast", phase_tiny_clip_ast, torch, np)
+    _, ca_by_stage = timed("slice_clip_ast", phase_slice_clip_ast, torch, np)
     torch.cuda.empty_cache()
-    ca_lse_by_tower, ca_bwd_by_lq = phase_train_clip_ast(torch, np)
+    ca_lse_by_tower, ca_bwd_by_lq = timed("train_clip_ast",
+                                          phase_train_clip_ast, torch, np)
     torch.cuda.empty_cache()
-    cli_launches = phase_cli_ret_tvas(torch, np)
+    with msrvtt_data(np) as (root, data_s):
+        cli_launches = timed("cli_ret_tvas", phase_cli_ret_tvas, torch, np,
+                             root, data_s)
+        for kind in CLI_GEN:
+            timed(f"cli_{kind}_tvas", phase_cli_generation, torch, np, root,
+                  kind)
+    emit({"phase_seconds": seconds})
     # each row's launches on its path's counted run (a train block: five
     # steps); the rows of shapes no path reaches have none
     launches_at = {

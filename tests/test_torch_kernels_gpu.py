@@ -1125,3 +1125,35 @@ def test_hopper_backward_entry_refuses_what_the_copy_engine_cannot_read(
         # as test_flash_bwd_kernel_matches_plain
         tol = 1.1 * 2 ** -8 * span if dtype == torch.bfloat16 else 5e-5 * span
         assert err <= tol, (name, err, span)
+
+
+@pytest.mark.parametrize("task", ["cap%tvas", "qa%tvas"])
+def test_tiny_cap_qa_train_step_matches_the_cpu(cuda, task, monkeypatch):
+    """chip_smoke.py's tiny_cap_qa step: the tiny model's captioning or QA
+    loss (injected masks), every gradient and the parameters after one
+    'attn' train step, the GPU against the CPU, with its launches."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    row = cs.tiny_cap_qa_step(torch, np, task)
+    assert row["launches"] == {k: cs.TINY_STEP_LAUNCHES.get(k, 0)
+                               for k in fa.LAUNCHES}
+    assert row["grad_max_rel_err"] <= row["grad_tolerance_rel"]
+
+
+def test_tiny_beam_decode_matches_the_cpu(cuda, monkeypatch):
+    """chip_smoke.py's tiny_cap_qa decode: prefill and decode-window
+    logits, greedy and beam-3 tokens for captions and padded QA prompts,
+    the GPU against the CPU; rows and beams that differ."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    out = cs.tiny_cap_qa_decode(torch, np)
+    assert max(out["logits_rel_err"].values()) <= out["tolerance_rel"]
+    tokens = out["tokens"]
+    assert len({tuple(r) for r in tokens["greedy"]}) > 1
+    assert tokens["beam3_lp0.6"] != tokens["greedy"]

@@ -1,10 +1,13 @@
-"""Multi-modal evaluation: retrieval (``ret%...``).
+"""Multi-modal evaluation: retrieval (``ret%...``), captioning
+(``cap%...``) and QA (``qa%...``).
 
 Counterpart of ``vast_tpu.evaluation.evaluation_mm`` for one process on
 one device. ``evaluate_mm`` runs each ``{task--name: loader}`` and each
 head of its task; ``evaluate_ret`` takes a loader (``BatchLoader``) or
 any iterable of numpy batches, each holding the model's input arrays
 plus ``ids`` (one per sample) and ``ids_txt`` (one per caption).
+``evaluate_cap`` and ``evaluate_qa`` generate over each batch's
+condition sequences (``models/generation.py``) and score the text.
 Condition sequences stay on the device; only the pooled features and
 the score matrices come to the host.
 
@@ -17,12 +20,13 @@ at the end.
 
 The ITM rerank scores the ITC top-k (text, candidate) pairs grouped by
 candidate, so each candidate's cross-attention K/V is projected once per
-call (``compute_slice_scores_grouped``). Captioning and QA heads are not
-ported yet.
+call (``compute_slice_scores_grouped``).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 
 import numpy as np
@@ -30,7 +34,12 @@ import torch
 
 from vast_tpu_torch.config import parse_task_string
 from vast_tpu_torch.device import resolve_device
+from vast_tpu_torch.evaluation.metrics.coco_eval import \
+    compute_caption_metrics
+from vast_tpu_torch.evaluation.vqa_metrics import exact_match_accuracy
 from vast_tpu_torch.logger import LOGGER
+from vast_tpu_torch.models import layers
+from vast_tpu_torch.models.generation import GenerationConfig, generate
 
 
 class _StageClock:
@@ -65,20 +74,25 @@ def evaluate_mm(model, tokenizer, val_loaders: dict, run_cfg,
                 timings: dict | None = None):
     """``{f"{task}--{name}": loader}`` -> ``{key: {metric: ...}}``, as
     ``vast_tpu``'s ``evaluate_mm`` (evaluation_mm.py:45-72)."""
-    del tokenizer, global_step   # the captioning and QA heads use them
     eval_log = {}
     for key, loader in val_loaders.items():
-        task = key.split("--")[0]
+        task, dset_name = key.split("--")[:2]
         LOGGER.info("evaluate on %s", key)
         val_log = {}
         for head, subtasks in parse_task_string(task):
             if head.startswith("ret"):
                 val_log.update(evaluate_ret(model, subtasks, loader, run_cfg,
                                             device=device, timings=timings))
+            elif head.startswith("cap"):
+                val_log.update(evaluate_cap(
+                    model, tokenizer, subtasks, loader, run_cfg, global_step,
+                    dset_name, device=device, timings=timings))
+            elif head.startswith("qa"):
+                val_log.update(evaluate_qa(
+                    model, tokenizer, subtasks, loader, run_cfg, global_step,
+                    dset_name, device=device, timings=timings))
             else:
-                raise NotImplementedError(
-                    f"evaluation of the {head!r} head is not ported yet "
-                    f"(ROADMAP queue 1, item 6: captioning and QA)")
+                raise NotImplementedError(f"evaluation of the {head!r} head")
         eval_log[key] = val_log
     return eval_log
 
@@ -137,10 +151,7 @@ def evaluate_ret(model, subtasks, loader, run_cfg, *,
     per stage: ``condition_features``, ``text_features``, ``itc``,
     ``itm_rerank``.
     """
-    device = resolve_device(device)
-    if model.device != device:
-        raise ValueError(f"model is on {model.device}, evaluation asked "
-                         f"for {device}")
+    device = _check_device(model, device)
     if vision_transforms is None:
         vision_transforms = _loader_transforms(loader)
     clock = _StageClock(timings, device)
@@ -306,3 +317,152 @@ def compute_metric_ret(score_matrix, ids, ids_txt, direction="forward"):
             f"{round(r1*100,1)}/{round(r5*100,1)}/{round(r10*100,1)}",
         f"{direction}_ravg": round((r1 + r5 + r10) / 3 * 100, 1),
     }
+
+
+def _check_device(model, device):
+    device = resolve_device(device)
+    if model.device != device:
+        raise ValueError(f"model is on {model.device}, evaluation asked "
+                         f"for {device}")
+    return device
+
+
+def _gen_config(tokenizer, **kw):
+    return GenerationConfig(
+        bos_id=tokenizer.bos_token_id, eos_id=tokenizer.eos_token_id,
+        pad_id=tokenizer.pad_token_id, mask_id=tokenizer.mask_token_id,
+        **kw)
+
+
+def _condition_batches(model, subtasks, loader, device, clock):
+    """``(batch, nv, {st: condition sequence})`` for each padded batch."""
+    vt = _loader_transforms(loader)
+    for batch, nv, _ in _full_batches(loader):
+        db = _to_device(batch, device)
+        db["vision_transforms"] = vt
+        out = clock("condition_features", model.condition_features, db,
+                    tuple(subtasks))
+        yield batch, nv, {st: out[f"condition_feats_{st}"]
+                          for st in subtasks}
+
+
+@torch.inference_mode()
+def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
+                 dset_name, *, device=None, timings: dict | None = None):
+    """Captions for every clip (evaluation_mm.py:480-573 of ``vast_tpu``):
+    beam search (``beam_size`` beams, length penalty 0.6) of at most
+    ``max_caption_len`` tokens, written to
+    ``results_test_{dset}/step_{N}_{st}.json`` under ``output_dir``, and
+    Bleu_1-4, METEOR, ROUGE_L and CIDEr against the dataset's ``annfile``
+    where it has one. In ``captioner_mode``: ``generate_nums`` top-10
+    samples a clip, flushed to ``gencap_rank0_idx{i}_{st}.json`` every
+    20,000 clips, and no metrics. ``timings``: seconds per stage
+    (``condition_features``, ``decode``)."""
+    device = _check_device(model, device)
+    cfg = model.cfg
+    sample = bool(cfg.captioner_mode)
+    gen_cfg = _gen_config(tokenizer, max_new_tokens=cfg.max_caption_len,
+                          num_beams=1 if sample else cfg.beam_size,
+                          do_sample=sample, top_k=10, length_penalty=0.6)
+    clock = _StageClock(timings, device)
+    out_dir = os.path.join(run_cfg.get("output_dir", "."),
+                           f"results_test_{dset_name}")
+    os.makedirs(out_dir, exist_ok=True)
+    # captioner_mode: {video_id: [captions]} files as the reference's
+    # (evaluation_mm.py:111-154); else [{'video_id', 'caption'}]
+    results = {st: ({} if sample else []) for st in subtasks}
+    gen_idx = 0
+
+    def flush_gencap(st):
+        nonlocal gen_idx
+        path = os.path.join(out_dir, f"gencap_rank0_idx{gen_idx}_{st}.json")
+        with open(path, "w") as f:
+            json.dump(results[st], f)
+        gen_idx += 1
+        results[st] = {}
+
+    gn = cfg.generate_nums if sample else 1
+    gen = layers.seeded(int(run_cfg.get("seed", 50)), device)
+    for batch, nv, conds in _condition_batches(model, subtasks, loader,
+                                               device, clock):
+        vids = list(batch["ids"])[:nv]
+        for st in subtasks:
+            cond = conds[st]
+            if gn > 1:
+                cond = cond.repeat_interleave(gn, dim=0)
+            toks = clock("decode", generate, model, cond, gen_cfg,
+                         generator=gen)
+            caps = tokenizer.batch_decode(toks.cpu().numpy())
+            if sample:
+                for i, vid in enumerate(vids):
+                    results[st][vid] = caps[i * gn:(i + 1) * gn]
+                if len(results[st]) > 20000:
+                    flush_gencap(st)
+            else:
+                results[st] += [{"video_id": vid, "caption": cap}
+                                for vid, cap in zip(vids, caps)]
+    if sample:
+        for st in subtasks:
+            if results[st]:
+                flush_gencap(st)
+        return {}
+
+    pt = getattr(loader, "padded_tail", 0)
+    annfile = getattr(getattr(loader, "dataset", None), "annfile", None)
+    val_log = {}
+    for st in subtasks:
+        rows = results[st][:len(results[st]) - pt]
+        with open(os.path.join(out_dir, f"step_{global_step}_{st}.json"),
+                  "w") as f:
+            json.dump(rows, f)
+        if annfile:
+            val_log[f"cap_{st}"] = compute_caption_metrics(rows, annfile)
+    return val_log
+
+
+@torch.inference_mode()
+def evaluate_qa(model, tokenizer, subtasks, loader, run_cfg, global_step=0,
+                dset_name="", *, device=None, timings: dict | None = None):
+    """Answers by beam search (``beam_size`` beams, length penalty 1.0,
+    at most 10 tokens) after the prompt question + BOS
+    (evaluation_mm.py:576-641 of ``vast_tpu``), written to
+    ``predict_answers/step{N}_pred_{dset}_{st}.json`` under
+    ``output_dir``; the accuracy is the exact match against
+    ``raw_answers`` (any element of a list). ``timings``: seconds per
+    stage (``condition_features``, ``decode``)."""
+    device = _check_device(model, device)
+    gen_cfg = _gen_config(tokenizer, max_new_tokens=10,
+                          num_beams=model.cfg.beam_size, length_penalty=1.0)
+    clock = _StageClock(timings, device)
+    gt_rows, preds = [], {st: [] for st in subtasks}
+    for batch, nv, conds in _condition_batches(model, subtasks, loader,
+                                               device, clock):
+        gt_rows += list(batch["raw_answers"])[:nv]
+        q_ids = torch.from_numpy(np.asarray(batch["question_tokens"]))
+        q_mask = torch.from_numpy(np.asarray(
+            batch["question_attention_mask"]))
+        b = q_ids.shape[0]
+        prompt = torch.cat([q_ids, torch.full(
+            (b, 1), tokenizer.bos_token_id, dtype=q_ids.dtype)], dim=1)
+        pmask = torch.cat([q_mask, torch.ones((b, 1), dtype=q_mask.dtype)],
+                          dim=1)
+        prompt, pmask = prompt.to(device), pmask.to(device)
+        for st in subtasks:
+            toks = clock("decode", generate, model, conds[st], gen_cfg,
+                         prompt_ids=prompt, prompt_mask=pmask)
+            preds[st] += tokenizer.batch_decode(toks.cpu().numpy())[:nv]
+
+    pt = getattr(loader, "padded_tail", 0)
+    gt_rows = gt_rows[:len(gt_rows) - pt]
+    out_dir = os.path.join(run_cfg.get("output_dir", "."), "predict_answers")
+    os.makedirs(out_dir, exist_ok=True)
+    val_log = {}
+    for st in subtasks:
+        rows = preds[st][:len(preds[st]) - pt]
+        with open(os.path.join(
+                out_dir, f"step{global_step}_pred_{dset_name}_{st}.json"),
+                "w") as f:
+            json.dump(rows, f)
+        acc = exact_match_accuracy(rows, gt_rows)
+        val_log[f"vqa_{st}"] = {"accuracy": round(acc * 100, 2)}
+    return val_log

@@ -27,6 +27,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vast_tpu_torch.models import layers
@@ -76,10 +77,14 @@ class BertEmbeddings(nn.Module):
                                           eps=c.layer_norm_eps, device=device,
                                           dtype=c.pdtype)
 
-    def forward(self, input_ids, generator=None):
-        pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
+    def forward(self, input_ids, generator=None, position_ids=None):
+        """``position_ids`` (None: ``arange(L)``) broadcast against
+        ``input_ids``."""
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[-1],
+                                        device=input_ids.device)[None]
         x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(pos)[None]
+             + self.position_embeddings(position_ids)
              + self.token_type_embeddings.weight[0].to(self.cfg.dtype))
         return dropout(self.LayerNorm(x), self.cfg.hidden_dropout_prob,
                        generator)
@@ -130,7 +135,10 @@ class BertAttention(nn.Module):
         return self._heads(self.self.key(x)), self._heads(self.self.value(x))
 
     def forward(self, hidden, kv_source=None, mask=None, precomputed_kv=None,
-                generator=None):
+                generator=None, cache=None, cache_index=None):
+        """``cache`` (decode, self-attention): this window's K/V are
+        written into its slots ``[cache_index, cache_index + lq)`` in
+        place and the query attends over the whole cache."""
         c = self.cfg
         b, lq, _ = hidden.shape
         q = self._heads(self.self.query(hidden))
@@ -152,6 +160,11 @@ class BertAttention(nn.Module):
         else:
             src = hidden if kv_source is None else kv_source
             k, v = self.project_kv(src)
+            if cache is not None:
+                end = cache_index + lq
+                cache["k"][:, cache_index:end] = k.to(cache["k"].dtype)
+                cache["v"][:, cache_index:end] = v.to(cache["v"].dtype)
+                k, v = cache["k"], cache["v"]
         out = multi_head_attention(q, k, v, mask=mask)
         out = out.reshape(b, lq, c.hidden_size)
         return self.output(out, hidden, generator)
@@ -176,10 +189,13 @@ class BertLayer(nn.Module):
         self.output = BertOutput(c, c.intermediate_size, device)
 
     def forward(self, hidden, self_mask=None, encoder_hidden_states=None,
-                cross_mask=None, cross_kv=None, seed: Optional[int] = None):
-        """``seed`` (training): the layer's dropout draws; None: off."""
+                cross_mask=None, cross_kv=None, seed: Optional[int] = None,
+                cache=None, cache_index=None):
+        """``seed`` (training): the layer's dropout draws; None: off.
+        ``cache``: the layer's decode cache ({"k", "v"})."""
         g = None if seed is None else layers.seeded(seed, hidden.device)
-        hidden = self.attention(hidden, mask=self_mask, generator=g)
+        hidden = self.attention(hidden, mask=self_mask, generator=g,
+                                cache=cache, cache_index=cache_index)
         if encoder_hidden_states is not None or cross_kv is not None:
             hidden = self.crossattention(
                 hidden, kv_source=encoder_hidden_states, mask=cross_mask,
@@ -219,26 +235,53 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None,
                 encoder_hidden_states=None, encoder_attention_mask=None,
-                cross_kv=None, generator=None):
+                cross_kv=None, generator=None, cache=None, cache_index=None,
+                cache_mask=None, decode_self_mask=None):
         """Full-sequence forward -> last hidden state (B, L, hidden).
-        ``generator`` (the step's, training): dropout on; None: off."""
+        ``generator`` (the step's, training): dropout on; None: off.
+
+        Decode (``cache`` from :func:`init_cache`): ``input_ids`` is the
+        window at positions ``[cache_index, cache_index + lq)``; its
+        tokens attend over the cache slots that ``cache_mask`` (B, Lc)
+        marks and that lie at or before their own position, or, where
+        given, as ``decode_self_mask`` (B, lq, Lc) says (the prompt's
+        prefill). Returns ``(hidden, cache)``; the cache is written in
+        place. No checkpointing while decoding.
+        """
         c = self.cfg
         drop = generator is not None and c.hidden_dropout_prob > 0.0
         emb_g = None
         if drop:
             emb_g = layers.seeded(layers.next_seed(generator),
                                   input_ids.device)
-        x = self.embeddings(input_ids, emb_g)
-        lq = x.shape[1]
-        self_mask = _extend_mask(attention_mask, lq)
+        lq = input_ids.shape[1]
+        positions = None
+        if cache is not None:
+            positions = cache_index + torch.arange(
+                lq, device=input_ids.device)[None]
+        x = self.embeddings(input_ids, emb_g, positions)
+        if cache is None:
+            self_mask = _extend_mask(attention_mask, lq)
+        elif decode_self_mask is not None:
+            self_mask = decode_self_mask[:, None].bool()
+        else:
+            l_cache = cache[0]["k"].shape[1]
+            pos = torch.arange(l_cache, device=x.device)
+            self_mask = (cache_mask[:, None, None, :].bool()
+                         & (pos[None, None, None, :]
+                            <= positions[:, None, :, None]))
         cross_mask = _extend_mask(encoder_attention_mask, lq)
-        policy = c.remat_policy if c.remat else "none"
+        policy = c.remat_policy if c.remat and cache is None else "none"
         for i, layer in enumerate(self.encoder.layer):
             seed = layers.next_seed(generator) if drop else None
-            x = remat_call(policy, layer, x, self_mask,
-                           encoder_hidden_states, cross_mask,
-                           None if cross_kv is None else cross_kv[i], seed)
-        return x
+            lkv = None if cross_kv is None else cross_kv[i]
+            if cache is not None:
+                x = layer(x, self_mask, encoder_hidden_states, cross_mask,
+                          lkv, seed, cache[i], cache_index)
+            else:
+                x = remat_call(policy, layer, x, self_mask,
+                               encoder_hidden_states, cross_mask, lkv, seed)
+        return x if cache is None else (x, cache)
 
     def precompute_cross_kv(self, encoder_hidden_states):
         return [layer.crossattention.project_kv(encoder_hidden_states)
@@ -253,16 +296,26 @@ class BertPredictionHeadTransform(nn.Module):
         self.LayerNorm = layers.LayerNorm(c.hidden_size,
                                           eps=c.layer_norm_eps, **fk)
 
+    def forward(self, x):
+        return self.LayerNorm(gelu(self.dense(x)))
+
 
 class BertLMPredictionHead(nn.Module):
-    """MLM head weights: transform + decoder bias (the decoder matrix is
-    tied to the word embeddings). Its forward comes with captioning."""
+    """transform + the decoder, whose matrix is tied to the word
+    embeddings (``decoder_weight``), plus its bias."""
 
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
         self.transform = BertPredictionHeadTransform(c, device)
         self.bias = nn.Parameter(torch.zeros(c.vocab_size, device=device,
                                              dtype=c.pdtype))
+
+    def forward(self, hidden, decoder_weight):
+        """fp32 logits: the product in the compute dtype, the bias added
+        in fp32 (``vast_tpu``'s bf16 ``attend`` plus its fp32 bias)."""
+        x = self.transform(hidden)
+        return (F.linear(x, decoder_weight.to(x.dtype)).float()
+                + self.bias.float())
 
 
 class BertOnlyMLMHead(nn.Module):
@@ -274,8 +327,21 @@ class BertOnlyMLMHead(nn.Module):
 class BertForMaskedLM(nn.Module):
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
+        self.cfg = c
         self.bert = BertModel(c, device)
         self.cls = BertOnlyMLMHead(c, device)
+
+    def logits_from_hidden(self, hidden):
+        return self.cls.predictions(
+            hidden, self.bert.embeddings.word_embeddings.weight)
+
+    def forward(self, input_ids, attention_mask=None, **kwargs):
+        """MLM logits (fp32) of :meth:`BertModel.forward`'s hidden states;
+        with a ``cache``, ``(logits, cache)``."""
+        out = self.bert(input_ids, attention_mask, **kwargs)
+        if isinstance(out, tuple):
+            return self.logits_from_hidden(out[0]), out[1]
+        return self.logits_from_hidden(out)
 
     def encode(self, *args, **kwargs):
         """Text encoding without the MLM head (multimodal_encoder.bert)."""
@@ -283,3 +349,23 @@ class BertForMaskedLM(nn.Module):
 
     def precompute_cross_kv(self, encoder_hidden_states):
         return self.bert.precompute_cross_kv(encoder_hidden_states)
+
+
+def init_cache(cfg: BertConfig, batch: int, length: int, device=None):
+    """The decode cache: per layer {"k", "v"} of (B, L, H, D) zeros in the
+    compute dtype (``vast_tpu``'s generate follows the model's)."""
+    h, d = cfg.num_attention_heads, cfg.head_dim
+    kw = dict(dtype=cfg.dtype, device=device)
+    return [{"k": torch.zeros(batch, length, h, d, **kw),
+             "v": torch.zeros(batch, length, h, d, **kw)}
+            for _ in range(cfg.num_hidden_layers)]
+
+
+def mlm_loss(logits, labels, ignore_index: int = -100):
+    """Cross entropy in fp32, averaged over the positions whose label is
+    not ``ignore_index`` (0 where there is none)."""
+    valid = labels != ignore_index
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, labels, 0).long()[..., None])
+    nll = torch.where(valid, nll[..., 0], 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)

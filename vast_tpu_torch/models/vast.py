@@ -1,7 +1,8 @@
-"""VAST for retrieval (``ret%tv``, ``ta``, ``tva``, ``tvs``, ``tvas``):
-inference and the training losses.
+"""VAST for retrieval (``ret%tv``, ``ta``, ``tva``, ``tvs``, ``tvas``),
+captioning (``cap%…``) and QA (``qa%…``): inference and the training
+losses.
 
-Counterpart of ``vast_tpu.models.vast`` for the retrieval slices:
+Counterpart of ``vast_tpu.models.vast``:
 on-device preprocessing (uint8 frames -> normalized pixels, with the
 random crop and flip when training; waveform -> kaldi fbank clips, a
 random clip per segment when training), a vision tower over the frames
@@ -11,16 +12,19 @@ fbank (BEATs, or AST: ``audio_encoder_type``), the BERT text encoder
 poolers and projection heads, the feature DAG (``get_feature``,
 vast.py:436-539 of ``vast_tpu``), the ITM
 scores of the rerank (``compute_slice_scores(_grouped)``), and the ITC +
-ITM losses of ``forward_ret(compute_loss=True)`` (vast.py:564-623). The
-other towers (EVA02, Swin, VideoSwin) and the captioning / QA heads come
-in later slices and raise ``NotImplementedError``.
+ITM losses of ``forward_ret(compute_loss=True)`` (vast.py:564-623), and
+the masked-LM losses of ``forward_cap`` and ``forward_qa`` (vast.py:
+625-711; their generation is ``models/generation.py``). The other towers
+(EVA02, Swin, VideoSwin) come in a later slice and raise
+``NotImplementedError``.
 
 Randomness: a training forward takes the step's CPU ``torch.Generator``
 (``generator``); None is the deterministic (eval) forward. The order of
 draws differs from ``vast_tpu``'s key split, so the two agree on random
 draws in distribution only; the tests inject what they compare
-(``itm_neg_cond_idx`` / ``itm_neg_text_idx``, or configurations with no
-draw).
+(``itm_neg_cond_idx`` / ``itm_neg_text_idx``, the masked captions and
+answers ``{caption,answer}_masked_{tokens,labels}``, or configurations
+with no draw).
 
 The module tree carries the reference torch state-dict names
 (``vision_encoder.visual.*``, ``audio_encoder.*``,
@@ -44,7 +48,7 @@ from vast_tpu_torch.device import resolve_device
 from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.ast import AstConfig, AstModel
 from vast_tpu_torch.models.beats import BeatsConfig, BeatsModel
-from vast_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+from vast_tpu_torch.models.bert import BertConfig, BertForMaskedLM, mlm_loss
 from vast_tpu_torch.models.clip_vit import (CLIP_PRESETS,
                                             ClipVisionTransformer,
                                             ClipVitConfig)
@@ -54,6 +58,7 @@ from vast_tpu_torch.ops.activations import gelu
 from vast_tpu_torch.ops.fbank import ast_fbank, kaldi_fbank
 from vast_tpu_torch.ops.image import (CLIP_MEAN, CLIP_STD, preprocess_frames,
                                       yuv420_to_rgb)
+from vast_tpu_torch.ops.masking import IGNORE_LABEL, mask_tokens
 
 # audio normalization stats per encoder (data/audio_mapper.py:19-24)
 AUDIO_STATS = {"ast": (-4.2677393, 4.5689974), "beats": (15.41663, 6.55582)}
@@ -76,6 +81,14 @@ class VASTConfig:
     frame_embedding_type: str = "adaptive"
     itm_ratio: float = 0.1
     label_smoothing: float = 0.1
+    # generation (evaluation/evaluation_mm.py): beams of a caption or an
+    # answer; captioner_mode samples generate_nums captions a clip
+    beam_size: int = 3
+    captioner_mode: bool = False
+    generate_nums: int = 1
+    # the tokenizer's [MASK] id, set from it by pipeline.build_model; 103
+    # in the released bert-base-uncased vocabulary
+    mask_token_id: int = 103
     # activation checkpointing of every encoder block (models/remat.py);
     # 'attn' is the flagship training policy (bench.py:473-477)
     checkpointing: bool = False
@@ -560,6 +573,84 @@ class VASTModel(nn.Module):
         return {"loss_itc": sum(loss_itc) / len(loss_itc),
                 "loss_itm": sum(loss_itm) / len(loss_itm)}
 
+    def _masked(self, batch, key, prob, generator):
+        """``{key}_tokens`` corrupted for the MLM loss, and its labels:
+        injected (``{key}_masked_tokens`` / ``_labels``, the parity
+        tests) or drawn from the step's generator."""
+        if f"{key}_masked_tokens" in batch:
+            return (batch[f"{key}_masked_tokens"],
+                    batch[f"{key}_masked_labels"])
+        if generator is None:
+            raise ValueError(f"the {key}'s [MASK] positions are drawn at "
+                             f"random: pass a generator or inject "
+                             f"{key}_masked_tokens / {key}_masked_labels")
+        tokens = batch[f"{key}_tokens"]
+        g = layers.seeded(layers.next_seed(generator), tokens.device)
+        return mask_tokens(g, tokens, prob, mask_token=self.cfg.mask_token_id,
+                           range_end=self.multimodal_encoder.cfg.vocab_size)
+
+    def _mlm_losses(self, batch, subtasks, ids, att3, labels, generator,
+                    cache):
+        """The MLM loss of ``ids`` under ``att3`` (B, L, L) against each
+        subtask's condition sequence, averaged over the subtasks."""
+        losses = []
+        for st in subtasks:
+            cond = self.get_feature(batch, f"condition_feats_{st[1:]}",
+                                    cache, generator)
+            logits = self.multimodal_encoder(
+                ids, att3, encoder_hidden_states=cond, generator=generator)
+            losses.append(mlm_loss(logits, labels))
+        return sum(losses) / len(losses)
+
+    def _condition_feats(self, batch, subtasks, generator, cache):
+        return {f"condition_feats_{st}": self.get_feature(
+                    batch, f"condition_feats_{st[1:]}", cache, generator)
+                for st in subtasks}
+
+    def forward_cap(self, batch, subtasks, compute_loss=False,
+                    generator=None, cache=None, caption_key: str = "caption"):
+        """The condition sequences (``compute_loss=False``; generation
+        runs apart), or the captioning loss of the text stream
+        ``caption_key``: 60% of its tokens masked, the caption causal over
+        its valid tokens (the ``tril`` of the broadcast padding mask,
+        vast.py:497-499 of the reference)."""
+        cache = {} if cache is None else cache
+        if not compute_loss:
+            return self._condition_feats(batch, subtasks, generator, cache)
+        corrupted, labels = self._masked(batch, caption_key, 0.6, generator)
+        mask = batch[f"{caption_key}_attention_mask"]
+        att3 = torch.tril(mask[:, None, :].expand(-1, mask.shape[1], -1))
+        return {"loss_cap": self._mlm_losses(batch, subtasks, corrupted,
+                                             att3, labels, generator, cache)}
+
+    def forward_qa(self, batch, subtasks, compute_loss=False,
+                   generator=None):
+        """The condition sequences (``compute_loss=False``), or the QA
+        loss: 99% of the answer's tokens masked after the question; the
+        mask bidirectional over the question, causal over the answer, and
+        question rows blind to the answer (vast.py:594-599 of the
+        reference); the question's labels ignored."""
+        if not compute_loss:
+            return self._condition_feats(batch, subtasks, generator, {})
+        q_ids = batch["question_tokens"]
+        a_corrupted, a_labels = self._masked(batch, "answer", 0.99,
+                                             generator)
+        ids = torch.cat([q_ids, a_corrupted.to(q_ids.dtype)], dim=1)
+        mask = torch.cat([batch["question_attention_mask"],
+                          batch["answer_attention_mask"]], dim=1)
+        labels = torch.cat([torch.full_like(q_ids, IGNORE_LABEL),
+                            a_labels.to(q_ids.dtype)], dim=1)
+        ql, l = q_ids.shape[1], ids.shape[1]
+        att3 = mask[:, None, :].expand(-1, l, -1)
+        r = torch.arange(l, device=ids.device)
+        answer_rows = r[:, None] >= ql
+        answer_cols = r[None, :] >= ql
+        causal = r[None, :] <= r[:, None]
+        keep = ~(answer_cols & ~(answer_rows & causal))
+        att3 = att3 * keep.to(att3.dtype)
+        return {"loss_qa": self._mlm_losses(batch, subtasks, ids, att3,
+                                            labels, generator, {})}
+
     def text_features(self, caption_tokens, caption_attention_mask):
         """feat_t for a text-only chunk (the evaluation path)."""
         batch = {"caption_tokens": caption_tokens,
@@ -598,25 +689,34 @@ class VASTModel(nn.Module):
 
     def forward(self, batch, task: str, compute_loss: bool = False,
                 generator: Optional[torch.Generator] = None):
-        """The task heads of ``task``. ``generator``: the step's CPU
-        generator for a training forward (dropout, drop-path, random crop
-        and clip, ITM negatives); None for a deterministic forward."""
+        """The task heads of ``task`` (vast.py:762-810). ``generator``:
+        the step's CPU generator for a training forward (dropout,
+        drop-path, random crop and clip, ITM negatives, [MASK] positions);
+        None for a deterministic forward. A vast27m batch (one with
+        ``vision_caption_tokens``) pairs each ``ret`` and ``cap`` subtask
+        with its own caption stream (tv: vision_caption, ta:
+        audio_caption, else omni_caption), the losses averaged."""
         out = {}
         for head, subtasks in parse_task_string(task):
-            if not head.startswith("ret"):
+            if head.startswith("qa"):
+                out.update(self.forward_qa(batch, subtasks, compute_loss,
+                                           generator))
+                continue
+            if head.startswith("ret"):
+                run, stream_arg = self.forward_ret, "text_stream"
+            elif head.startswith("cap"):
+                run, stream_arg = self.forward_cap, "caption_key"
+            else:
                 raise NotImplementedError(f"task head {head!r} is not ported")
             if "vision_caption_tokens" not in batch:
-                out.update(self.forward_ret(batch, subtasks, compute_loss,
-                                            generator))
+                out.update(run(batch, subtasks, compute_loss, generator))
                 continue
-            # vast27m: each subtask against its own caption stream, the
-            # losses averaged (vast.py:769-786)
             cache = {}
             for st in subtasks:
                 stream = {"tv": "vision_caption",
                           "ta": "audio_caption"}.get(st, "omni_caption")
-                r = self.forward_ret(batch, [st], compute_loss, generator,
-                                     cache=cache, text_stream=stream)
+                r = run(batch, [st], compute_loss, generator, cache=cache,
+                        **{stream_arg: stream})
                 for k, v in r.items():
                     out[k] = (out.get(k, 0) + v / len(subtasks)
                               if compute_loss else v)

@@ -46,7 +46,7 @@ def main(argv=None, timings: dict | None = None):
     if run_cfg.output_dir and run_cfg.output_dir != "none":
         dump_hps(opts)
     tokenizer = pipeline.build_tokenizer(opts)
-    model = pipeline.build_model(opts, device)
+    model = pipeline.build_model(opts, device, tokenizer)
     val_loaders = pipeline.create_val_dataloaders(opts, tokenizer)
 
     if run_cfg.mode == "training":

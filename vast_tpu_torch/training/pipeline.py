@@ -27,11 +27,12 @@ Meshes, ``fsdp`` and ``tp`` come with the multi-GPU slice and raise here.
 ``timings``, where a caller passes a dict, receives seconds per stage:
 ``train_loader_wait`` (blocked on the loader), ``train_step``
 (synchronized after each step) and the evaluation's stages
-(``evaluate_ret``).
+(``evaluate_ret``, ``evaluate_cap``, ``evaluate_qa``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from collections import defaultdict
@@ -73,14 +74,17 @@ def build_tokenizer(opts) -> BertTokenizer:
     return tiny_tokenizer()
 
 
-def build_model(opts, device=None) -> VASTModel:
-    """The model of ``opts.model_cfg`` on ``device`` (None: the GPU)."""
+def build_model(opts, device=None, tokenizer=None) -> VASTModel:
+    """The model of ``opts.model_cfg`` on ``device`` (None: the GPU),
+    with the [MASK] id of ``tokenizer`` where one is given."""
     model_type = opts.model_cfg.get("model_type", "vast")
     if model_type != "vast":
         raise NotImplementedError(f"model_type {model_type!r}")
     dtype = torch.bfloat16 if opts.run_cfg.get("bf16") else torch.float32
     cfg = VASTConfig.from_model_cfg(opts.model_cfg, dtype=dtype,
                                     param_dtype=torch.float32)
+    if getattr(tokenizer, "mask_token_id", None):
+        cfg = dataclasses.replace(cfg, mask_token_id=tokenizer.mask_token_id)
     return VASTModel(cfg, device=device)
 
 
