@@ -14,7 +14,8 @@ exits non-zero with no result line:
               against its plain PyTorch version on the same inputs, with
               the tolerances and their reasons; kernel, plain and library
               (SDPA, forward or backward, a yardstick the port never
-              calls) times by CUDA events, and the bound from bytes and
+              calls) times by CUDA events (the plain versions' and the
+              fp32 rows' over fewer calls), and the bound from bytes and
               operations. The backward kernels' errors are given for dq,
               dk, dv and dbias separately, the lse forward's for o and
               lse. One row per (kernel, shape): the flagship's EVA01,
@@ -22,7 +23,10 @@ exits non-zero with no result line:
               heads x 577 x 64, read out of the packed projection), AST's
               (8 x 12 x 257 x 64), the CLIP + AST rerank's 640 queries
               over 4873 keys; and shapes no path reaches (the lse variant
-              at 4873 keys, the backward with a bias's ds). A bf16
+              at 4873 keys, the backward with a bias's ds); the remaining
+              towers' (bigE's D 112, EVA02-L's and B's 257 and 197 x 64,
+              VideoSwin's 392-token windows with a bias) and the
+              pretraining validation's rerank (640 x 2382). A bf16
               forward must take the Hopper body (wgmma fed by the copy
               engine: one flash_attention_fwd_sm90 or
               tmajor_attention_fwd_sm90 launch), an fp32 one the CUDA-core
@@ -96,7 +100,7 @@ exits non-zero with no result line:
               attention_fwd_sm90_kernel; cur's and pad128's backwards on
               the Hopper backward), each variant's fwd and fwd+bwd
               times, bound and SDPA time; cur, dma and sect in turns at its
-              shape, at EVA's slice shape and at the two between them (and
+              shape and at EVA's slice shape (and
               cur, sect as four launches of 64 batch rows), with the
               profiler's device times, SDPA's and the bound's share;
               strip_turns: the
@@ -181,12 +185,44 @@ exits non-zero with no result line:
               in [0, 100], one answer per test clip, and testing from
               model_step_1.pt reproducing the answers and the accuracy.
 
+19. slice_towers (after train_clip_ast) - phase 5's evaluate_ret
+              (ret%tva with BEATs, 16 clips, top k 8, bf16) for each
+              remaining vision tower at full width: EVA02-B/16 and L/14
+              (rope: the head-major kernel at 197 and 257 tokens),
+              EVA02-bigE/14 (64 layers, width 1792, 4.4 B parameters; the
+              token-major kernel at D 112), Swin-B and Swin-L (49-token
+              windows: the plain route) and VideoSwin (the whole clip;
+              392-token windows at D 32: the head-major kernel with the
+              relative bias and the shift mask): clips/s (two runs after a
+              warm-up), peak memory and exact launches by stage.
+20. train_towers - phase 7's train program for EVA02-L/14 and for
+              VideoSwin with BEATs: a warm-up step and two blocks of five,
+              LayerNorm gains + 1 after the seeded init; exact launches a
+              step (24 head-major lse forwards and backwards, VideoSwin's
+              with the bias's ds; BEATs' 12 and 12), the loss falling from
+              the first block to the last, one profiled step.
+21. cli_pretrain (last, over cli_ret_tvas' clips) - the port's CLI on a
+              copy of the released pretrain_vast.json (EVA01-g, BEATs,
+              BERT-base): vast27m and valor1m as annotation sets of the
+              JPEG frame directories, laion400m as three tar shards of
+              JPEG images (a corrupt member among them) through the
+              srcindexed stream, the ret%tvas MSR-VTT validation at 8
+              frames. Reduced by flags only: batch 8, 'attn', 6 steps
+              (every set drawn), valid_freq 1. Exact launches per step by
+              its set's task and per evaluation (row 5 at 640 x 2382 in the
+              rerank), finite losses, the loaders' kinds, saves,
+              ``--mode testing`` from model_step_6.pt with equal R@k; then
+              3 steps each of ``--optim adam`` and ``--optim adamax`` on
+              a depth-2 copy at full width.
+
 Then the seconds of every phase (``{"phase_seconds": {...}}``), the
 ``{"kernels": [...]}`` line (each row's launches from its path's
 counted run: the slice for forwards, the train step for lse forwards and
 backwards, the probe's run for its two kernels, the CLI's training run
-for the 16-frame rerank; 0 for the rows no path
-reaches; each row names its bf16 body) and, last, the ``{"ok": true,
+for the 16-frame rerank, the towers' slice and train runs for their
+shapes, the pretraining run for its rerank; 0 for the rows no path
+reaches; each row names its bf16 body and its launches on the other new
+paths) and, last, the ``{"ok": true,
 ...}`` line. Imports nothing of JAX or of ``vast_tpu``.
 """
 
@@ -240,7 +276,8 @@ PROBE = "scripts/bench_tmajor_variants.py"
 # one row per (kernel, shape): the Pallas kernel replaced, the layout of
 # the inputs and the shapes a path gives the kernel ("at"); "path" names
 # the phase whose counted run gives the row's launches (None: no path
-# reaches the shape)
+# reaches the shape); "turns" False: not timed against the mma.sync body
+# in the turns phases (the shapes added after them)
 KERNELS = [
     dict(name="tmajor_attention_fwd", at="eva01g", path="slice",
          replaces=f"{PALLAS}:762", layout="tmajor", b=BATCH * FRAMES,
@@ -320,6 +357,62 @@ KERNELS = [
          replaces=f"{PALLAS}:413", replaces_also=[f"{PALLAS}:372"],
          layout="hmajor_bwd", views="token_major", b=2, lq=577, lk=577,
          h=16, d=64, scale=0.125, bias=True),
+    # the remaining towers (phases slice_towers and train_towers; bf16):
+    # EVA02-bigE's fused qkv at D 112 (inference only: its backward on no
+    # path); EVA02-L/14's and B/16's attention after rope, head-major
+    # views of token-major projections (B/16's training on no path);
+    # VideoSwin's first-stage windows, 8 clips x 64 windows of 8 x 7 x 7
+    # tokens, 4 heads of 32, with the relative bias and shift mask as one
+    # learned fp32 bias (its ds in training)
+    dict(turns=False, name="tmajor_attention_fwd", at="bige", path="slice_towers",
+         replaces=f"{PALLAS}:762", layout="tmajor", b=BATCH * FRAMES,
+         lq=257, lk=257, h=16, d=112, scale=1.0, bias=False),
+    dict(turns=False, name="tmajor_attention_bwd", at="bige", path=None,
+         replaces=f"{PALLAS}:795", layout="tmajor_bwd", b=BATCH * FRAMES,
+         lq=257, lk=257, h=16, d=112, scale=1.0, bias=False),
+    dict(turns=False, name="flash_attention_fwd", at="eva02_l", path="slice_towers",
+         replaces=f"{PALLAS}:87", layout="hmajor", views="token_major",
+         b=BATCH * FRAMES, lq=257, lk=257, h=16, d=64, scale=0.125,
+         bias=False),
+    dict(turns=False, name="flash_attention_fwd", at="eva02_b", path="slice_towers",
+         replaces=f"{PALLAS}:87", layout="hmajor", views="token_major",
+         b=BATCH * FRAMES, lq=197, lk=197, h=12, d=64, scale=0.125,
+         bias=False),
+    dict(turns=False, name="flash_attention_fwd", at="videoswin", path="slice_towers",
+         replaces=f"{PALLAS}:87", layout="hmajor", views="packed",
+         b=BATCH * 64, lq=392, lk=392, h=4, d=32, scale=32 ** -0.5,
+         bias=True),
+    dict(turns=False, name="flash_attention_fwd_lse", at="eva02_l", path="train_towers",
+         replaces=f"{PALLAS}:52", layout="hmajor", views="token_major",
+         lse=True, b=BATCH * FRAMES, lq=257, lk=257, h=16, d=64,
+         scale=0.125, bias=False),
+    dict(turns=False, name="flash_attention_fwd_lse", at="eva02_b", path=None,
+         replaces=f"{PALLAS}:52", layout="hmajor", views="token_major",
+         lse=True, b=BATCH * FRAMES, lq=197, lk=197, h=12, d=64,
+         scale=0.125, bias=False),
+    dict(turns=False, name="flash_attention_fwd_lse", at="videoswin", path="train_towers",
+         replaces=f"{PALLAS}:52", layout="hmajor", views="packed", lse=True,
+         b=BATCH * 64, lq=392, lk=392, h=4, d=32, scale=32 ** -0.5,
+         bias=True),
+    dict(turns=False, name="flash_attention_bwd", at="eva02_l", path="train_towers",
+         replaces=f"{PALLAS}:363", layout="hmajor_bwd", views="token_major",
+         b=BATCH * FRAMES, lq=257, lk=257, h=16, d=64, scale=0.125,
+         bias=False),
+    dict(turns=False, name="flash_attention_bwd", at="eva02_b", path=None,
+         replaces=f"{PALLAS}:363", layout="hmajor_bwd", views="token_major",
+         b=BATCH * FRAMES, lq=197, lk=197, h=12, d=64, scale=0.125,
+         bias=False),
+    dict(turns=False, name="flash_attention_bwd_dbias", at="videoswin",
+         path="train_towers", replaces=f"{PALLAS}:321", layout="hmajor_bwd",
+         views="packed", b=BATCH * 64, lq=392, lk=392, h=4, d=32,
+         scale=32 ** -0.5, bias=True),
+    # pretraining's MSR-VTT validation (phase cli_pretrain): 16 texts of
+    # a candidate over 8 x 257 + 256 + 70 = 2382 condition tokens
+    dict(turns=False, name="flash_attention_fwd", at="pretrain_rerank",
+         path="cli_pretrain", replaces=f"{PALLAS}:87", layout="hmajor",
+         views="token_major", b=RERANK_CANDS,
+         lq=TVAS_RERANK_TEXTS * TEXT_LEN, lk=FRAMES * 257 + 256 + 70, h=12,
+         d=64, scale=0.125, bias=False),
     # the token-major layout probe's two kernels on its data (phase
     # tmajor_variants; lk is its lk_true): the fused layout through the
     # copy engine, and the section-major layout
@@ -359,6 +452,18 @@ def peaks_for(name):
     check(name in PEAKS, f"no published peaks for {name!r}: the bounds "
           f"are defined for {sorted(PEAKS)}")
     return PEAKS[name]
+
+
+# time_ms's depth for what the kernel rows time but no path runs: the
+# plain versions and the fp32 rows (the CUDA-core bodies, 10-30x slower);
+# at time_ms' defaults they alone would take the script past its 600 s
+LIGHT_TIMING = dict(reps=5, rounds=3, warmup=2)
+
+
+def timing(torch, dtype):
+    """time_ms's depth for a kernel row of ``dtype``: bf16 rows over
+    time_ms' defaults, fp32 rows LIGHT_TIMING."""
+    return {} if dtype == torch.bfloat16 else LIGHT_TIMING
 
 
 def time_ms(torch, fn, reps=20, rounds=5, warmup=5):
@@ -522,16 +627,17 @@ def fwd_case(torch, spec, dtype, gen):
             library=lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias, scale=scale),
             as_out=lambda o: o.transpose(1, 2).reshape(b, lq, h * d))
-    q, k, v, _, _ = hmajor_inputs(torch, spec, dtype, gen)
+    q, k, v, _, bias = hmajor_inputs(torch, spec, dtype, gen)
     lse = bool(spec.get("lse"))
     return dict(
-        inputs=[q, k, v], v=v,
-        run=lambda: fa.flash_attention(q, k, v, scale=scale,
+        inputs=[q, k, v, bias], v=v,
+        run=lambda: fa.flash_attention(q, k, v, bias, scale=scale,
                                        return_lse=lse),
-        plain=lambda: fa._flash_attention_plain(q, k, v, scale=scale,
+        plain=lambda: fa._flash_attention_plain(q, k, v, bias, scale=scale,
                                                 return_lse=lse),
-        library=lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       scale=scale),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=None if bias is None else bias.to(dtype),
+            scale=scale),
         as_out=lambda o: o)
 
 
@@ -610,10 +716,12 @@ def fwd_kernel_row(torch, spec, dtype, gen, case=None):
                - ref).abs().max().item()
     del ref, diff, ref_lse
     flops = 4.0 * spec["b"] * spec["h"] * spec["lq"] * spec["lk"] * spec["d"]
+    depth = timing(torch, dtype)
     r = dict(errors=errors, max_abs_err=err, library_max_abs_err=lib_err,
-             kernel_ms=time_ms(torch, case["run"]),
-             plain_ms=time_ms(torch, case["plain"]),
-             library_ms=time_ms(torch, case["library"]), library_note=None,
+             kernel_ms=time_ms(torch, case["run"], **depth),
+             plain_ms=time_ms(torch, case["plain"], **LIGHT_TIMING),
+             library_ms=time_ms(torch, case["library"], **depth),
+             library_note=None,
              bytes=case.get("read_bytes", 0) + nbytes(*case["inputs"], out,
                                                       lse), flops=flops)
     if sm90_key:
@@ -647,13 +755,14 @@ def grad_errors(torch, got, ref, scales, dtype, label):
     return errors
 
 
-def sdpa_backward_ms(torch, q, k, v, bias, do, scale):
+def sdpa_backward_ms(torch, q, k, v, bias, do, scale, depth=None):
     """SDPA's backward alone on the same values (head-major leaves; a bias
     as its additive mask, in q's type as SDPA asks: the head-major rows'
     fp32 bias rounded to bf16), or None and why where the backend gives no
     bias gradient."""
     import torch.nn.functional as F
 
+    depth = depth or {}
     inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
     mask = None
     if bias is not None:
@@ -663,7 +772,7 @@ def sdpa_backward_ms(torch, q, k, v, bias, do, scale):
         out = F.scaled_dot_product_attention(*inputs[:3], attn_mask=mask,
                                              scale=scale)
         return time_ms(torch, lambda: torch.autograd.grad(
-            out, inputs, do, retain_graph=True)), None
+            out, inputs, do, retain_graph=True), **depth), None
     except RuntimeError as e:        # a backend without the bias gradient
         return None, f"SDPA gives no bias gradient here: {e}"[:300]
 
@@ -755,11 +864,14 @@ def tmajor_bwd_row(torch, spec, dtype, gen):
     errors = grad_errors(torch, got, ref, scales, dtype, label)
     del scales, ref, got
     q, k, v = qkv.view(b, l, h, 3, d).permute(3, 0, 2, 1, 4)
+    depth = timing(torch, dtype)
     library_ms, library_note = sdpa_backward_ms(
-        torch, q, k, v, bias, do.view(b, l, h, d).transpose(1, 2), scale)
+        torch, q, k, v, bias, do.view(b, l, h, d).transpose(1, 2), scale,
+        depth)
     by_kernel = bwd_device_ms(torch, run)
-    return dict(errors=errors, kernel_ms=time_ms(torch, run),
-                plain_ms=time_ms(torch, plain), library_ms=library_ms,
+    return dict(errors=errors, kernel_ms=time_ms(torch, run, **depth),
+                plain_ms=time_ms(torch, plain, **LIGHT_TIMING),
+                library_ms=library_ms,
                 library_note=library_note,
                 device_ms=total_ms(by_kernel),
                 device_ms_by_kernel=by_kernel,
@@ -800,12 +912,14 @@ def hmajor_bwd_row(torch, spec, dtype, gen):
     errors = grad_errors(torch, got, ref, scales, dtype, label)
     dbias = got.get("dbias")
     del scales, ref, got
+    depth = timing(torch, dtype)
     library_ms, library_note = sdpa_backward_ms(torch, q, k, v, bias, do,
-                                                scale)
+                                                scale, depth)
     b, lq, lk, h, d = (spec[n] for n in ("b", "lq", "lk", "h", "d"))
     by_kernel = bwd_device_ms(torch, run)
-    return dict(errors=errors, kernel_ms=time_ms(torch, run),
-                plain_ms=time_ms(torch, plain), library_ms=library_ms,
+    return dict(errors=errors, kernel_ms=time_ms(torch, run, **depth),
+                plain_ms=time_ms(torch, plain, **LIGHT_TIMING),
+                library_ms=library_ms,
                 library_note=library_note,
                 device_ms=total_ms(by_kernel),
                 device_ms_by_kernel=by_kernel,
@@ -887,7 +1001,8 @@ def phase_hmajor_turns(torch):
     entries = {"sm90": "vast_flash_attention_fwd_sm90",
                "mma": "vast_flash_attention_fwd"}
     for spec in KERNELS:
-        if spec["name"] != "flash_attention_fwd":
+        if spec["name"] != "flash_attention_fwd" or not spec.get("turns",
+                                                                 True):
             continue
         q, k, v, _, _ = hmajor_inputs(torch, spec, torch.bfloat16, gen)
         scale = spec["scale"]
@@ -1000,6 +1115,8 @@ def phase_bwd_turns(torch):
     bf16 = torch.bfloat16
     for spec in KERNELS:
         order = ("sm90", "mma", "mma", "sm90")
+        if not spec.get("turns", True):
+            continue
         if spec["layout"] == "tmajor_bwd":
             h, scale = spec["h"], spec["scale"]
             qkv, bias, o, lse, do = tmajor_bwd_inputs(torch, spec, bf16,
@@ -1088,10 +1205,9 @@ def probe_bound(torch, device_name, q, k, v, kend):
 
 def probe_turns(torch, tv, inputs, heads, lk, device_name):
     """The layouts' forwards in turns (cur, dma, sect, sect, dma, cur,
-    cur, dma, sect; each :func:`time_ms`) at the probe's shape, at EVA's
-    slice shape (B 64, L 257, no mask: the probe's first rows) and at the
-    two shapes between them (B 64 at the probe's L and mask, B 256 at
-    EVA's), so that cur against sect is the layout alone (one body) and
+    cur, dma, sect; each :func:`time_ms`) at the probe's shape and at
+    EVA's slice shape (B 64, L 257, no mask: the probe's first rows), so
+    that cur against sect is the layout alone (one body) and
     cur against dma the streaming ring against the resident strip, within
     one call on one card; at the probe's shape cur and sect also as four
     launches of 64 batch rows on views of the same tensors (the same
@@ -1109,8 +1225,7 @@ def probe_turns(torch, tv, inputs, heads, lk, device_name):
         return lambda: [fn(x[i:i + tv.B // 4], heads=heads, lk_true=lk_true)
                         for i in range(0, tv.B, tv.B // 4)]
 
-    for b, l, lk_true in ((tv.B, tv.LP, lk), (64, 257, 0), (64, tv.LP, lk),
-                          (tv.B, 257, 0)):
+    for b, l, lk_true in ((tv.B, tv.LP, lk), (64, 257, 0)):
         fused = inputs["fused"][:b, :l].contiguous()
         sect = inputs["sect"][:b, :l].contiguous()
         fns = {"cur": lambda: fa.self_attention_tmajor(
@@ -1802,19 +1917,22 @@ def zero_launches(fa):
 
 
 class TowerLaunches:
-    """Counts the launches of ``key`` inside the model's vision and audio
-    towers while active (the methods are wrapped on the instance); the
-    rest of a run's launches of ``key`` are the rerank's."""
+    """Counts each key's launches inside the model's vision and audio
+    towers while active (the methods are wrapped on the instance): a dict
+    per tower of the keys launched there."""
 
-    def __init__(self, fa, model, key):
-        self.fa, self.model, self.key = fa, model, key
-        self.counts = {"vision": 0, "audio": 0}
+    def __init__(self, fa, model):
+        self.fa, self.model = fa, model
+        self.counts = {"vision": {}, "audio": {}}
 
     def _wrap(self, tower, fn):
         def run(*args, **kwargs):
-            before = self.fa.LAUNCHES[self.key]
+            before = dict(self.fa.LAUNCHES)
             out = fn(*args, **kwargs)
-            self.counts[tower] += self.fa.LAUNCHES[self.key] - before
+            counts = self.counts[tower]
+            for k, v in self.fa.LAUNCHES.items():
+                if v != before[k]:
+                    counts[k] = counts.get(k, 0) + v - before[k]
             return out
         return run
 
@@ -1830,11 +1948,14 @@ class TowerLaunches:
         del self.model.forward_audio_encoder
 
 
-def run_slice(torch, np, phase, cfg, top_k, resolution, cond_tokens):
+def run_slice(torch, np, phase, cfg, top_k, resolution, cond_tokens,
+              runs=RUNS, stages=True):
     """``evaluate_ret`` over 16 synthetic clips, bf16 random weights: the
-    counted and timed runs, stage times and output checks. Returns the
-    emitted row's fields, the launches of the counted run and those of
-    the forward kernel by stage (vision, audio, rerank), and the model."""
+    counted and timed runs (``runs`` of them after a warm-up), stage times
+    (a separate run, where ``stages``) and output checks. Returns the
+    emitted row's fields, the launches of the counted run and those by
+    stage (vision, audio, rerank: a dict each of the keys launched
+    there), and the model."""
     from vast_tpu_torch.convert.from_jax import init_random_
     from vast_tpu_torch.evaluation.evaluation_mm import evaluate_ret
     from vast_tpu_torch.models.vast import VASTModel
@@ -1857,18 +1978,20 @@ def run_slice(torch, np, phase, cfg, top_k, resolution, cond_tokens):
 
     timed_run()                 # first-call costs at every shape of the run
     torch.cuda.reset_peak_memory_stats()
-    with TowerLaunches(fa, model, "flash_attention_fwd") as by_stage:
+    with TowerLaunches(fa, model) as by_stage:
         zero_launches(fa)
         log, wall = timed_run()
         launches = dict(fa.LAUNCHES)
-    by_stage["rerank"] = (launches["flash_attention_fwd"]
-                          - by_stage["vision"] - by_stage["audio"])
+    rest = {k: v - by_stage["vision"].get(k, 0) - by_stage["audio"].get(k, 0)
+            for k, v in launches.items()}
+    by_stage["rerank"] = {k: v for k, v in rest.items() if v}
     peak_mem = torch.cuda.max_memory_allocated()
-    walls = [wall] + [timed_run()[1] for _ in range(RUNS - 1)]
+    walls = [wall] + [timed_run()[1] for _ in range(runs - 1)]
 
     timings = {}                     # stage times, from a separate run
-    evaluate_ret(model, ["tva"], batches, run_cfg,
-                 vision_transforms="crop_flip", timings=timings)
+    if stages:
+        evaluate_ret(model, ["tva"], batches, run_cfg,
+                     vision_transforms="crop_flip", timings=timings)
     for part in log.values():
         for key, val in part.items():
             if key.endswith(("_r1", "_ravg")):
@@ -1894,7 +2017,7 @@ def run_slice(torch, np, phase, cfg, top_k, resolution, cond_tokens):
            "clips_per_s_runs": [N_CLIPS / w for w in walls], "wall_s": walls,
            "stage_s": timings, "setup_s": setup_s,
            "max_memory_allocated": peak_mem, "launches": launches,
-           "flash_attention_fwd_by_stage": by_stage, "metrics": log}
+           "launches_by_stage": by_stage, "metrics": log}
     return row, launches, by_stage, model, batches, run_cfg
 
 
@@ -1941,13 +2064,14 @@ def phase_slice_clip_ast(torch, np):
     # every head-major forward through the Hopper body
     want = {k: 0 for k in launches} | {"flash_attention_fwd": 120,
                                        "flash_attention_fwd_sm90": 120}
-    check(launches == want and by_stage == {"vision": 48, "audio": 24,
-                                            "rerank": 48},
+    fwd = {s: c.get("flash_attention_fwd", 0) for s, c in by_stage.items()}
+    check(launches == want and fwd == {"vision": 48, "audio": 24,
+                                       "rerank": 48},
           f"launches {launches}, by stage {by_stage}: want {want} and "
           f"48 / 24 / 48")
     emit(row)
     del model, batches
-    return launches, by_stage
+    return launches, fwd
 
 
 def profile_run(torch, phase, fn):
@@ -1999,13 +2123,21 @@ def train_batch(torch, np, resolution=224):
     return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
 
 
-def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step):
+def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step,
+              blocks=TRAIN_RUNS, gain_offset=0.0, warmup_ratio=0.1):
     """A train program of bench.py:367-400: fp32 parameters, bf16
     compute, 'attn' checkpointing, AdamW with bf16 moments; one warm-up
-    step, three timed blocks of five unsynchronised steps, exact launch
-    counts per step over the first block, then one profiled step. In
-    that block the head-major lse forward's launches are also counted by
-    tower and the backward's by query length."""
+    step, ``blocks`` timed blocks of five unsynchronised steps, exact
+    launch counts per step over the first block, then one profiled step.
+    In that block the head-major lse forward's launches are also counted
+    by tower and the backward's by query length. ``gain_offset`` is added
+    to every LayerNorm gain after the seeded init (near 0 from N(0,
+    0.02), every feature near one point and no loss moves);
+    ``warmup_ratio`` of the 1000-step schedule (0: the learning rate at
+    its full value from the first step). The batch's
+    deterministic loss (no dropout, fixed ITM negatives: each clip's
+    neighbour) is read before the warm-up step and after the last block;
+    the row says whether it fell."""
     from vast_tpu_torch.convert.from_jax import init_random_
     from vast_tpu_torch.models.vast import VASTConfig, VASTModel
     from vast_tpu_torch.ops import flash_attention as fa
@@ -2019,7 +2151,13 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step):
                      checkpointing=True, remat_policy="attn", **cfg_kw)
     model = VASTModel(cfg)                       # device None -> the GPU
     init_random_(model, torch.Generator(device="cuda").manual_seed(SEED))
+    if gain_offset:
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.LayerNorm):
+                    m.weight.add_(gain_offset)
     run_cfg = {"learning_rate": 1e-4, "clip_lr": 5e-7,
+               "warmup_ratio": warmup_ratio,
                "adam_mu_dtype": "bfloat16", "adam_nu_dtype": "bfloat16"}
     opt, labels = build_optimizer(
         model, run_cfg, {"vision_encoder_type": cfg.vision_encoder_type},
@@ -2029,6 +2167,16 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step):
     batch = train_batch(torch, np, resolution)
     gen = torch.Generator().manual_seed(SEED)
     n_params = sum(p.numel() for p in model.parameters())
+    neighbour = torch.roll(torch.arange(BATCH, device="cuda"), 1)[None]
+    fixed = batch | {"itm_neg_cond_idx": neighbour,
+                     "itm_neg_text_idx": neighbour}
+
+    def fixed_loss():
+        with torch.no_grad():
+            out = model(fixed, "ret%tva", compute_loss=True)
+        return sum(v.float() for v in out.values()).item()
+
+    loss_before = fixed_loss()
     setup_s = time.perf_counter() - t0
 
     state, m = step(state, batch, gen)           # warm-up
@@ -2057,13 +2205,15 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step):
         walls.append(time.perf_counter() - t1)
 
     walls, dispatch, metrics = [], [], []
-    with TowerLaunches(fa, model, "flash_attention_fwd_lse") as lse_by_tower:
+    with TowerLaunches(fa, model) as by_tower:
         fa.flash_attention_bwd = tallied_bwd
         zero_launches(fa)
         block()
         launches = dict(fa.LAUNCHES)
         fa.flash_attention_bwd = bwd
-    for _ in range(TRAIN_RUNS - 1):
+    lse_by_tower = {t: c.get("flash_attention_fwd_lse", 0)
+                    for t, c in by_tower.items()}
+    for _ in range(blocks - 1):
         block()
     losses = [{k: v.item() for k, v in m.items()} for m in metrics]
     peak_mem = torch.cuda.max_memory_allocated()
@@ -2075,6 +2225,8 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step):
     for row in losses:
         for k, v in row.items():
             check(math.isfinite(v), f"{phase} {k} = {v}")
+    loss_after = fixed_loss()
+    falls = loss_after < loss_before
     grads = [p.grad for p in params.values() if p.grad is not None]
     grad_norm = global_norm(grads).item()
     check(math.isfinite(grad_norm) and grad_norm > 0,
@@ -2100,17 +2252,20 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step):
               k: v // TRAIN_STEPS for k, v in lse_by_tower.items()},
           "flash_attention_bwd_by_lq_per_step": {
               str(k): v // TRAIN_STEPS for k, v in bwd_by_lq.items()},
-          "losses": losses, "grad_global_norm": grad_norm,
-          "groups_moved": moved})
+          "warmup_ratio": warmup_ratio,
+          "losses": losses, "fixed_batch_loss": [loss_before, loss_after],
+          "loss_falls": falls,
+          "layernorm_gain_offset": gain_offset,
+          "grad_global_norm": grad_norm, "groups_moved": moved})
     profile_run(torch, phase + "_profile", lambda: step(state, batch, gen))
-    return launches, lse_by_tower, bwd_by_lq
+    return launches, lse_by_tower, bwd_by_lq, falls
 
 
 def phase_train(torch, np):
     """The flagship train step (bench.py:367-400): 40 EVA and 12 BEATs
     attention forwards and backwards per step, every one through the
     Hopper bodies, every backward given its forward's lse."""
-    launches, _, _ = run_train(
+    launches, _, _, _ = run_train(
         torch, np, "train", {}, 224,
         {"tmajor_attention_fwd": 40, "tmajor_attention_fwd_bias": 12,
          "tmajor_attention_bwd": 40, "tmajor_attention_bwd_bias": 12,
@@ -2126,7 +2281,7 @@ def phase_train_clip_ast(torch, np):
     """The CLIP-L/14-336 + AST train step: 24 CLIP and 12 AST lse forwards
     and backwards per step, all through the Hopper bodies (BERT's attention
     takes the plain route)."""
-    launches, lse_by_tower, bwd_by_lq = run_train(
+    launches, lse_by_tower, bwd_by_lq, _ = run_train(
         torch, np, "train_clip_ast", CA, 336,
         {"flash_attention_fwd_lse": 36, "flash_attention_fwd_sm90": 36,
          "flash_attention_bwd": 36, "flash_attention_bwd_sm90": 24 + 12})
@@ -2331,6 +2486,7 @@ class CliCounters:
                      (generation, "_bert_step"), (evaluation_mm, "generate")}
         self.saved = {(m, n): getattr(m, n) for m, n in self.mods}
         self.evals, self.steps, self.saves, self.metrics = [], [], [], []
+        self.tasks = []                  # the task string of each step
         self.step_s = []
         self.hmajor_shapes = {}
         self.decode_steps = self.generated = 0
@@ -2391,8 +2547,10 @@ class CliCounters:
 
         def counted_make(*a, **k):
             step = make(*a, **k)
+            task = a[2] if len(a) > 2 else k["task"]
 
             def run(state, batch, gen):
+                self.tasks.append(task)
                 res = []
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2802,16 +2960,422 @@ def phase_cli_generation(torch, np, root, kind):
           "first_rows": trained[:2]})
 
 
+# ---------------------------------------------------------------------
+# pretraining from the CLI (phase cli_pretrain): pretrain_vast.json
+# ---------------------------------------------------------------------
+
+PRETRAIN_TASKS = {"vast27m": "ret%tvas%tvs%tv%ta_cap%tvas%tvs%tv%ta",
+                  "valor1m": "ret%tva%tv%ta_cap%tva%tv%ta",
+                  "laion400m": "ret%tv_cap%tv"}
+# the MetaLoader's seeded draws over 60000 : 25000 : 15000 slots (seed
+# 50, the default run config's) read valor1m, vast27m, vast27m, valor1m,
+# vast27m, laion400m: six steps draw every set
+PRETRAIN_STEPS = 6
+LAION_SHARDS, LAION_PER_SHARD = 3, 16
+# MSR-VTT's validation at 8 frames: 8 x 257 EVA + 256 BEATs + 70 subtitle
+# tokens a clip, the 16 texts of a candidate folded into 640 queries
+PRETRAIN_COND_TOKENS = FRAMES * 257 + 256 + CLI_SUBTITLE_LEN      # 2382
+
+
+def write_pretrain(np, root):
+    """Beside write_msrvtt's clips under ``root``: vast27m and valor1m
+    annotation sets of its 32 training clips (vast27m with the subtitle
+    and the per-modality captions its annotations carry, ``vision_cap``
+    and ``audio_cap``; valor1m caption only), their videos/ and audios/
+    the same JPEG frame directories and wavs; and laion400m: three tar
+    shards of 16 JPEG images (320 x 240, seeded smooth noise), captions
+    as .txt members (shards 0 and 2) or laion .json members (shard 1),
+    and one corrupt image member."""
+    import io
+    import tarfile
+
+    from PIL import Image
+
+    rs = np.random.RandomState(SEED + 11)
+    base = os.path.join(root, "msrvtt")
+    with open(os.path.join(base, "annotations", "ret_train.json")) as f:
+        clips = json.load(f)
+    for name in ("vast27m", "valor1m"):
+        d = os.path.join(root, name)
+        os.makedirs(os.path.join(d, "annotations"), exist_ok=True)
+        for sub in ("videos", "audios"):
+            os.symlink(os.path.join(base, sub), os.path.join(d, sub))
+        rows = []
+        for c in clips:
+            row = {"video_id": c["video_id"], "desc": c["desc"]}
+            if name == "vast27m":
+                row |= {"subtitle": c["subtitle"],
+                        "vision_cap": " ".join(rs.choice(CLI_WORDS, 8)),
+                        "audio_cap": " ".join(rs.choice(CLI_WORDS, 6))}
+            rows.append(row)
+        with open(os.path.join(d, "annotations", "train.json"), "w") as f:
+            json.dump(rows, f)
+    shards = os.path.join(root, "laion400m", "shards")
+    os.makedirs(shards, exist_ok=True)
+
+    def add(tf, name, data):
+        info = tarfile.TarInfo(name)
+        info.size = len(data)
+        tf.addfile(info, io.BytesIO(data))
+
+    for s in range(LAION_SHARDS):
+        with tarfile.open(os.path.join(shards, f"{s:05d}.tar"), "w") as tf:
+            for i in range(LAION_PER_SHARD):
+                key = f"{s:05d}{i:04d}"
+                buf = io.BytesIO()
+                small = (rs.rand(12, 16, 3) * 255).astype(np.uint8)
+                Image.fromarray(small).resize((320, 240), Image.BILINEAR
+                                              ).save(buf, format="JPEG",
+                                                     quality=90)
+                data = b"not a jpeg" if (s, i) == (1, 3) else buf.getvalue()
+                add(tf, key + ".jpg", data)
+                cap = " ".join(rs.choice(CLI_WORDS, 10))
+                if s == 1:
+                    add(tf, key + ".json", json.dumps(
+                        {"caption": cap, "url": "", "key": key}).encode())
+                else:
+                    add(tf, key + ".txt", cap.encode())
+
+
+def pretrain_config(root, depth=None):
+    """A copy under ``root`` of pretrain_vast.json, its annotation sets'
+    ``vision_format`` video_frame (write_msrvtt's JPEG directories);
+    ``depth``: every tower cut to that many layers at full width (the
+    optimizers' short runs)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "vast_tpu", "configs", "pretrain_cfg",
+                           "pretrain_vast.json")) as f:
+        cfg = json.load(f)
+    for d in cfg["data_cfg"]["train"] + cfg["data_cfg"]["val"]:
+        if d["type"] == "annoindexed":
+            d["vision_format"] = "video_frame"
+    name = "pretrain_vast.json"
+    if depth:
+        cfg["model_cfg"] |= {"vision_cfg": {"layers": depth},
+                             "audio_cfg": {"encoder_layers": depth},
+                             "bert_cfg": {"num_hidden_layers": depth}}
+        name = f"pretrain_vast_depth{depth}.json"
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def pretrain_step_launches(task):
+    """A pretraining step's attention launches: EVA01-g's 40 (one frame)
+    and, where a subtask reads audio, BEATs' 12, forward and backward,
+    all on the Hopper bodies, every backward given the lse; BERT's
+    attentions over 1 x 257 + 256 (+ 70) condition tokens take the plain
+    route."""
+    from vast_tpu_torch.config import parse_task_string
+
+    subtasks = [st for _, sts in parse_task_string(task) for st in sts]
+    audio = 12 if any("a" in st for st in subtasks) else 0
+    want = {"tmajor_attention_fwd": 40, "tmajor_attention_bwd": 40,
+            "tmajor_attention_fwd_sm90": 40 + audio,
+            "tmajor_attention_bwd_sm90": 40 + audio,
+            "tmajor_attention_bwd_lse": 40 + audio}
+    if audio:
+        want |= {"tmajor_attention_fwd_bias": audio,
+                 "tmajor_attention_bwd_bias": audio}
+    return want
+
+
+def phase_cli_pretrain(torch, np, root):
+    """``python -m vast_tpu_torch.run`` in process on a copy of the
+    released pretrain_vast.json (EVA01-g 40 layers, BEATs 12, BERT-base,
+    random seeded weights): vast27m (ret%tvas%tvs%tv%ta_cap%...), valor1m
+    (ret%tva%tv%ta_cap%...) and the laion400m tar stream (ret%tv_cap%tv)
+    in the released 60000 : 25000 : 15000 mix, the ret%tvas MSR-VTT
+    validation at 8 frames. Reduced by flags only: batch 8 a set (1024 /
+    1024 / 2048) and 8 in validation (64), 'attn' checkpointing, 6 steps
+    (every set drawn), valid_freq 1 (evaluations and saves after steps 4
+    and 6, first_eval at 0). Then ``--mode testing`` from
+    model_step_6.pt, whose R@k must equal the run's; then 3 steps each of
+    ``--optim adam`` and ``--optim adamax`` on a depth-2 copy (every tower
+    at full width, 2 layers). Exact launch counts per step (by its set's
+    task) and per evaluation; finite losses."""
+    import shutil
+
+    from vast_tpu_torch import run
+    from vast_tpu_torch.ops import flash_attention as fa
+    from vast_tpu_torch.training import pipeline
+
+    made = pipeline.create_train_dataloaders
+    loaders = {}
+
+    def recording(*a, **k):
+        meta = made(*a, **k)
+        loaders.update({n.split("--")[1]: type(ld).__name__
+                        for n, ld in meta.name2loader.items()})
+        return meta
+
+    t0 = time.perf_counter()
+    write_pretrain(np, root)
+    data_s = time.perf_counter() - t0
+    out_dir = os.path.join(root, "output_pretrain")
+    reduced = ["--train_batch_size", "8", "--test_batch_size", "8",
+               "--checkpointing", "true",
+               "--num_train_steps", str(PRETRAIN_STEPS),
+               "--valid_freq", "1", "--output_dir", out_dir]
+    try:
+        cfg_path = pretrain_config(root)
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        pipeline.create_train_dataloaders = recording
+        with CliCounters(torch, profile_step=-1) as cc:
+            zero_launches(fa)
+            t0 = time.perf_counter()
+            state, logged = run.main(["--config", cfg_path] + reduced,
+                                     timings=timings)
+            train_wall = time.perf_counter() - t0
+            launches = dict(fa.LAUNCHES)
+        pipeline.create_train_dataloaders = made
+        peak_mem = torch.cuda.max_memory_allocated()
+        losses = [{k: v.item() for k, v in m.items()} for m in cc.metrics]
+        del state
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(out_dir, "ckpt",
+                            f"model_step_{PRETRAIN_STEPS}.pt")
+        test_timings = {}
+        with CliCounters(torch, profile_step=-1) as tc:
+            t0 = time.perf_counter()
+            tested = run.main(["--config", cfg_path, "--mode", "testing",
+                               "--checkpoint", ckpt] + reduced,
+                              timings=test_timings)
+            test_wall = time.perf_counter() - t0
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        optims = {}
+        for name in ("adam", "adamax"):
+            small = os.path.join(root, f"output_{name}")
+            t0 = time.perf_counter()
+            with CliCounters(torch, profile_step=-1) as oc:
+                ostate, _ = run.main(
+                    ["--config", pretrain_config(root, depth=2),
+                     "--optim", name, "--num_train_steps", "3",
+                     "--valid_freq", "1", "--train_batch_size", "8",
+                     "--test_batch_size", "8", "--output_dir", small])
+            moments = [t.float().abs().max().item()
+                       for t in ostate.opt.mu.values()]
+            optims[name] = {
+                "optim": ostate.opt.optim, "updates": ostate.opt.count,
+                "seconds": time.perf_counter() - t0, "step_s": oc.step_s,
+                "tasks": oc.tasks,
+                "losses": [{k: v.item() for k, v in m.items()}
+                           for m in oc.metrics],
+                "moments_nonzero": sum(m > 0 for m in moments),
+                "moments": len(moments)}
+            del ostate
+            shutil.rmtree(small, ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        pipeline.create_train_dataloaders = made
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    check(loaders == {"vast27m": "BatchLoader", "valor1m": "BatchLoader",
+                      "laion400m": "StreamBatchLoader"},
+          f"the train loaders {loaders}")
+    # every set drawn, each step with its set's task and finite losses
+    drawn = [next(n for n, t in PRETRAIN_TASKS.items() if t == task)
+             for task in cc.tasks]
+    check(len(drawn) == PRETRAIN_STEPS and set(drawn) == set(PRETRAIN_TASKS),
+          f"sets drawn per step {drawn}: want all three in "
+          f"{PRETRAIN_STEPS} steps")
+    for task, row in zip(cc.tasks, losses):
+        want_keys = {"loss_itc", "loss_itm", "loss_cap", "total_loss"}
+        check(row.keys() == want_keys
+              and all(math.isfinite(v) for v in row.values()),
+              f"{task} step losses {row}")
+    for task, st in zip(cc.tasks, cc.steps):
+        want = pretrain_step_launches(task)
+        check(st == want, f"{task} step launches {st} != {want}")
+    # per evaluation: two batches of 8 clips x 8 frames, the rerank's 4
+    # calls x 12 BERT layers of 640 queries over 2382 keys (row 5)
+    rerank = CLI_RERANK_CALLS * 12
+    want_eval = {"tmajor_attention_fwd": 80, "tmajor_attention_fwd_bias": 24,
+                 "tmajor_attention_fwd_sm90": 104,
+                 "flash_attention_fwd": rerank,
+                 "flash_attention_fwd_sm90": rerank}
+    check([e["step"] for e in cc.evals] == [0, PRETRAIN_STEPS - 2,
+                                             PRETRAIN_STEPS]
+          and len(tc.evals) == 1,
+          f"evaluations at {[e['step'] for e in cc.evals + tc.evals]}")
+    for e in cc.evals + tc.evals:
+        check(e["launches"] == want_eval,
+              f"evaluation launches {e['launches']} != {want_eval}")
+    shape = (TVAS_RERANK_TEXTS * TEXT_LEN, PRETRAIN_COND_TOKENS)
+    check(cc.hmajor_shapes == {shape: rerank * len(cc.evals)},
+          f"head-major forwards by (Lq, Lk) {cc.hmajor_shapes}")
+    want_total = {k: sum(pretrain_step_launches(t).get(k, 0)
+                         for t in cc.tasks)
+                  + want_eval.get(k, 0) * len(cc.evals) for k in launches}
+    check(launches == want_total,
+          f"the run's launches {launches} != {want_total}")
+    key = next(iter(tested))
+    at_step = {name[len(key) + 1:]: hist[str(PRETRAIN_STEPS)]
+               for name, hist in logged.items()}
+    check(tested[key] == at_step,
+          f"testing R@k {tested[key]} != training's at step "
+          f"{PRETRAIN_STEPS} {at_step}")
+    for part in tested[key].values():
+        for k, v in part.items():
+            if k.endswith(("_r1", "_ravg")):
+                check(0.0 <= v <= 100.0, f"{k} = {v}")
+    for name, o in optims.items():
+        # contra_head_s has no subtask: its moments stay zero
+        check(o["optim"] == name and o["updates"] == 3
+              and o["moments_nonzero"] >= 0.95 * o["moments"]
+              and all(math.isfinite(v) for row in o["losses"]
+                      for v in row.values()),
+              f"--optim {name}: {o}")
+    emit({"phase": "cli_pretrain",
+          "config": "vast_tpu/configs/pretrain_cfg/pretrain_vast.json",
+          "route": "video_frame (vast27m, valor1m, MSR-VTT); tar shards "
+                   "of JPEG images (laion400m)",
+          "reduced": {"batch_size": [[1024, 1024, 2048], 8],
+                      "test_batch_size": [64, 8],
+                      "checkpointing": [False, True],
+                      "num_train_steps": [100000, PRETRAIN_STEPS],
+                      "valid_freq": [10, 1],
+                      "vision_format": ["video_rawvideo", "video_frame"],
+                      "sets": {"vast27m": 32, "valor1m": 32,
+                               "laion400m": LAION_SHARDS * LAION_PER_SHARD
+                               - 1, "msrvtt_test": CLI_TEST_CLIPS}},
+          "per_modality_captions": "vast27m's vision_cap and audio_cap are "
+                                   "in its annotations; neither package's "
+                                   "loader reads them, so each subtask "
+                                   "pairs with the caption",
+          "data_s": data_s, "sets_drawn": drawn,
+          "train_run_s": train_wall, "test_run_s": test_wall,
+          "step_s": cc.step_s, "stage_s": timings,
+          "train_loader_wait_s": timings.get("train_loader_wait"),
+          "test_stage_s": test_timings,
+          "eval_s": [e["seconds"] for e in cc.evals + tc.evals],
+          "max_memory_allocated": peak_mem, "saves": cc.saves,
+          "launches": launches, "launches_per_eval": want_eval,
+          "losses": losses, "metrics_at_step": at_step,
+          "metrics_testing": tested[key], "optimizers": optims,
+          "loaders": loaders})
+    return {"rerank": cc.hmajor_shapes[shape], "launches": launches}
+
+
+# ---------------------------------------------------------------------
+# the remaining vision towers (phases slice_towers and train_towers)
+# ---------------------------------------------------------------------
+
+# each tower with BEATs on ret%tva, 8 frames at 224 px: a frame's tokens
+# (EVA02-B/16 197, L/14 and bigE 257; Swin's last 7 x 7 grid 49;
+# VideoSwin's T' = 8 grids of 49) and the vision stage's launches in one
+# evaluation of two batches: EVA02 through the head-major kernel (rope
+# comes between the projection and the attention), bigE the token-major
+# one at D 112, Swin's 49-token windows the plain route, VideoSwin's
+# 392-token windows the head-major kernel with their bias (24 blocks)
+TOWERS = {
+    "evaclip02_base": (197, {"flash_attention_fwd": 2 * 12}),
+    "evaclip02_large": (257, {"flash_attention_fwd": 2 * 24}),
+    "evaclip02_bige": (257, {"tmajor_attention_fwd": 2 * 64}),
+    "swin_base_22k_224": (49, {}),
+    "swin_large_22k_224": (49, {}),
+    "videoswin": (49, {"flash_attention_fwd": 2 * 24}),
+}
+
+
+def phase_slice_towers(torch, np):
+    """``evaluate_ret`` (ret%tva, BEATs, BERT-base) over the 16 clips for
+    each remaining tower at full width, bf16: clips/s (the median of two
+    runs after a warm-up), peak memory, and exact launches by stage:
+    the vision tower's as TOWERS says, all on the Hopper bodies; BEATs'
+    24 token-major forwards with their bias; the rerank's head-major
+    forwards (12 per call whose folded query leaves the plain route).
+    Returns each tower's launches by stage."""
+    from vast_tpu_torch.models.vast import VASTConfig
+
+    counts = {}
+    for vtype, (tokens, vision) in TOWERS.items():
+        cfg = VASTConfig(dtype=torch.bfloat16, vision_encoder_type=vtype)
+        row, _, by_stage, model, batches, _ = run_slice(
+            torch, np, "slice_towers", cfg, TOP_K, 224,
+            FRAMES * tokens + 256, runs=2, stages=False)
+        want_vision = dict(vision)
+        for k, n in vision.items():
+            want_vision[k.split("_attention")[0] + "_attention_fwd_sm90"] = n
+        want_audio = {"tmajor_attention_fwd_bias": 24,
+                      "tmajor_attention_fwd_sm90": 24}
+        rerank = by_stage["rerank"]
+        n_flash = rerank.get("flash_attention_fwd", 0)
+        check(by_stage["vision"] == want_vision
+              and by_stage["audio"] == want_audio
+              and set(rerank) <= {"flash_attention_fwd",
+                                  "flash_attention_fwd_sm90"}
+              and n_flash % 12 == 0
+              and rerank.get("flash_attention_fwd_sm90", 0) == n_flash,
+              f"{vtype} launches by stage {by_stage}: want vision "
+              f"{want_vision}, audio {want_audio}, the rerank's in 12s "
+              f"on the Hopper body")
+        row |= {"tower": vtype,
+                "params": sum(p.numel() for p in model.parameters())}
+        emit(row)
+        counts[vtype] = by_stage
+        del model, batches, row
+        torch.cuda.empty_cache()
+    return counts
+
+
+# a step of the towers' train program: BEATs' 12 token-major forwards
+# (bias) and backwards given the lse, and the vision tower's 24
+# head-major lse forwards and backwards (EVA02-L; VideoSwin's with the
+# learned bias's ds), all on the Hopper bodies
+BEATS_STEP = {"tmajor_attention_fwd_bias": 12, "tmajor_attention_bwd_bias": 12,
+              "tmajor_attention_fwd_sm90": 12,
+              "tmajor_attention_bwd_sm90": 12,
+              "tmajor_attention_bwd_lse": 12}
+TRAIN_TOWERS = {
+    "evaclip02_large": BEATS_STEP | {
+        "flash_attention_fwd_lse": 24, "flash_attention_fwd_sm90": 24,
+        "flash_attention_bwd": 24, "flash_attention_bwd_sm90": 24},
+    "videoswin": BEATS_STEP | {
+        "flash_attention_fwd_lse": 24, "flash_attention_fwd_sm90": 24,
+        "flash_attention_bwd_dbias": 24, "flash_attention_bwd_sm90": 24},
+}
+
+
+def phase_train_towers(torch, np):
+    """The train program (bench.py:367-400: fp32 parameters, bf16
+    compute, 'attn', bf16 Adam moments) for EVA02-L/14 and VideoSwin with
+    BEATs: a warm-up step and two timed blocks of five steps on one batch
+    of 8 clips, exact launches per step, LayerNorm gains + 1 after the
+    seeded init, no warm-up of the learning rate (under the default 10%
+    of 1000 steps the 11 steps run at 1e-6 to 1.1e-5 and move nothing
+    past the noise); the batch's deterministic loss must fall.
+    Returns each tower's launches over its first block."""
+    out = {}
+    for vtype, per_step in TRAIN_TOWERS.items():
+        launches, lse_by_tower, bwd_by_lq, falls = run_train(
+            torch, np, f"train_towers_{vtype}",
+            {"vision_encoder_type": vtype}, 224, per_step, blocks=2,
+            gain_offset=1.0, warmup_ratio=0.0)
+        n = TRAIN_STEPS
+        check(falls and lse_by_tower == {"vision": 24 * n, "audio": 0},
+              f"{vtype}: loss falls {falls}; lse forwards by tower "
+              f"{lse_by_tower} over {n} steps")
+        out[vtype] = launches
+        torch.cuda.empty_cache()
+    return out
+
+
 def body_of(spec):
     body = BODIES[spec["layout"]]
     return body[spec["name"]] if isinstance(body, dict) else body
 
 
-def kernels_line(bf16_rows, launches_at):
+def kernels_line(bf16_rows, launches_at, by_path=None):
     """The ``kernels`` entries: each row of KERNELS with its bf16
-    measurements (``bf16_rows``, in KERNELS' order) and its launches on
-    its path (``launches_at`` by (name, at); 0 for a shape no path
-    reaches)."""
+    measurements (``bf16_rows``, in KERNELS' order), its launches on its
+    path (``launches_at`` by (name, at); 0 for a shape no path reaches)
+    and the kernel's launches on other paths at their own shapes
+    (``by_path``, by (name, at): {phase: launches})."""
+    by_path = by_path or {}
     line = []
     for spec, r in zip(KERNELS, bf16_rows):
         key = (spec["name"], spec["at"])
@@ -2826,7 +3390,8 @@ def kernels_line(bf16_rows, launches_at):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "body": body_of(spec), "device_ms": r.get("device_ms"),
-            "device_ms_by_kernel": r.get("device_ms_by_kernel")})
+            "device_ms_by_kernel": r.get("device_ms_by_kernel"),
+            "launches_by_path": by_path.get(key, {})})
     return line
 
 
@@ -2875,12 +3440,15 @@ def main():
     ca_lse_by_tower, ca_bwd_by_lq = timed("train_clip_ast",
                                           phase_train_clip_ast, torch, np)
     torch.cuda.empty_cache()
+    towers = timed("slice_towers", phase_slice_towers, torch, np)
+    train_towers = timed("train_towers", phase_train_towers, torch, np)
     with msrvtt_data(np) as (root, data_s):
         cli_launches = timed("cli_ret_tvas", phase_cli_ret_tvas, torch, np,
                              root, data_s)
         for kind in CLI_GEN:
             timed(f"cli_{kind}_tvas", phase_cli_generation, torch, np, root,
                   kind)
+        pretrain = timed("cli_pretrain", phase_cli_pretrain, torch, np, root)
     emit({"phase_seconds": seconds})
     # each row's launches on its path's counted run (a train block: five
     # steps); the rows of shapes no path reaches have none
@@ -2904,10 +3472,50 @@ def main():
         ("flash_attention_fwd", "tvas_rerank"): cli_launches["tvas_rerank"],
         ("attention_dma", "probe"): probe_launches["attention_dma"],
         ("attention_sect", "probe"): probe_launches["attention_sect"],
+        ("tmajor_attention_fwd", "bige"):
+            towers["evaclip02_bige"]["vision"]["tmajor_attention_fwd"],
+        ("flash_attention_fwd", "eva02_l"):
+            towers["evaclip02_large"]["vision"]["flash_attention_fwd"],
+        ("flash_attention_fwd", "eva02_b"):
+            towers["evaclip02_base"]["vision"]["flash_attention_fwd"],
+        ("flash_attention_fwd", "videoswin"):
+            towers["videoswin"]["vision"]["flash_attention_fwd"],
+        ("flash_attention_fwd_lse", "eva02_l"):
+            train_towers["evaclip02_large"]["flash_attention_fwd_lse"],
+        ("flash_attention_fwd_lse", "videoswin"):
+            train_towers["videoswin"]["flash_attention_fwd_lse"],
+        ("flash_attention_bwd", "eva02_l"):
+            train_towers["evaclip02_large"]["flash_attention_bwd"],
+        ("flash_attention_bwd_dbias", "videoswin"):
+            train_towers["videoswin"]["flash_attention_bwd_dbias"],
+        ("flash_attention_fwd", "pretrain_rerank"):
+            pretrain["rerank"],
+    }
+    # the same kernels on the other new paths, at those paths' shapes:
+    # BEATs' forward in every tower's slice and train run, EVA01-g's and
+    # BEATs' in the pretraining run (one frame a clip in its steps)
+    by_path = {
+        ("tmajor_attention_fwd_bias", "beats"): {
+            "slice_towers": sum(t["audio"]["tmajor_attention_fwd_bias"]
+                                for t in towers.values()),
+            "train_towers": sum(t["tmajor_attention_fwd_bias"]
+                                for t in train_towers.values()),
+            "cli_pretrain": pretrain["launches"]["tmajor_attention_fwd_bias"]},
+        ("tmajor_attention_bwd_bias", "beats"): {
+            "train_towers": sum(t["tmajor_attention_bwd_bias"]
+                                for t in train_towers.values()),
+            "cli_pretrain": pretrain["launches"]["tmajor_attention_bwd_bias"]},
+        ("tmajor_attention_fwd", "eva01g"): {
+            "cli_pretrain": pretrain["launches"]["tmajor_attention_fwd"]},
+        ("tmajor_attention_bwd", "eva01g"): {
+            "cli_pretrain": pretrain["launches"]["tmajor_attention_bwd"]},
+        ("flash_attention_fwd", "flagship_rerank"): {
+            "slice_towers": sum(t["rerank"].get("flash_attention_fwd", 0)
+                                for t in towers.values())},
     }
     emit({"kernels": kernels_line(
         [rows[(i, torch.bfloat16)] for i in range(len(KERNELS))],
-        launches_at)})
+        launches_at, by_path)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

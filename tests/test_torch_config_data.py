@@ -259,9 +259,12 @@ def test_native_runtime_probe_waits_for_the_first(monkeypatch):
 
 
 def test_registry_srcindexed_waits():
+    from vast_tpu_torch.data.src_dataset import SrcIndexedDataset
+
     assert data_registry["annoindexed"] is panno.AnnoIndexedDataset
-    with pytest.raises(NotImplementedError, match="srcindexed"):
-        data_registry["srcindexed"]
+    assert data_registry["srcindexed"] is SrcIndexedDataset
+    with pytest.raises(KeyError):
+        data_registry["webdataset"]
 
 
 class _DS:

@@ -8,6 +8,9 @@ one, run them without the JAX test settings (tests/conftest.py):
 
 The shapes cover the main paths' (EVA01-g 257 x 16 x 88, BEATs 256 x 12
 x 64 with a per-sample bias, BERT's grouped rerank 320 x 2312 x 12 x 64;
+EVA02-bigE's 257 x 16 x 112 token-major, EVA02-L's 257 x 16 x 64 and
+B's 197 x 12 x 64 head-major, VideoSwin's 392-token window at D 32 with
+a learned bias;
 CLIP-L/14-336's 577 x 16 x 64 read out of its packed projection, AST's
 257 x 12 x 64, and the 4873 condition tokens of the CLIP + AST rerank)
 and the edges of the kernels' tiling: L of 1 and of tiles plus one, D
@@ -52,6 +55,8 @@ CASES = {
     "beats_bias": (2, 256, 12, 64, 0, "per_sample", 64 ** -0.5),
     "shared_bias_d128": (3, 100, 2, 128, 0, "shared", 128 ** -0.5),
     "odd_bias_lk_true": (2, 70, 3, 7, 40, "per_sample", 0.3),
+    # EVA02-bigE/14: EVA01's fused qkv at head width 112
+    "bige_d112": (4, 257, 16, 112, 0, None, 1.0),
 }
 
 
@@ -103,6 +108,9 @@ FLASH_CASES = {
     "long_keys": (1, 2, 64, 4500, 128, 0, None, False),
     "per_head_bias": (2, 3, 70, 90, 33, 0, (2, 3), False),
     "mask_rows_broadcast": (2, 4, 100, 120, 64, 0, (2, 1), True),
+    # EVA02-L/14 and B/16 (rope, so head-major): 257 and 197 tokens
+    "eva02_l": (2, 16, 257, 257, 64, 0, None, True),
+    "eva02_b": (2, 12, 197, 197, 64, 0, None, True),
 }
 
 
@@ -150,6 +158,7 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
 BWD_CASES = {
     # name: (B, L, H, D, lk_true, bias, scale)
     "single_token": (1, 1, 1, 1, 0, None, 1.0),
+    "bige_d112": (2, 257, 16, 112, 0, None, 1.0),
     "eva01g": (4, 257, 16, 88, 0, None, 1.0),
     "ragged_lk_true_d33": (2, 100, 2, 33, 77, None, 0.5),
     "tile_plus_one": (3, 65, 2, 32, 0, None, 0.7),
@@ -283,6 +292,8 @@ TMAJOR_SM90_CASES = {
     "one_row_d8": (2, 1, 1, 8, 0, None, 1.0),
     # a last key tile of exactly 16 keys (the N-16 tile, full)
     "tail_16_d128": (2, 144, 2, 128, 0, None, 0.1),
+    # EVA02-bigE/14: D 112 (the <128, 8> instantiation)
+    "bige_d112": (4, 257, 16, 112, 0, None, 1.0),
 }
 
 
@@ -447,6 +458,11 @@ HMAJOR_CASES = {
                                  "token_major"),
     # the rerank's condition length (8 x 577 + 257): row 6's shapes
     "long_keys": (1, 2, 64, 4873, 64, 0, None, "contiguous"),
+    # EVA02-L/14 and B/16 after rope, and VideoSwin's 8 x 7 x 7 window
+    # at D 32 with its learned relative bias (ds)
+    "eva02_l": (2, 16, 257, 257, 64, 0, None, "token_major"),
+    "eva02_b": (2, 12, 197, 197, 64, 0, None, "token_major"),
+    "videoswin_window": (2, 4, 392, 392, 32, 0, "learned", "packed"),
 }
 
 
@@ -824,6 +840,9 @@ SM90_CASES = {
                                  "token_major", True),
     "bf16_bias_batch_broadcast": (2, 3, 577, 130, 16, 0, "bf16_batch",
                                   "contiguous", True),
+    "eva02_l_257": (2, 16, 257, 257, 64, 0, None, "token_major", False),
+    "eva02_l_257_lse": (2, 16, 257, 257, 64, 0, None, "token_major", True),
+    "eva02_b_197_lse": (2, 12, 197, 197, 64, 0, None, "token_major", True),
 }
 
 
@@ -949,6 +968,11 @@ BWD_SM90_CASES = {
                              "token_major"),
     "learned_bias_ds_d88_lk_true": (2, 3, 129, 257, 88, 200, "f32_learned",
                                     "contiguous"),
+    "bige_l257_d112": (2, 16, 257, 257, 112, 0, None, "tmajor"),
+    "eva02_l_257": (2, 16, 257, 257, 64, 0, None, "token_major"),
+    "eva02_b_197": (2, 12, 197, 197, 64, 0, None, "token_major"),
+    "videoswin_window_ds_d32": (2, 4, 392, 392, 32, 0, "f32_learned",
+                                "packed"),
 }
 
 

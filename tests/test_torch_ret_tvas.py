@@ -279,8 +279,9 @@ def test_from_model_cfg_tiny_dicts():
     cfg = VASTConfig.from_model_cfg(TINY_MODEL_CFG_JSON)
     assert cfg == port_config(jcfg)
     bad = dict(TINY_MODEL_CFG_JSON,
-               vision_cfg=dict(TINY_MODEL_CFG_JSON["vision_cfg"], rope=True))
-    with pytest.raises(NotImplementedError, match="rope"):
+               vision_cfg=dict(TINY_MODEL_CFG_JSON["vision_cfg"],
+                               gelu_approx=True))
+    with pytest.raises(NotImplementedError, match="gelu_approx"):
         VASTConfig.from_model_cfg(bad)
 
 

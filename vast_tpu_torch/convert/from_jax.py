@@ -2,13 +2,15 @@
 
 :func:`from_jax` is the inverse of
 ``vast_tpu.convert.vast_ckpt.convert_vast_checkpoint``: it takes a
-``VASTModel`` params tree (nested dicts of numpy arrays: EVA01 or CLIP,
-BEATs or AST, and BERT) and returns flat reference torch names -> numpy
-arrays. Dense kernels are transposed back to (out, in), conv kernels go
-from HWIO to OIHW, BEATs' weight-norm ``v``/``g`` back to (out,
-in/groups, k) / (1, 1, k), CLIP's ``in_proj`` kernel to the packed
-``in_proj_weight``, AST's tree to the reference's two modules
-``audio_embeddings`` and ``audio_encoder``. Load the result with ``load_state_dict``. Every mapping is a
+``VASTModel`` params tree (nested dicts of numpy arrays: an EVA tower
+(EVA01, EVA02's q/k/v, inner LayerNorms and SwiGLU, layer scale), CLIP,
+Swin or VideoSwin; BEATs or AST; and BERT) and returns flat reference
+torch names -> numpy arrays. Dense kernels are transposed back to (out,
+in), conv kernels go from HWIO to OIHW (VideoSwin's THWIO to OITHW),
+BEATs' weight-norm ``v``/``g`` back to (out, in/groups, k) / (1, 1, k),
+CLIP's ``in_proj`` kernel to the packed ``in_proj_weight``, AST's tree to
+the reference's two modules ``audio_embeddings`` and ``audio_encoder``.
+Load the result with ``load_state_dict``. Every mapping is a
 transpose, so a tree of the same structure with other contents (a
 gradient, an Adam moment, labels coded as arrays) maps the same way, to
 the same names and shapes as the port's parameters.
@@ -53,13 +55,27 @@ def _eva(out, pre, p):
         blk, bp = p[f"block_{i}"], f"{pre}blocks.{i}."
         _ln(out, f"{bp}norm1", blk["norm1"])
         _ln(out, f"{bp}norm2", blk["norm2"])
-        attn = blk["attn"]
-        _put(out, f"{bp}attn.qkv.weight", np.asarray(attn["qkv"]["kernel"]).T)
-        _put(out, f"{bp}attn.q_bias", attn["q_bias"])
-        _put(out, f"{bp}attn.v_bias", attn["v_bias"])
+        attn, mlp = blk["attn"], blk["mlp"]
+        if "qkv" in attn:                                   # EVA01, bigE
+            _put(out, f"{bp}attn.qkv.weight",
+                 np.asarray(attn["qkv"]["kernel"]).T)
+        for proj in ("q_proj", "k_proj", "v_proj"):         # EVA02
+            if proj in attn:
+                _dense(out, f"{bp}attn.{proj}", attn[proj])
+        if "q_bias" in attn:
+            _put(out, f"{bp}attn.q_bias", attn["q_bias"])
+            _put(out, f"{bp}attn.v_bias", attn["v_bias"])
+        if "inner_ln" in attn:
+            _ln(out, f"{bp}attn.inner_attn_ln", attn["inner_ln"])
         _dense(out, f"{bp}attn.proj", attn["proj"])
-        _dense(out, f"{bp}mlp.fc1", blk["mlp"]["fc1"])
-        _dense(out, f"{bp}mlp.fc2", blk["mlp"]["fc2"])
+        for fc in ("fc1", "fc2", "w1", "w2", "w3"):         # GELU or SwiGLU
+            if fc in mlp:
+                _dense(out, f"{bp}mlp.{fc}", mlp[fc])
+        if "ffn_ln" in mlp:
+            _ln(out, f"{bp}mlp.ffn_ln", mlp["ffn_ln"])
+        for gamma in ("gamma_1", "gamma_2"):                # layer scale
+            if gamma in blk:
+                _put(out, f"{bp}{gamma}", blk[gamma])
         i += 1
 
 
@@ -81,6 +97,38 @@ def _clip(out, pre, p):
         _dense(out, f"{bp}mlp.c_fc", blk["c_fc"])
         _dense(out, f"{bp}mlp.c_proj", blk["c_proj"])
         i += 1
+
+
+def _swin(out, pre, p):
+    """Swin (2-D conv kernel) and VideoSwin (3-D, (t, h, w, in, out) ->
+    (out, in, t, h, w)), vast_ckpt.py:276-347."""
+    kernel = np.asarray(p["patch_embed"]["kernel"])
+    _put(out, f"{pre}patch_embed.proj.weight",
+         kernel.transpose(kernel.ndim - 1, kernel.ndim - 2,
+                          *range(kernel.ndim - 2)))
+    _put(out, f"{pre}patch_embed.proj.bias", p["patch_embed"]["bias"])
+    _ln(out, f"{pre}patch_embed.norm", p["patch_norm"])
+    _ln(out, f"{pre}norm", p["norm"])
+    si = 0
+    while f"stage_{si}_block_0" in p:
+        bi = 0
+        while f"stage_{si}_block_{bi}" in p:
+            blk = p[f"stage_{si}_block_{bi}"]
+            bp = f"{pre}layers.{si}.blocks.{bi}."
+            _ln(out, f"{bp}norm1", blk["norm1"])
+            _dense(out, f"{bp}attn.qkv", blk["attn"]["qkv"])
+            _dense(out, f"{bp}attn.proj", blk["attn"]["proj"])
+            _put(out, f"{bp}attn.relative_position_bias_table",
+                 blk["attn"]["relative_position_bias_table"])
+            _ln(out, f"{bp}norm2", blk["norm2"])
+            _dense(out, f"{bp}mlp.fc1", blk["fc1"])
+            _dense(out, f"{bp}mlp.fc2", blk["fc2"])
+            bi += 1
+        if f"merge_norm_{si}" in p:
+            dp = f"{pre}layers.{si}.downsample."
+            _ln(out, f"{dp}norm", p[f"merge_norm_{si}"])
+            _dense(out, f"{dp}reduction", p[f"merge_reduction_{si}"])
+        si += 1
 
 
 def _ast(out, p):
@@ -167,6 +215,8 @@ def from_jax(params) -> dict[str, np.ndarray]:
     vision, audio = params["vision_encoder"], params["audio_encoder"]
     if "conv1" in vision:
         _clip(out, "vision_encoder.visual.", vision)
+    elif "patch_norm" in vision:                        # Swin, VideoSwin
+        _swin(out, "vision_encoder.", vision)
     else:
         _eva(out, "vision_encoder.visual.", vision)
     if "first_conv" in audio:

@@ -1,9 +1,9 @@
 """The data layer: datasets, mappers, loaders and the tokenizer.
 
 ``data_registry`` maps a data config's ``type`` to its dataset class, as
-the reference's ``data/__init__.py``. Only ``annoindexed`` (annotation
-JSON, ``anno_dataset.AnnoIndexedDataset``) is ported; ``srcindexed``
-(tar-shard streams) raises ``NotImplementedError``.
+the reference's ``data/__init__.py``: ``annoindexed`` (annotation JSON,
+``anno_dataset.AnnoIndexedDataset``) and ``srcindexed`` (tar-shard
+streams, ``src_dataset.SrcIndexedDataset``), imported at first use.
 """
 
 
@@ -15,9 +15,10 @@ class _Registry(dict):
             self[key] = AnnoIndexedDataset
             return AnnoIndexedDataset
         if key == "srcindexed":
-            raise NotImplementedError(
-                "srcindexed (tar-shard streaming) datasets are not ported "
-                "yet: they come with the pretraining slice")
+            from vast_tpu_torch.data.src_dataset import SrcIndexedDataset
+
+            self[key] = SrcIndexedDataset
+            return SrcIndexedDataset
         raise KeyError(key)
 
 

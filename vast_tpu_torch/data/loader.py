@@ -7,9 +7,11 @@ batches ahead; an exception in the producer reaches the consumer.
 ``MetaLoader`` is the reference's data/loader.py:8-60: each dataset name
 enters a sampling pool ``steps`` times, each step draws a name from the
 pool with a seeded RNG, and the draw holds for a gradient-accumulation
-window; ``skip`` moves past a resumed run's steps without reading them. ``compute_train_steps`` derives the step counts
-(utils/build_dataloader.py:40-77). The streaming loader of ``srcindexed``
-datasets is not ported yet.
+window; ``skip`` moves past a resumed run's steps without reading them
+(a stream's: by reading and dropping them, ``StreamBatchLoader``).
+``StreamBatchLoader`` batches an iterable ``srcindexed`` stream on a
+producer thread. ``compute_train_steps`` derives the step counts
+(utils/build_dataloader.py:40-77).
 """
 
 from __future__ import annotations
@@ -110,6 +112,87 @@ class BatchLoader:
             stop.set()
 
 
+# the length a dataset without __len__ (a stream) stands for in the step
+# counts (vast_tpu pipeline.py:129); a stream's data_cfg gives its steps
+STREAM_LENGTH = 10 ** 9
+
+
+def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
+    """Put ``item`` on the bounded ``q`` unless ``stop`` is set first:
+    a producer whose consumer has left must not block forever."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.1)
+            return True
+        except queue.Full:
+            pass
+    return False
+
+
+class StreamBatchLoader:
+    """Batches of an iterable dataset (the ``srcindexed`` tar streams,
+    vast_tpu loader.py:120-168), collated with the dataset's collate on a
+    producer thread a few batches ahead. The dataset shards itself by
+    host. A training stream never ends; an evaluation one ends with a
+    last, shorter batch. An exception in the producer reaches the
+    consumer; the producer stops when the consumer leaves.
+
+    Resume (:meth:`iter_from`): a stream cannot seek, so the batches
+    before ``start`` are read and dropped. They pass through the same
+    shard shuffle, shuffle buffer and caption draws, from the same seed,
+    so the batches after them are those an unbroken run reads."""
+
+    def __init__(self, dataset, batch_size: int, prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.prefetch = prefetch
+
+    def set_epoch(self, epoch: int):
+        pass
+
+    def __iter__(self):
+        return self.iter_from(0)
+
+    def iter_from(self, start: int):
+        """The stream's batches from batch ``start`` on; the samples of
+        the batches before it are read and dropped."""
+        drop = start * self.batch_size
+        out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def producer():
+            try:
+                buf = []
+                for i, sample in enumerate(self.dataset):
+                    if stop.is_set():
+                        return
+                    if i < drop:
+                        continue
+                    buf.append(sample)
+                    if len(buf) == self.batch_size:
+                        if not _put(out_q, self.dataset.collate(buf), stop):
+                            return
+                        buf = []
+                if buf and not _put(out_q, self.dataset.collate(buf), stop):
+                    return
+                _put(out_q, None, stop)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                _put(out_q, e, stop)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                b = out_q.get()
+                if b is None:
+                    return
+                if isinstance(b, BaseException):
+                    raise b
+                yield b
+        finally:
+            stop.set()
+
+
 class MetaLoader:
     """Weighted multi-task mixing (data/loader.py:8-60).
 
@@ -143,7 +226,8 @@ class MetaLoader:
     def skip(self, n: int):
         """Advance a fresh MetaLoader past ``n`` steps without reading a
         sample: the same task draws as ``n`` steps of iteration, and each
-        loader resumes at the epoch and batch its next step would read."""
+        loader resumes at the epoch and batch its next step would read
+        (a stream reads and drops the batches it skips)."""
         if self.step:
             raise ValueError("skip() needs a MetaLoader not yet iterated")
         taken = dict.fromkeys(self.name2loader, 0)
@@ -156,6 +240,11 @@ class MetaLoader:
             if not k:
                 continue
             loader = self.name2loader[name]
+            if not hasattr(loader, "__len__"):
+                # a stream: one endless epoch, its k batches read and
+                # dropped (StreamBatchLoader.iter_from)
+                self.name2iter[name] = loader.iter_from(k)
+                continue
             if not len(loader):
                 raise ValueError(f"dataset {name!r} yields no batch")
             # k batches read: the next is batch k % len of epoch k // len

@@ -6,7 +6,9 @@ a fixed host resolution; resize, crop, flip and normalize run on the
 device (``ops/image.py``). ``vision_format`` values: ``image_rawimage``,
 ``video_frame`` (a directory of frames per clip), ``video_rawvideo``
 (the native runtime's FFmpeg decode, then decord, then the ffmpeg CLI)
-and ``video_feats`` (precomputed features). ``pixel_format: yuv420``
+and ``video_feats`` (precomputed features); ``decode_video_bytes``
+decodes a video held in memory (a tar member of a ``srcindexed``
+stream) in the same order of decoders. ``pixel_format: yuv420``
 ships packed YUV420 planes, which needs the native runtime and
 ``video_rawvideo``; otherwise it falls back to rgb with a warning, as
 ``vast_tpu`` does. PIL decodes images and frames where the runtime does
@@ -152,6 +154,54 @@ def rgb_to_yuv420_packed(img: np.ndarray) -> np.ndarray:
         np.clip(np.round(y), 0, 255).astype(np.uint8).reshape(-1),
         np.clip(np.round(u), 0, 255).astype(np.uint8).reshape(-1),
         np.clip(np.round(v), 0, 255).astype(np.uint8).reshape(-1)])
+
+
+def decode_video_bytes(raw: bytes, sample_num: int, training: bool,
+                       host_size: int, rng: random.Random | None = None,
+                       yuv: bool = False) -> np.ndarray:
+    """An in-memory video container -> (sample_num, s, s, 3) uint8 frames,
+    or packed (sample_num, s*s*3//2) YUV420 planes with ``yuv``.
+
+    Split-segment sampling over the whole stream (``sample_indices``), as
+    the reference samples tar-member videos (IndexSrc.py:104-110). The
+    decoders in ``vast_tpu``'s order (vision.py:147-193): the native
+    runtime's in-memory decode, decord on a ``BytesIO``, the ffmpeg CLI
+    through a spooled temporary file. ``yuv`` needs the native runtime.
+    Raises where no decoder is present or the decode fails (callers warn
+    and continue)."""
+    nat = _native_runtime()
+    if nat is not None and nat.media_available():
+        counts, _fps = nat.video_info_bytes_batch([raw])
+        if counts[0] > 0:
+            idx = sample_indices(int(counts[0]), sample_num, training, rng)
+            decode = (nat.decode_video_bytes_batch_yuv if yuv
+                      else nat.decode_video_bytes_batch)
+            frames, ok = decode(
+                [raw], np.asarray([idx], np.int32), host_size, n_threads=1)
+            if ok[0]:
+                return frames[0]
+        raise RuntimeError("native in-memory video decode failed")
+    if yuv:
+        raise RuntimeError("yuv420 decode needs the native media runtime")
+    try:
+        import decord  # optional
+        import io
+        vr = decord.VideoReader(io.BytesIO(raw))
+        idx = sample_indices(len(vr), sample_num, training, rng)
+        frames = vr.get_batch(idx).asnumpy()
+        return np.stack([_resize_short_side(f, host_size) for f in frames])
+    except ImportError:
+        pass
+    if shutil.which("ffmpeg"):
+        import tempfile
+        with tempfile.NamedTemporaryFile(suffix=".mp4") as tf:
+            tf.write(raw)
+            tf.flush()
+            frames, _fps = _ffmpeg_decode_all(tf.name, host_size)
+        idx = sample_indices(frames.shape[0], sample_num, training, rng)
+        return frames[idx]
+    raise RuntimeError(
+        "video decode needs the native media runtime, decord, or ffmpeg")
 
 
 class VisionMapper:

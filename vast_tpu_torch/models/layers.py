@@ -45,6 +45,12 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
+class Conv3d(nn.Conv3d):
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
+
+
 class Embedding(nn.Embedding):
     """Looks rows up in the parameter's dtype, returns ``compute_dtype``."""
 

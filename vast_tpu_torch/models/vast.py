@@ -14,9 +14,13 @@ vast.py:436-539 of ``vast_tpu``), the ITM
 scores of the rerank (``compute_slice_scores(_grouped)``), and the ITC +
 ITM losses of ``forward_ret(compute_loss=True)`` (vast.py:564-623), and
 the masked-LM losses of ``forward_cap`` and ``forward_qa`` (vast.py:
-625-711; their generation is ``models/generation.py``). The other towers
-(EVA02, Swin, VideoSwin) come in a later slice and raise
-``NotImplementedError``.
+625-711; their generation is ``models/generation.py``). The vision
+towers are every one ``vast_tpu`` picks by ``vision_encoder_type``
+(vast.py:139-157): EVA01-g, EVA02 B and L, EVA02-bigE
+(``models/eva_vit.py``), the CLIP ViTs (``clip_vit.py``), Swin B and L
+(``swin.py``; ImageNet statistics, mean pooling) and VideoSwin
+(``videoswin.py``: the whole clip at once, ImageNet statistics, mean
+pooling).
 
 Randomness: a training forward takes the step's CPU ``torch.Generator``
 (``generator``); None is the deterministic (eval) forward. The order of
@@ -27,7 +31,8 @@ answers ``{caption,answer}_masked_{tokens,labels}``, or configurations
 with no draw).
 
 The module tree carries the reference torch state-dict names
-(``vision_encoder.visual.*``, ``audio_encoder.*``,
+(``vision_encoder.visual.*``, Swin's and VideoSwin's
+``vision_encoder.*``, ``audio_encoder.*``,
 ``multimodal_encoder.bert.*``, ``itm_head.linear1``,
 ``contra_head_t.linear``, ``hidden_trans_vision_multimodal.0`` ...; AST
 as ``audio_embeddings.*`` + ``audio_encoder.*``), so a released VAST
@@ -54,9 +59,14 @@ from vast_tpu_torch.models.clip_vit import (CLIP_PRESETS,
                                             ClipVitConfig)
 from vast_tpu_torch.models.eva_vit import (EVA_PRESETS, EvaVisionTransformer,
                                            EvaVitConfig)
+from vast_tpu_torch.models.swin import (SWIN_PRESETS, SwinConfig,
+                                        SwinTransformer)
+from vast_tpu_torch.models.videoswin import (VideoSwinConfig,
+                                             VideoSwinTransformer)
 from vast_tpu_torch.ops.activations import gelu
 from vast_tpu_torch.ops.fbank import ast_fbank, kaldi_fbank
-from vast_tpu_torch.ops.image import (CLIP_MEAN, CLIP_STD, preprocess_frames,
+from vast_tpu_torch.ops.image import (CLIP_MEAN, CLIP_STD, IMAGENET_MEAN,
+                                      IMAGENET_STD, preprocess_frames,
                                       yuv420_to_rgb)
 from vast_tpu_torch.ops.masking import IGNORE_LABEL, mask_tokens
 
@@ -122,12 +132,8 @@ class VASTConfig:
         vtype = kw.get("vision_encoder_type", cls.vision_encoder_type)
         atype = kw.get("audio_encoder_type", cls.audio_encoder_type)
         if isinstance(kw.get("vision_cfg"), dict):
-            if vtype.startswith(("swin", "videoswin")):
-                raise NotImplementedError(f"vision encoder {vtype} is not "
-                                          f"ported")
-            vc_cls = ClipVitConfig if vtype.startswith("clip") \
-                else EvaVitConfig
-            kw["vision_cfg"] = _tower_config(vc_cls, kw["vision_cfg"], sub)
+            kw["vision_cfg"] = _tower_config(_vision_config_class(vtype),
+                                             kw["vision_cfg"], sub)
         if isinstance(kw.get("audio_cfg"), dict):
             ac_cls = AstConfig if atype.startswith("ast") else BeatsConfig
             kw["audio_cfg"] = _tower_config(ac_cls, kw["audio_cfg"], sub)
@@ -140,15 +146,31 @@ class VASTConfig:
                     remat=self.checkpointing, remat_policy=self.remat_policy)
 
     def resolved_vision_cfg(self):
+        """The tower's config (vast.py:139-157): a preset by
+        ``vision_encoder_type`` at ``vision_resolution``; VideoSwin's has
+        no resolution."""
         if self.vision_cfg is not None:
             return self.vision_cfg
         t = self.vision_encoder_type
-        presets = CLIP_PRESETS if t.startswith("clip") else EVA_PRESETS
-        if t not in presets:
-            raise NotImplementedError(f"vision encoder {t} is not ported")
+        if t.startswith("videoswin"):
+            return VideoSwinConfig(**self._sub())
+        if t.startswith("evaclip"):
+            presets = EVA_PRESETS
+        elif t.startswith("clip"):
+            presets = CLIP_PRESETS
+        elif t.startswith("swin"):
+            presets = SWIN_PRESETS
+        else:
+            raise NotImplementedError(f"vision encoder {t}")
         return dataclasses.replace(presets[t],
                                    image_size=self.vision_resolution,
                                    **self._sub())
+
+    @property
+    def vision_is_clip(self) -> bool:
+        """A CLIP-family tower (CLIP's statistics, its CLS token pooled);
+        Swin and VideoSwin take ImageNet's and mean-pool."""
+        return self.vision_encoder_type.startswith(("clip", "evaclip"))
 
     def resolved_audio_cfg(self):
         if self.audio_cfg is not None:
@@ -168,6 +190,17 @@ class VASTConfig:
 
     def resolved_bert_cfg(self) -> BertConfig:
         return self.bert_cfg or BertConfig(**self._sub())
+
+
+def _vision_config_class(vtype: str):
+    """The config class of a ``vision_cfg`` dict (vast.py:124-133)."""
+    if vtype.startswith("clip"):
+        return ClipVitConfig
+    if vtype.startswith("videoswin"):
+        return VideoSwinConfig
+    if vtype.startswith("swin"):
+        return SwinConfig
+    return EvaVitConfig
 
 
 # keys of vast_tpu's tower configs that its towers read nowhere
@@ -254,9 +287,19 @@ class VASTModel(nn.Module):
         bc = c.resolved_bert_cfg()
         fk = dict(device=dev, dtype=c.pdtype)
 
-        vision = (ClipVisionTransformer if isinstance(vc, ClipVitConfig)
-                  else EvaVisionTransformer)
-        self.vision_encoder = nn.ModuleDict({"visual": vision(vc, dev)})
+        if isinstance(vc, (SwinConfig, VideoSwinConfig)):
+            # the reference's top-level vision_encoder.* (vast_ckpt.py:
+            # 276-347)
+            self.vision_encoder = (
+                SwinTransformer(vc, dev) if isinstance(vc, SwinConfig)
+                else VideoSwinTransformer(vc, dev, c.max_vision_sample_num,
+                                          c.vision_resolution))
+            vd = vc.num_features
+        else:
+            vision = (ClipVisionTransformer if isinstance(vc, ClipVitConfig)
+                      else EvaVisionTransformer)
+            self.vision_encoder = nn.ModuleDict({"visual": vision(vc, dev)})
+            vd = vc.width
         if isinstance(ac, AstConfig):
             # the reference's two top-level AST modules (vast_ckpt.py:184)
             ast = AstModel(ac, dev)
@@ -267,7 +310,7 @@ class VASTModel(nn.Module):
             self.audio_encoder = BeatsModel(ac, dev)
             ad = ac.encoder_embed_dim
         self.multimodal_encoder = BertForMaskedLM(bc, dev)
-        vd, md = vc.width, bc.hidden_size
+        md = bc.hidden_size
         self.multimodal_dim = md
 
         d = c.contra_dim
@@ -294,14 +337,23 @@ class VASTModel(nn.Module):
 
     # ---------------- encoders ----------------
 
+    @property
+    def vision_tower(self) -> nn.Module:
+        enc = self.vision_encoder
+        return enc["visual"] if isinstance(enc, nn.ModuleDict) else enc
+
     def forward_vision_encoder(self, pixels, generator=None):
-        """(B, n, H, W, 3) normalized -> (B, n, tokens, vision_dim).
-        Frozen (``frozen_vision``): no gradient and no drop-path."""
+        """(B, n, H, W, 3) normalized -> (B, n, tokens, vision_dim): the
+        frames fold into the batch; VideoSwin takes the whole clip and
+        gives (B, T', tokens, dim) (vast.py:301-307). Frozen
+        (``frozen_vision``): no gradient and no drop-path."""
         b, n = pixels.shape[:2]
         frozen = self.cfg.frozen_vision
+        g = None if frozen else generator
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
-            out = self.vision_encoder["visual"](
-                pixels.flatten(0, 1), None if frozen else generator)
+            if isinstance(self.vision_tower, VideoSwinTransformer):
+                return self.vision_tower(pixels, g)
+            out = self.vision_tower(pixels.flatten(0, 1), g)
         return out.view(b, n, *out.shape[1:])
 
     def forward_audio_encoder(self, spectrograms):
@@ -319,7 +371,11 @@ class VASTModel(nn.Module):
     # ---------------- pooling (general_module.py:426-449) --------------
 
     def pool_vision_for_contra(self, feature):
-        """The CLS token per frame, averaged over the frames."""
+        """The CLS token per frame, averaged over the frames; Swin and
+        VideoSwin have none: the mean over tokens, then frames
+        (vast.py:331-335)."""
+        if not self.cfg.vision_is_clip:
+            return feature.mean(dim=2).mean(dim=1)
         return feature[:, :, 0].mean(dim=1)
 
     def pool_audio_for_contra(self, feature):
@@ -370,8 +426,10 @@ class VASTModel(nn.Module):
         g = None
         if generator is not None and transforms == "crop_flip":
             g = layers.seeded(layers.next_seed(generator), frames.device)
+        mean, std = ((CLIP_MEAN, CLIP_STD) if self.cfg.vision_is_clip
+                     else (IMAGENET_MEAN, IMAGENET_STD))   # vast.py:377-379
         return preprocess_frames(
-            frames, self.cfg.vision_resolution, mean=CLIP_MEAN, std=CLIP_STD,
+            frames, self.cfg.vision_resolution, mean=mean, std=std,
             transforms=transforms, generator=g)
 
     def _preprocess_audio(self, batch, generator=None):
@@ -624,14 +682,15 @@ class VASTModel(nn.Module):
                                              att3, labels, generator, cache)}
 
     def forward_qa(self, batch, subtasks, compute_loss=False,
-                   generator=None):
+                   generator=None, cache=None):
         """The condition sequences (``compute_loss=False``), or the QA
         loss: 99% of the answer's tokens masked after the question; the
         mask bidirectional over the question, causal over the answer, and
         question rows blind to the answer (vast.py:594-599 of the
         reference); the question's labels ignored."""
+        cache = {} if cache is None else cache
         if not compute_loss:
-            return self._condition_feats(batch, subtasks, generator, {})
+            return self._condition_feats(batch, subtasks, generator, cache)
         q_ids = batch["question_tokens"]
         a_corrupted, a_labels = self._masked(batch, "answer", 0.99,
                                              generator)
@@ -649,7 +708,7 @@ class VASTModel(nn.Module):
         keep = ~(answer_cols & ~(answer_rows & causal))
         att3 = att3 * keep.to(att3.dtype)
         return {"loss_qa": self._mlm_losses(batch, subtasks, ids, att3,
-                                            labels, generator, {})}
+                                            labels, generator, cache)}
 
     def text_features(self, caption_tokens, caption_attention_mask):
         """feat_t for a text-only chunk (the evaluation path)."""
@@ -695,12 +754,16 @@ class VASTModel(nn.Module):
         None for a deterministic forward. A vast27m batch (one with
         ``vision_caption_tokens``) pairs each ``ret`` and ``cap`` subtask
         with its own caption stream (tv: vision_caption, ta:
-        audio_caption, else omni_caption), the losses averaged."""
-        out = {}
+        audio_caption, else omni_caption), the losses averaged. Every head
+        reads one feature cache, so each encoder runs once a forward on
+        one draw of the frames' crop and the audio clip, as the
+        reference's memo dict (model/vast.py:81-314) and as vast_tpu's
+        heads, which draw from the same step keys."""
+        out, cache = {}, {}
         for head, subtasks in parse_task_string(task):
             if head.startswith("qa"):
                 out.update(self.forward_qa(batch, subtasks, compute_loss,
-                                           generator))
+                                           generator, cache=cache))
                 continue
             if head.startswith("ret"):
                 run, stream_arg = self.forward_ret, "text_stream"
@@ -709,9 +772,9 @@ class VASTModel(nn.Module):
             else:
                 raise NotImplementedError(f"task head {head!r} is not ported")
             if "vision_caption_tokens" not in batch:
-                out.update(run(batch, subtasks, compute_loss, generator))
+                out.update(run(batch, subtasks, compute_loss, generator,
+                               cache=cache))
                 continue
-            cache = {}
             for st in subtasks:
                 stream = {"tv": "vision_caption",
                           "ta": "audio_caption"}.get(st, "omni_caption")

@@ -533,6 +533,12 @@ def _check_flash(q, k, v, bias, lk_true):
             or v.dtype != q.dtype:
         raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}: "
                         f"one of {list(_DTYPE_CODES)} for all three")
+    if any(t is not None and t.shape[-1] > 1 and t.stride(-1) != 1
+           for t in (q, k, v, bias)):
+        # the kernels' rule, held on every device: the CPU's plain version
+        # takes any strides, but a caller must not rely on that
+        raise ValueError("the last axis of q, k, v and bias must be "
+                         "contiguous")
     if bias is not None:
         if bias.dim() != 4 or bias.shape[-1] != lk:
             raise ValueError(f"bias {tuple(bias.shape)} is not 4-D over "

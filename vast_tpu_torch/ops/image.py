@@ -23,6 +23,9 @@ import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+# the Swin and VideoSwin towers' statistics (vast_tpu ops/image.py:20-21)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def normalize_image(x, mean=CLIP_MEAN, std=CLIP_STD):

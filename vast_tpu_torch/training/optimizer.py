@@ -1,8 +1,10 @@
-"""Param-grouped AdamW in plain tensor ops.
+"""Param-grouped AdamW, Adam and Adamax in plain tensor ops.
 
 The port's counterpart of ``vast_tpu.training.optimizer`` (optimizer.py:
 54-167), which reproduces utils/build_optimizer.py:11-99's three LR
-groups with optax:
+groups with optax (``run_cfg.optim``: ``adamw``, the default; ``adam``,
+the same without weight decay, ``optax.adam``; ``adamax``, the infinity
+norm in place of the second moment, ``optax.adamax``):
 
 * ``new``: parameters whose name holds a ``new_params_name`` substring
   (reference torch names here; they are the port's names) -> ``new_lr``;
@@ -19,8 +21,10 @@ of ``gradient_accumulation_steps`` micro-batch gradients, one update).
 ``torch.optim.AdamW`` cannot keep bf16 moments beside fp32 parameters,
 so the update is written out. With ``adam_nu_dtype`` set it follows
 ``vast_tpu``'s ``scale_by_adam_general`` (moments rounded to their dtype
-before use); otherwise ``optax.adamw`` (mu rounded to ``adam_mu_dtype``
-only for storage). The update itself is computed in fp32 and applied to
+before use); otherwise ``optax.adamw`` / ``optax.adam`` (mu rounded to
+``adam_mu_dtype`` only for storage). Adamax keeps both moments in the
+parameter's dtype (``optax.adamax`` takes no moment dtype) and refuses
+``adam_nu_dtype``, as ``vast_tpu`` does (optimizer.py:142-144). The update itself is computed in fp32 and applied to
 the parameters in place. A parameter the loss did not reach is updated
 as optax updates a zero gradient: its moments decay and decoupled weight
 decay still moves it.
@@ -28,9 +32,10 @@ decay still moves it.
 The no-decay rule is ``vast_tpu``'s, which reads the JAX leaf name: only
 ``bias`` and LayerNorm ``scale`` are exempt (optimizer.py:27-36). In the
 port's module tree those are every LayerNorm's weight and bias, the
-bias of every Linear and Conv2d, and what a module lists in its
+bias of every Linear, Conv2d and Conv3d, and what a module lists in its
 ``no_decay_params`` (CLIP's ``in_proj_bias``, JAX ``in_proj/bias``);
-``q_bias``/``v_bias``, BEATs'
+``q_bias``/``v_bias``, EVA's layer scale ``gamma_1``/``gamma_2``,
+Swin's ``relative_position_bias_table``, BEATs'
 ``pos_conv`` bias (JAX ``pos_conv_bias``), BERT's
 ``cls.predictions.bias`` (JAX ``decoder_bias``), embeddings and
 ``contra_temp`` are decayed.
@@ -62,7 +67,8 @@ def _no_decay(module: nn.Module, pname: str) -> bool:
         return True
     if pname in getattr(module, "no_decay_params", ()):
         return True
-    return pname == "bias" and isinstance(module, (nn.Linear, nn.Conv2d))
+    return pname == "bias" and isinstance(module, (nn.Linear, nn.Conv2d,
+                                                   nn.Conv3d))
 
 
 def param_labels(model: nn.Module, new_params_name=(),
@@ -83,15 +89,24 @@ def param_labels(model: nn.Module, new_params_name=(),
     return labels
 
 
-class AdamW:
-    """AdamW over ``model``'s parameters; :meth:`step` reads their
-    ``.grad`` and updates them in place."""
+OPTIMS = ("adamw", "adam", "adamax")
+
+
+class GroupedAdam:
+    """AdamW, Adam or Adamax (``run_cfg.optim``) over ``model``'s
+    parameters; :meth:`step` reads their ``.grad`` and updates them in
+    place."""
 
     def __init__(self, model: nn.Module, run_cfg, model_cfg,
                  num_train_steps: int):
         get = run_cfg.get
         self.b1, self.b2 = (float(b) for b in get("betas", (0.9, 0.98)))
-        self.weight_decay = float(get("weight_decay", 0.01))
+        self.optim = get("optim", "adamw")
+        if self.optim not in OPTIMS:
+            raise ValueError(f"optim {self.optim!r}: one of {OPTIMS}")
+        # optax.adam and optax.adamax decay no weight
+        self.weight_decay = (float(get("weight_decay", 0.01))
+                             if self.optim == "adamw" else 0.0)
         self.accum = int(get("gradient_accumulation_steps", 1) or 1)
         # the schedule advances once per update, so its horizon counts
         # updates, not micro-batches (optimizer.py:57-62)
@@ -103,11 +118,13 @@ class AdamW:
                     "clip": get("clip_lr", 5e-7)}
         self.mu_dtype = _moment_dtype(get("adam_mu_dtype"))
         self.nu_dtype = _moment_dtype(get("adam_nu_dtype"))
+        if self.optim == "adamax":
+            if self.nu_dtype is not None:
+                raise ValueError(
+                    "adam_nu_dtype is not supported for optim='adamax'")
+            self.mu_dtype = None
         self.max_norm = (get("grad_norm", -1)
                          if get("clip_grads", False) else None)
-        if get("optim", "adamw") != "adamw":
-            raise NotImplementedError(f"optim {get('optim')!r}: only adamw "
-                                      f"is ported")
         vision_is_clip = "clip" in model_cfg.get("vision_encoder_type", "")
         self.labels = param_labels(model, tuple(get("new_params_name", [])),
                                    vision_is_clip)
@@ -178,7 +195,9 @@ class AdamW:
             label = self.labels[n]
             group = label.removesuffix("_nd")
             wd = 0.0 if label.endswith("_nd") else self.weight_decay
-            u = self._adam(n, grads[n].float(), c1, c2)
+            u = (self._adamax(n, grads[n].float(), c1)
+                 if self.optim == "adamax"
+                 else self._adam(n, grads[n].float(), c1, c2))
             if wd:
                 u = u + wd * p.float()
             p.add_((u * -self.lr(group, k)).to(p.dtype))
@@ -201,6 +220,15 @@ class AdamW:
         return (m / c1) / (torch.sqrt(nu.float() / c2) + EPS)
 
 
+    def _adamax(self, n, g, c1):
+        # optax.scale_by_adamax: mu as Adam's, nu = max(b2 nu, |g| + eps),
+        # the update mu / c1 / nu (no bias correction of nu)
+        mu, nu = self.mu[n], self.nu[n]
+        mu.copy_((1 - self.b1) * g + self.b1 * mu)
+        nu.copy_(torch.maximum(g.abs() + EPS, self.b2 * nu))
+        return (mu.float() / c1) / nu.float()
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of all ``tensors``, in fp32."""
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
@@ -210,5 +238,5 @@ def build_optimizer(model: nn.Module, run_cfg, model_cfg,
                     num_train_steps: int):
     """(optimizer, labels), as ``vast_tpu``'s ``build_optimizer``;
     ``num_train_steps`` counts micro-batches."""
-    opt = AdamW(model, run_cfg, model_cfg, num_train_steps)
+    opt = GroupedAdam(model, run_cfg, model_cfg, num_train_steps)
     return opt, opt.labels

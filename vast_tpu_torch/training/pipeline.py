@@ -19,9 +19,11 @@ utils/build_dataloader.py and utils/initialize.py) on one device:
 
 Each step's randomness comes from a CPU generator seeded from
 (``seed``, step), and a resumed run skips the batches of the steps it
-restored without reading them (``MetaLoader.skip``), so it continues an
-unbroken run exactly where the host draws nothing itself (a video's training frames are drawn with
-Python's global ``random`` on the loader's threads, as in ``vast_tpu``).
+restored without reading them (``MetaLoader.skip``; a ``srcindexed``
+stream reads and drops them, ``StreamBatchLoader.iter_from``), so it
+continues an unbroken run exactly where the host draws nothing itself (a
+video's training frames are drawn with Python's global ``random`` on the
+loader's threads, as in ``vast_tpu``).
 Meshes, ``fsdp`` and ``tp`` come with the multi-GPU slice and raise here.
 
 ``timings``, where a caller passes a dict, receives seconds per stage:
@@ -43,8 +45,9 @@ import torch
 from vast_tpu_torch import profiling
 from vast_tpu_torch.convert.from_jax import init_random_
 from vast_tpu_torch.data import data_registry
-from vast_tpu_torch.data.loader import BatchLoader, MetaLoader, \
-    compute_train_steps
+from vast_tpu_torch.data.loader import (STREAM_LENGTH, BatchLoader,
+                                       MetaLoader, StreamBatchLoader,
+                                       compute_train_steps)
 from vast_tpu_torch.data.tokenizer import BertTokenizer, tiny_tokenizer
 from vast_tpu_torch.evaluation.evaluation_mm import evaluate_mm
 from vast_tpu_torch.logger import LOGGER, RunningMeter, add_log_to_file
@@ -96,16 +99,28 @@ def init_params(model: VASTModel, opts) -> VASTModel:
 
 
 def create_train_dataloaders(opts, tokenizer) -> MetaLoader:
+    """The MetaLoader over ``data_cfg.train`` (vast_tpu pipeline.py:
+    117-149) on one host: a ``BatchLoader`` for an annotation set, a
+    ``StreamBatchLoader`` for a ``srcindexed`` stream, which must give
+    its ``steps`` and counts as ``STREAM_LENGTH`` samples; each at the
+    batch ``batch_size // gradient_accumulation_steps``."""
     run_cfg = opts.run_cfg
     accum = run_cfg.get("gradient_accumulation_steps", 1)
     loaders, lengths = {}, []
     for d_cfg in opts.data_cfg.train:
         ds = data_registry[d_cfg["type"]](d_cfg, opts, tokenizer)
-        lengths.append(len(ds))
-        loaders[f"{d_cfg['task']}--{d_cfg['name']}"] = BatchLoader(
-            ds, max(d_cfg["batch_size"] // accum, 1), shuffle=True,
-            num_workers=d_cfg.get("n_workers", 4),
-            seed=run_cfg.get("seed", 50))
+        lengths.append(len(ds) if hasattr(ds, "__len__") else STREAM_LENGTH)
+        bs = max(d_cfg["batch_size"] // accum, 1)
+        if d_cfg["type"] == "srcindexed":
+            if "steps" not in d_cfg:
+                raise ValueError(f"srcindexed dataset {d_cfg['name']!r} "
+                                 f"needs 'steps'")
+            loader = StreamBatchLoader(ds, bs)
+        else:
+            loader = BatchLoader(ds, bs, shuffle=True,
+                                 num_workers=d_cfg.get("n_workers", 4),
+                                 seed=run_cfg.get("seed", 50))
+        loaders[f"{d_cfg['task']}--{d_cfg['name']}"] = loader
     steps = compute_train_steps(opts.data_cfg.train, run_cfg, lengths)
     named = {name: (loader, ratio)
              for (name, loader), ratio in zip(loaders.items(), steps)}

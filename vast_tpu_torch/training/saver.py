@@ -8,7 +8,7 @@ reference writes under ``<output_dir>/ckpt``:
   ``convert.vast_ckpt.load_checkpoint`` and ``vast_tpu``'s
   ``ingest_torch_checkpoint`` read;
 * ``optimizer_step_N.pt``: the train step count and the optimizer's
-  state (``AdamW.state_dict``: moments in their dtype, update count,
+  state (``GroupedAdam.state_dict``: moments in their dtype, update count,
   accumulation window).
 
 Each save replaces the previous pair unless ``remove_before_ckpt`` is

@@ -22,21 +22,21 @@ import dataclasses
 import torch
 from torch import nn
 
-from vast_tpu_torch.training.optimizer import AdamW
+from vast_tpu_torch.training.optimizer import GroupedAdam
 
 
 @dataclasses.dataclass
 class TrainState:
     step: int
     model: nn.Module
-    opt: AdamW
+    opt: GroupedAdam
 
 
-def create_train_state(model: nn.Module, opt: AdamW) -> TrainState:
+def create_train_state(model: nn.Module, opt: GroupedAdam) -> TrainState:
     return TrainState(step=0, model=model, opt=opt)
 
 
-def make_train_step(model: nn.Module, opt: AdamW, task: str,
+def make_train_step(model: nn.Module, opt: GroupedAdam, task: str,
                     vision_transforms: str = "none"):
     """Returns ``step(state, batch, generator) -> (state, metrics)``.
 
