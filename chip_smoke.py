@@ -8,8 +8,9 @@ exits non-zero with no result line:
 
 1. device   - a CUDA GPU must be present; its name and power limit (the
               raw ``nvidia-smi --query-gpu=name,power.limit`` line too).
-2. build    - nvcc builds the kernel source of the path and reports
-              ptxas' register and shared-memory use.
+2. build    - nvcc builds the kernel source of the path, its five parts
+              at once (vast_tpu_torch/build.py), and reports ptxas'
+              register and shared-memory use.
 3. kernels  - each kernel at the main paths' shapes, in bf16 and fp32,
               against its plain PyTorch version on the same inputs, with
               the tolerances and their reasons; kernel, plain and library
@@ -214,6 +215,29 @@ exits non-zero with no result line:
               ``--mode testing`` from model_step_6.pt with equal R@k; then
               3 steps each of ``--optim adam`` and ``--optim adamax`` on
               a depth-2 copy at full width.
+22. ddp_step (after train_towers) - data parallel: ret%tvas at full width
+              (EVA01-g/14, BEATs, BERT-base; 8, 4 and 4 layers), fp32,
+              one AdamW step of the global batch of 8 clips through
+              DistributedDataParallel in spawned ranks: a world of one
+              under NCCL (the reference), then two ranks sharing the card
+              over gloo (VAST_DIST_BACKEND=gloo), and two ranks over NCCL
+              on two cards where the machine has them. The losses, every
+              averaged gradient (by group) and the updated parameters
+              against the reference within the stated fp32 tolerances;
+              every rank the same gradient; rows 1-4 exactly as counted
+              per rank (the fp32 bodies); step seconds, the gradient
+              all-reduce's seconds in flight and peak memory per rank.
+23. cli_ddp_ret_tvas (last, over cli_ret_tvas' clips) - the port's CLI
+              under ``python -m torch.distributed.run --standalone
+              --nproc_per_node 2 -m vast_tpu_torch.run``, two ranks sharing
+              the card over gloo: the released retrieval-msrvtt.json at
+              full width and ddp_step's depth, bf16, 3 steps of the global
+              batch 8, evaluations and saves after steps 1 and 3; every
+              rank's summary line with the same losses, DDP's own
+              all-reduce seconds (steps 1-2) and rows 1-4 and 6 exactly as
+              counted, one checkpoint pair written by rank 0
+              that loads into one process, and ``--mode testing`` under two
+              ranks and one with equal R@k.
 
 Then the seconds of every phase (``{"phase_seconds": {...}}``), the
 ``{"kernels": [...]}`` line (each row's launches from its path's
@@ -2400,16 +2424,24 @@ def write_cap_qa(np, train, test):
     return out
 
 
-def released_config(root, name):
+def released_config(root, name, depth=None):
     """A copy under ``root`` of the released finetune config ``name`` with
     ``vision_format: video_frame`` (the JPEG frame directories of
-    ``write_msrvtt``); its path."""
+    ``write_msrvtt``); its path. ``depth`` ({"vision", "audio", "bert"}
+    layers): the towers cut to it at full width."""
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "vast_tpu", "configs", "finetune_cfg",
                            name)) as f:
         cfg = json.load(f)
     for d in cfg["data_cfg"]["train"] + cfg["data_cfg"]["val"]:
         d["vision_format"] = "video_frame"
+    if depth:
+        cfg["model_cfg"] |= {
+            "vision_cfg": {"layers": depth["vision"]},
+            "audio_cfg": {"encoder_layers": depth["audio"]},
+            "bert_cfg": {"num_hidden_layers": depth["bert"]}}
+        name = name.replace(".json", "-depth{vision}-{audio}-{bert}.json"
+                            .format(**depth))
     path = os.path.join(root, name)
     with open(path, "w") as f:
         json.dump(cfg, f)
@@ -3364,6 +3396,603 @@ def phase_train_towers(torch, np):
     return out
 
 
+# the data-parallel phases: ddp_step holds two ranks' train step against
+# one rank's on the same global batch; cli_ddp_ret_tvas runs the CLI
+# under torchrun. Full width; depth cut so that two ranks and their
+# comparison fit the script's time (PERF.md section 4).
+DDP_DEPTH = {"vision": 8, "audio": 4, "bert": 4}
+DDP_LR = 1e-4
+DDP_TIMEOUT = 900                    # seconds a group of ranks may take
+# ddp_step's fp32 tolerances: the losses' relative error; each gradient
+# tensor's largest error over its largest entry; a parameter after one
+# AdamW step where its gradient is well above that error, in units of lr
+# (elsewhere Adam's bound, 2 lr)
+DDP_LOSS_RTOL, DDP_GRAD_RTOL, DDP_PARAM_LR_TOL = 1e-5, 1e-3, 1e-2
+CLI_DDP_STEPS = 3
+
+
+def ddp_config(torch):
+    """ret%tvas at full width (EVA01-g/14 1408 wide, BEATs, BERT-base),
+    ``DDP_DEPTH`` layers, fp32 parameters and compute, 'attn'
+    checkpointing, no dropout."""
+    import dataclasses
+
+    from vast_tpu_torch.models.beats import BeatsConfig
+    from vast_tpu_torch.models.bert import BertConfig
+    from vast_tpu_torch.models.eva_vit import EVA_PRESETS
+    from vast_tpu_torch.models.vast import VASTConfig
+
+    f32 = torch.float32
+    sub = dict(dtype=f32, param_dtype=f32, remat=True, remat_policy="attn")
+    return VASTConfig(
+        dtype=f32, param_dtype=f32, checkpointing=True, remat_policy="attn",
+        max_subtitle_len=CLI_SUBTITLE_LEN,
+        vision_cfg=dataclasses.replace(EVA_PRESETS["evaclip01_giant"],
+                                       layers=DDP_DEPTH["vision"], **sub),
+        audio_cfg=BeatsConfig(encoder_layers=DDP_DEPTH["audio"], **sub),
+        bert_cfg=BertConfig(num_hidden_layers=DDP_DEPTH["bert"],
+                            hidden_dropout_prob=0.0, **sub))
+
+
+def ddp_batch(np):
+    """The global batch of ``BATCH`` clips (numpy): 8 frames at 224 px,
+    1024 fbank frames of waveform, a padded caption and a 70-token
+    subtitle; the ITM negatives injected as global indices that cross
+    the ranks' halves."""
+    rs = np.random.RandomState(SEED + 12)
+    # 1023 * 160 + 400 samples: exactly 1024 fbank frames, one clip, so
+    # the training forward draws no clip (a draw is per row: the ranks'
+    # rows would draw other clips than one process's)
+    wave = 1023 * 160 + 400
+    cap_mask = np.ones((BATCH, TEXT_LEN), np.int32)
+    cap_mask[1::2, TEXT_LEN // 2:] = 0
+    sub_mask = np.ones((BATCH, CLI_SUBTITLE_LEN), np.int32)
+    sub_mask[::3, 50:] = 0
+    return {
+        "vision_frames": rs.randint(0, 256, (BATCH, FRAMES, 224, 224, 3)
+                                    ).astype(np.uint8),
+        "audio_waveforms": (rs.randn(BATCH, wave) * 3000).astype(np.float32),
+        "caption_tokens": rs.randint(1000, 20000, (BATCH, TEXT_LEN)
+                                     ).astype(np.int32),
+        "caption_attention_mask": cap_mask,
+        "subtitle_tokens": rs.randint(1000, 20000, (BATCH, CLI_SUBTITLE_LEN)
+                                      ).astype(np.int32),
+        "subtitle_attention_mask": sub_mask,
+        "itm_neg_cond_idx": np.roll(np.arange(BATCH), 3)[None],
+        "itm_neg_text_idx": np.roll(np.arange(BATCH), 5)[None]}
+
+
+def ddp_group(name):
+    """A parameter's group for the errors by group."""
+    return next((g for p, g in (("vision_encoder.", "vision"),
+                                ("audio_encoder.", "audio"),
+                                ("multimodal_encoder.", "bert"))
+                 if name.startswith(p)), "heads")
+
+
+class AllreduceClock:
+    """Host seconds during which a gradient all-reduce was in flight in
+    ``ddp_step``: from a bucket's launch while none was, to the completion
+    that leaves none (``timed_allreduce``, the rank's comm hook; the
+    intervals overlap the backward). Under gloo that spans the transfers
+    through host memory; an NCCL future completes at its launch, so under
+    NCCL it counts the launches only."""
+
+    def __init__(self):
+        import threading
+
+        self.seconds = 0.0
+        self._open = 0
+        self._since = 0.0
+        self._lock = threading.Lock()
+
+    def launched(self):
+        with self._lock:
+            if not self._open:
+                self._since = time.perf_counter()
+            self._open += 1
+
+    def completed(self):
+        with self._lock:
+            self._open -= 1
+            if not self._open:
+                self.seconds += time.perf_counter() - self._since
+
+
+def timed_allreduce(clock, bucket):
+    """DDP's default all-reduce (the mean over the ranks), timed by
+    ``clock``."""
+    import torch.distributed as dist
+
+    clock.launched()
+    buf = bucket.buffer().div_(dist.get_world_size())
+    fut = dist.all_reduce(buf, async_op=True).get_future()
+
+    def done(f):
+        clock.completed()
+        return f.value()[0]
+
+    return fut.then(done)
+
+
+def ddp_step_run(torch, np, rank, world, dev, ref_path, save):
+    """One ret%tvas train step of this rank through ``data_parallel``
+    (its all-reduce timed by ``AllreduceClock``): the model from the
+    seeded init (LayerNorm gains + 1, temperature 0.07, as the tiny steps:
+    a fp32 run is then well conditioned), this rank's rows of ``ddp_batch``. ``save`` (the reference run): the
+    metrics, gradients and updated parameters are saved to ``ref_path``;
+    else rank 0 returns their errors against it."""
+    from vast_tpu_torch.convert.from_jax import init_random_
+    from vast_tpu_torch.models.vast import VASTModel
+    from vast_tpu_torch.ops import flash_attention as fa
+    from vast_tpu_torch.parallel import collectives
+    from vast_tpu_torch.training.optimizer import build_optimizer
+    from vast_tpu_torch.training.step import (create_train_state,
+                                              data_parallel, make_train_step)
+
+    model = VASTModel(ddp_config(torch), device=dev)
+    init_random_(model, torch.Generator(device=dev).manual_seed(SEED))
+    with torch.no_grad():
+        model.contra_temp.fill_(0.07)
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.LayerNorm):
+                mod.weight.add_(1.0)
+    opt, _ = build_optimizer(model, {"learning_rate": DDP_LR,
+                                     "clip_lr": DDP_LR, "warmup_ratio": 0},
+                             {"vision_encoder_type": "evaclip01_giant"}, 10)
+    ddp = data_parallel(model)
+    clock = AllreduceClock()
+    ddp.register_comm_hook(clock, timed_allreduce)
+    step = make_train_step(model, opt, "ret%tvas", ddp=ddp)
+    b = BATCH // world
+    batch = {k: torch.from_numpy(np.ascontiguousarray(
+        v[:, rank * b:(rank + 1) * b] if k.startswith("itm_neg_")
+        else v[rank * b:(rank + 1) * b])).to(dev)
+        for k, v in ddp_batch(np).items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches(fa)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, metrics = step(create_train_state(model, opt), batch,
+                      torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    out = {"rank": rank, "world": world, "device": str(dev),
+           "step_s": seconds,
+           "grad_allreduce_s": clock.seconds,
+           "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "metrics": {k: v.item() for k, v in metrics.items()}}
+    named = dict(model.named_parameters())
+    # every rank must hold the same averaged gradient: a fingerprint each
+    finger = torch.stack([p.grad.double().abs().sum() for p in
+                          named.values() if p.grad is not None])
+    prints = collectives.all_gather_detached(finger[None])
+    out["ranks_agree"] = bool((prints == prints[0]).all())
+    if save:
+        torch.save({"metrics": out["metrics"],
+                    "grads": {n: None if p.grad is None else p.grad.cpu()
+                              for n, p in named.items()},
+                    "params": {n: p.detach().cpu()
+                               for n, p in named.items()}}, ref_path)
+        return out
+    if rank == 0:
+        out |= ddp_errors(torch, named, out["metrics"], torch.load(
+            ref_path, map_location=dev, weights_only=True))
+    return out
+
+
+def ddp_errors(torch, named, metrics, ref):
+    """Largest relative errors by group against the reference run, and
+    the checks of the stated tolerances."""
+    errs = {"loss_rel": max(abs(metrics[k] - v) / abs(v)
+                            for k, v in ref["metrics"].items())}
+    grad, param = {}, {}
+    noise, masked = [], 0
+    for n, p in named.items():
+        g, rg = p.grad, ref["grads"][n]
+        check((g is None) == (rg is None), f"{n}: gradient presence")
+        gname = ddp_group(n)
+        if g is not None:
+            top = rg.abs().max().item()
+            rel = (g - rg).abs().max().item() / max(top, 1e-30)
+            if n.endswith(KEY_BIASES):
+                # softmax ignores a bias on every key alike: rounding
+                # noise on both sides, reported apart
+                noise.append(rel)
+            else:
+                grad[gname] = max(grad.get(gname, 0.0), rel)
+            firm = rg.abs() > max(10 * DDP_GRAD_RTOL * top, 1e-4)
+        else:
+            firm = torch.zeros_like(p, dtype=torch.bool)
+        d = (p.detach() - ref["params"][n]).abs() / DDP_LR
+        masked += int(firm.sum())
+        param[gname] = max(param.get(gname, 0.0),
+                           d[firm].max().item() if firm.any() else 0.0)
+        param["bound"] = max(param.get("bound", 0.0), d.max().item())
+    errs |= {"grad_max_rel_err_by_group": grad,
+             "key_bias_grad_rel_err": max(noise, default=0.0),
+             "param_err_in_lr_by_group": param,
+             "param_elements_held": masked}
+    check(errs["loss_rel"] <= DDP_LOSS_RTOL,
+          f"ddp_step losses: relative error {errs['loss_rel']}")
+    for k, v in grad.items():
+        check(v <= DDP_GRAD_RTOL, f"ddp_step {k} gradients: {v}")
+    for k, v in param.items():
+        lim = 2.0 + 1e-3 if k == "bound" else DDP_PARAM_LR_TOL
+        check(v <= lim, f"ddp_step {k} parameters: {v} lr")
+    return errs
+
+
+def ddp_step_rank(rank, world, backend, port, out, ref_path, save):
+    """A spawned rank of ``ddp_step``: joins the group as torchrun would
+    start it (``VAST_DIST_BACKEND=gloo`` where ranks share the card),
+    runs ``ddp_step_run`` and writes its JSON to ``out % rank``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    os.environ.pop("VAST_DIST_BACKEND", None)
+    if backend == "gloo":
+        os.environ["VAST_DIST_BACKEND"] = "gloo"
+    import numpy as np
+    import torch
+
+    from vast_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, dev = parallel.init_distributed()
+    check(torch.distributed.get_backend() == backend, f"rank {rank}: "
+          f"{torch.distributed.get_backend()}, not {backend}")
+    try:
+        result = ddp_step_run(torch, np, rank, world, dev, ref_path, save)
+        with open(out % rank, "w") as f:
+            json.dump(result, f)
+    finally:
+        parallel.destroy()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(world, backend, tmp, ref_path, tag, save=False):
+    """``world`` spawned ``ddp_step_rank`` processes; their results. A
+    rank that fails or outlasts ``DDP_TIMEOUT`` fails the phase, and every
+    rank is stopped."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    out = os.path.join(tmp, f"{tag}_%d.json")
+    port = free_port()
+    procs = [ctx.Process(target=ddp_step_rank,
+                         args=(r, world, backend, port, out, ref_path,
+                               save))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DDP_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        codes = [p.exitcode for p in procs]
+        check(all(c == 0 for c in codes),
+              f"ddp_step {tag}: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for r in range(world):
+        with open(out % r) as f:
+            results.append(json.load(f))
+    return results
+
+
+def ddp_step_launches():
+    """Rows 1-4 a rank launches in one fp32 'attn' step: EVA's forward
+    and backward a layer, BEATs' with its bias (the CUDA-core bodies:
+    fp32), every backward given its forward's lse."""
+    v, a = DDP_DEPTH["vision"], DDP_DEPTH["audio"]
+    return {"tmajor_attention_fwd": v, "tmajor_attention_fwd_bias": a,
+            "tmajor_attention_bwd": v, "tmajor_attention_bwd_bias": a,
+            "tmajor_attention_bwd_lse": v + a}
+
+
+def phase_ddp_step(torch, np):
+    """Two ranks' ret%tvas train step against one rank's, both through
+    ``data_parallel`` on the same global batch of ``BATCH`` clips (each
+    rank its half, the ITM negatives global): first a world of one under
+    NCCL (the reference: NCCL's init and collectives on the card), then
+    two ranks sharing the card over gloo (``VAST_DIST_BACKEND=gloo``),
+    and, where the machine shows two cards, two ranks over NCCL on two
+    cards. The losses, every parameter's averaged gradient and the
+    parameters after the step must match the reference within the fp32
+    tolerances stated; every rank must hold the same gradient and launch
+    rows 1-4 exactly as counted."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="vast_ddp_step_")
+    ref = os.path.join(tmp, "reference.pt")
+    runs = {}
+    torch.cuda.empty_cache()
+    try:
+        (one,) = spawn_ranks(1, "nccl", tmp, ref, "reference", save=True)
+        runs["gloo_2_ranks"] = spawn_ranks(2, "gloo", tmp, ref, "gloo")
+        if torch.cuda.device_count() >= 2:
+            runs["nccl_2_ranks_2_cards"] = spawn_ranks(2, "nccl", tmp, ref,
+                                                       "nccl")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = ddp_step_launches()
+    for name, ranks in [("nccl_1_rank", [one])] + list(runs.items()):
+        for r in ranks:
+            check(r["launches"] == want,
+                  f"ddp_step {name} rank {r['rank']}: launches "
+                  f"{r['launches']} != {want}")
+            check(r["ranks_agree"], f"ddp_step {name}: ranks' gradients")
+            check(all(math.isfinite(v) for v in r["metrics"].values()),
+                  f"ddp_step {name}: metrics {r['metrics']}")
+    emit({"phase": "ddp_step", "task": "ret%tvas", "global_batch": BATCH,
+          "dtype": "float32", "remat_policy": "attn", "depth": DDP_DEPTH,
+          "reduced": {"vision layers": [40, DDP_DEPTH["vision"]],
+                      "audio layers": [12, DDP_DEPTH["audio"]],
+                      "bert layers": [12, DDP_DEPTH["bert"]]},
+          "tolerances": {"loss_rel": DDP_LOSS_RTOL,
+                         "grad_rel_to_tensor_max": DDP_GRAD_RTOL,
+                         "param_in_lr_where_grad_firm": DDP_PARAM_LR_TOL,
+                         "param_bound_in_lr": 2.0},
+          "launches_per_rank": want, "reference": one,
+          "runs": runs, "cards": torch.cuda.device_count(),
+          "cross_card_nccl": "nccl_2_ranks_2_cards" in runs})
+    # the launches rank 0 of the gloo pair counted (every rank's held to
+    # ``want`` above)
+    return runs["gloo_2_ranks"][0]["launches"]
+
+
+def ddp_cli_config(root):
+    """A copy of the released retrieval-msrvtt.json as ``released_config``
+    makes it, each tower at ``DDP_DEPTH`` layers (full width) and the
+    losses fetched every step; its path."""
+    with open(released_config(root, "retrieval-msrvtt.json",
+                              DDP_DEPTH)) as f:
+        cfg = json.load(f)
+    cfg["run_cfg"]["metrics_every"] = 1
+    path = os.path.join(root, "retrieval-msrvtt-ddp.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def torchrun(args, nproc, timeout=DDP_TIMEOUT):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc -m vast_tpu_torch.run args`` from the checkout, its ranks
+    sharing the card over gloo; returns each rank's ``summary`` lines
+    ({kind: {rank: fields}}). A non-zero exit, or a group
+    that outlasts ``timeout``, fails the phase; the whole process group
+    is killed then."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "-m", "vast_tpu_torch.run"] + args
+    env = dict(os.environ, VAST_DIST_BACKEND="gloo")
+    proc = subprocess.Popen(cmd, cwd=here, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+        output, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"torchrun {args} outlasted {timeout} s")
+    if proc.returncode:
+        print(output[-20000:], file=sys.stderr)
+        raise RuntimeError(f"torchrun {args}: exit code {proc.returncode}")
+    summaries = {}
+    for line in output.splitlines():
+        _, sep, rest = line.partition(" - vast_tpu_torch -   summary ")
+        if not sep:
+            continue
+        kind, _, rest = rest.partition(" rank ")
+        head, _, fields = rest.partition(": ")
+        r, _, n = head.partition(" of ")
+        check(int(n) == nproc, f"summary of a world of {n}")
+        summaries.setdefault(kind, {})[int(r)] = json.loads(fields)
+    return summaries
+
+
+def phase_cli_ddp_ret_tvas(torch, np, root):
+    """The port's CLI under torchrun, two ranks sharing the card over
+    gloo (``VAST_DIST_BACKEND=gloo``): the released retrieval-msrvtt.json
+    (``ddp_cli_config``: full width, ``DDP_DEPTH`` layers, bf16) over
+    write_msrvtt's clips, ``CLI_DDP_STEPS`` steps of the global batch 8
+    (4 a rank), evaluations and saves after steps 1 and 3 (valid_steps =
+    3 // 1 - 1 = 2; the first save is replaced by the second). Every rank
+    must log the same losses and launch rows 1-4 and 6 exactly as
+    counted; one checkpoint pair must be left, written by rank 0, which
+    loads into a one-process port with no key missing or unexpected;
+    ``--mode testing`` from it under two ranks and under one (in this
+    process) must give equal R@k."""
+    import shutil
+
+    from vast_tpu_torch import run
+    from vast_tpu_torch.evaluation import evaluation_mm
+    from vast_tpu_torch.ops import flash_attention as fa
+
+    cfg_path = ddp_cli_config(root)
+    out_dir = os.path.join(root, "output_ddp")
+    reduced = ["--train_batch_size", "8", "--test_batch_size", "8",
+               "--checkpointing", "true", "--first_eval", "false",
+               "--num_train_steps", str(CLI_DDP_STEPS), "--valid_freq", "1",
+               "--output_dir", out_dir]
+    ckpt = os.path.join(out_dir, "ckpt", f"model_step_{CLI_DDP_STEPS}.pt")
+    try:
+        t0 = time.perf_counter()
+        trained = torchrun(["--config", cfg_path] + reduced, 2)
+        train_wall = time.perf_counter() - t0
+        files = sorted(os.listdir(os.path.join(out_dir, "ckpt")))
+        with open(os.path.join(out_dir, "log", "log.txt")) as f:
+            log = f.read()
+        # testing in batches of 8 clips in every process (global 16
+        # under two ranks): the same GEMM shapes as one process's, so
+        # that bf16 rounds every clip's features alike
+        t0 = time.perf_counter()
+        tested2 = torchrun(["--config", cfg_path, "--mode", "testing",
+                            "--checkpoint", ckpt] + reduced
+                           + ["--test_batch_size", "16"], 2)
+        test2_wall = time.perf_counter() - t0
+        # the checkpoint in one process of the port
+        opts = run.get_args(["--config", cfg_path] + reduced)
+        model = run.pipeline.build_model(opts, "cuda")
+        reload = run.load_checkpoint(model, ckpt)
+        del model
+        torch.cuda.empty_cache()
+        zero_launches(fa)
+        scores = []
+        real_metric = evaluation_mm.compute_metric_ret
+
+        def recorded(score, ids, ids_txt, direction="forward"):
+            scores.append((score, list(ids), list(ids_txt), direction))
+            return real_metric(score, ids, ids_txt, direction)
+
+        evaluation_mm.compute_metric_ret = recorded
+        t0 = time.perf_counter()
+        try:
+            tested1 = run.main(["--config", cfg_path, "--mode", "testing",
+                                "--checkpoint", ckpt] + reduced)
+        finally:
+            evaluation_mm.compute_metric_ret = real_metric
+        test1_wall = time.perf_counter() - t0
+        launches1 = {k: v for k, v in fa.LAUNCHES.items() if v}
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(out_dir + "_test", ignore_errors=True)
+
+    train = trained.get("train", {})
+    test = tested2.get("test", {})
+    check(sorted(train) == [0, 1] and sorted(test) == [0, 1],
+          f"summaries from ranks {sorted(train)} (train), {sorted(test)} "
+          f"(test)")
+    # every rank logged the same losses (the ranks' means), every step
+    losses = [train[r]["losses"] for r in (0, 1)]
+    check(losses[0] == losses[1] and len(losses[0]) == CLI_DDP_STEPS,
+          f"the ranks' losses {losses}")
+    for row in losses[0]:
+        check(all(math.isfinite(v) for k, v in row.items()
+                  if k not in ("step", "task")), f"losses {row}")
+    check(files == [f"model_step_{CLI_DDP_STEPS}.pt",
+                    f"optimizer_step_{CLI_DDP_STEPS}.pt"],
+          f"checkpoint files {files}")
+    check(log.count("saved checkpoint step") == 2
+          and "rank 1 of 2" not in log and "summary train rank 0" in log,
+          "rank 0 alone writes the log and the two saves")
+    check(not reload.missing_keys and not reload.unexpected_keys,
+          f"reload of {ckpt}: {reload}")
+    # per rank: 4 clips a step, 8 a test shard (2 batches of 4 x 16
+    # frames in training, 1 of 8 in testing), the rerank's 16 segments
+    # split 8 a rank: 2 calls of 4
+    v, a, bert = DDP_DEPTH["vision"], DDP_DEPTH["audio"], DDP_DEPTH["bert"]
+    step = {"tmajor_attention_fwd": v, "tmajor_attention_fwd_bias": a,
+            "tmajor_attention_fwd_sm90": v + a,
+            "tmajor_attention_bwd": v, "tmajor_attention_bwd_bias": a,
+            "tmajor_attention_bwd_sm90": v + a,
+            "tmajor_attention_bwd_lse": v + a}
+
+    def evaluation(calls, batches=2):
+        return {"tmajor_attention_fwd": batches * v,
+                "tmajor_attention_fwd_bias": batches * a,
+                "tmajor_attention_fwd_sm90": batches * (v + a),
+                "flash_attention_fwd": calls * bert,
+                "flash_attention_fwd_sm90": calls * bert}
+
+    def total(*parts):
+        out = {}
+        for n, part in parts:
+            for k, c in part.items():
+                out[k] = out.get(k, 0) + n * c
+        return out
+
+    want_train = total((CLI_DDP_STEPS, step), (2, evaluation(2)))
+    want_test = evaluation(2, batches=1)
+    for r in (0, 1):
+        check(train[r]["launches"] == want_train,
+              f"rank {r} training launches {train[r]['launches']} != "
+              f"{want_train}")
+        check(test[r]["launches"] == want_test,
+              f"rank {r} testing launches {test[r]['launches']} != "
+              f"{want_test}")
+    # DDP's own all-reduce timing: steps 1 to 2, each read at the next
+    # synchronised forward
+    for r in (0, 1):
+        check(train[r]["grad_allreduce_steps"] == CLI_DDP_STEPS - 1
+              and train[r]["grad_allreduce_s"] > 0,
+              f"rank {r}: all-reduce {train[r]['grad_allreduce_s']} s over "
+              f"{train[r]['grad_allreduce_steps']} steps")
+    check(launches1 == evaluation(CLI_RERANK_CALLS),
+          f"one process's testing launches {launches1}")
+    key = next(iter(tested1))
+    check(test[0]["eval_log"] == test[1]["eval_log"],
+          "the two ranks' R@k")
+    # two ranks gather their strided shards rank after rank (clips 0, 2,
+    # ..., 14, then 1, 3, ..., 15), and R@k breaks a tie by the clips'
+    # order: the random weights' bf16 ITM scores tie often. One process's
+    # ITC and rerank score matrices, taken in that order, must give the
+    # two ranks' R@k exactly, which holds only where every cell agrees
+    check([d for *_, d in scores] == ["forward", "forward"],
+          f"one process's score matrices {[d for *_, d in scores]}")
+    permuted = {}
+    for name, (score, ids, ids_txt, _) in zip(("ret_itc_tvas",
+                                               "ret_itm_tvas"), scores):
+        order = list(range(0, len(ids), 2)) + list(range(1, len(ids), 2))
+        check(ids_txt == ids, "one caption a clip")
+        permuted[name] = evaluation_mm._metric_log(
+            score[np.ix_(order, order)], [ids[i] for i in order],
+            [ids[i] for i in order], "forward")
+    check(test[0]["eval_log"][key] == permuted,
+          f"R@k under 2 ranks {test[0]['eval_log'][key]} != one process's "
+          f"score matrices in the ranks' order {permuted} (in its own "
+          f"order {tested1[key]})")
+    emit({"phase": "cli_ddp_ret_tvas", "config": "vast_tpu/configs/"
+          "finetune_cfg/retrieval-msrvtt.json", "launch": "python -m "
+          "torch.distributed.run --standalone --nproc_per_node 2 -m "
+          "vast_tpu_torch.run", "backend": "gloo, two ranks on one card "
+          "(VAST_DIST_BACKEND=gloo): its all-reduce stages the gradients "
+          "through host memory, no NCCL figure",
+          "reduced": {"vision layers": [40, v], "audio layers": [12, a],
+                      "bert layers": [12, bert],
+                      "train_batch_size": [64, 8],
+                      "test_batch_size": [64, "8 (testing: 16, 8 a rank)"],
+                      "checkpointing": [False, True],
+                      "num_train_steps": ["3.6 epochs", CLI_DDP_STEPS],
+                      "valid_freq": [10, 1], "first_eval": [True, False],
+                      "vision_format": ["video_rawvideo", "video_frame"]},
+          "train_run_s": train_wall, "test_run_s": {"2_ranks": test2_wall,
+                                                   "1_rank": test1_wall},
+          "ranks": {r: {"step_s": train[r]["step_s"],
+                        "grad_allreduce_s": train[r]["grad_allreduce_s"],
+                        "grad_allreduce_steps":
+                            train[r]["grad_allreduce_steps"],
+                        "max_memory_allocated":
+                            train[r].get("max_memory_allocated"),
+                        "launches": train[r]["launches"]} for r in (0, 1)},
+          "launches_per_rank": {"step": step, "evaluation": evaluation(2),
+                                "testing": want_test},
+          "losses": losses[0], "checkpoint": files,
+          "r_at_k": {"2_ranks": test[0]["eval_log"][key],
+                     "1_rank": tested1[key],
+                     "1_rank_in_the_ranks_order": permuted}})
+    # the training launches rank 0 counted (both held to ``want_train``)
+    return train[0]["launches"]
+
+
 def body_of(spec):
     body = BODIES[spec["layout"]]
     return body[spec["name"]] if isinstance(body, dict) else body
@@ -3413,16 +4042,18 @@ def main():
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[phase] = time.perf_counter() - t0
+        emit({"phase_done": phase, "seconds": seconds[phase]})
         return out
 
-    name = timed("device", phase_device, torch)
+    device_name = timed("device", phase_device, torch)
     timed("build", phase_build)
-    rows = timed("kernels", phase_kernels, torch, name)
+    rows = timed("kernels", phase_kernels, torch, device_name)
     timed("hmajor_turns", phase_hmajor_turns, torch)
-    timed("tmajor_turns", phase_tmajor_turns, torch, name)
+    timed("tmajor_turns", phase_tmajor_turns, torch, device_name)
     timed("bwd_turns", phase_bwd_turns, torch)
     probe_rows, probe_launches = timed("tmajor_variants",
-                                       phase_tmajor_variants, torch, name)
+                                       phase_tmajor_variants, torch,
+                                       device_name)
     rows |= probe_rows
     torch.cuda.empty_cache()
     timed("tiny", phase_tiny, torch, np)
@@ -3442,6 +4073,8 @@ def main():
     torch.cuda.empty_cache()
     towers = timed("slice_towers", phase_slice_towers, torch, np)
     train_towers = timed("train_towers", phase_train_towers, torch, np)
+    torch.cuda.empty_cache()
+    ddp_step = timed("ddp_step", phase_ddp_step, torch, np)
     with msrvtt_data(np) as (root, data_s):
         cli_launches = timed("cli_ret_tvas", phase_cli_ret_tvas, torch, np,
                              root, data_s)
@@ -3449,6 +4082,9 @@ def main():
             timed(f"cli_{kind}_tvas", phase_cli_generation, torch, np, root,
                   kind)
         pretrain = timed("cli_pretrain", phase_cli_pretrain, torch, np, root)
+        torch.cuda.empty_cache()
+        cli_ddp = timed("cli_ddp_ret_tvas", phase_cli_ddp_ret_tvas, torch,
+                        np, root)
     emit({"phase_seconds": seconds})
     # each row's launches on its path's counted run (a train block: five
     # steps); the rows of shapes no path reaches have none
@@ -3512,11 +4148,26 @@ def main():
         ("flash_attention_fwd", "flagship_rerank"): {
             "slice_towers": sum(t["rerank"].get("flash_attention_fwd", 0)
                                 for t in towers.values())},
+        ("flash_attention_fwd", "tvas_rerank"): {
+            "cli_ddp_ret_tvas (rank 0 of 2)": cli_ddp["flash_attention_fwd"]},
     }
+    # the data-parallel phases' launches counted by rank 0 (ddp_step's in
+    # fp32: the CUDA-core bodies), at their depth-cut towers' shapes
+    for row, key in ((("tmajor_attention_fwd", "eva01g"),
+                      "tmajor_attention_fwd"),
+                     (("tmajor_attention_fwd_bias", "beats"),
+                      "tmajor_attention_fwd_bias"),
+                     (("tmajor_attention_bwd", "eva01g"),
+                      "tmajor_attention_bwd"),
+                     (("tmajor_attention_bwd_bias", "beats"),
+                      "tmajor_attention_bwd_bias")):
+        by_path.setdefault(row, {}).update({
+            "ddp_step (rank 0 of 2, fp32)": ddp_step[key],
+            "cli_ddp_ret_tvas (rank 0 of 2)": cli_ddp[key]})
     emit({"kernels": kernels_line(
         [rows[(i, torch.bfloat16)] for i in range(len(KERNELS))],
         launches_at, by_path)})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
     return 0
 

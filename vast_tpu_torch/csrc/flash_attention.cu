@@ -86,6 +86,20 @@
 #include <initializer_list>
 #include <type_traits>
 
+// The C entry points (at the end) fall into five parts by the bodies
+// they reach: 0 the mma.sync / CUDA-core forward (run), 1 the Hopper
+// forward (run_sm90), 2 the layout probe's strips (the copy engine's ring
+// and the resident strip), 3 the mma.sync / CUDA-core backward (run_bwd),
+// 4 the Hopper backward (run_bwd_sm90). vast_tpu_torch/build.py compiles
+// each part apart (-DVAST_PART=k), all at once, and links them into one
+// library; a part defines only its entries and the dispatchers that
+// instantiate their kernels. Without VAST_PART one compile defines all.
+#ifdef VAST_PART
+#define VAST_PART_ON(k) (VAST_PART == (k))
+#else
+#define VAST_PART_ON(k) 1
+#endif
+
 namespace {
 
 constexpr int kMaxD = 128;
@@ -1468,6 +1482,7 @@ cudaError_t launch_bwd_fp32(const BwdParams& p, cudaStream_t stream) {
                          kWarps * 32, smem, stream);
 }
 
+#if VAST_PART_ON(0)
 cudaError_t run(const Params& p, int dtype, int bias_dtype, int B, int H,
                 cudaStream_t s) {
   if (p.d < 1 || p.d > kMaxD || p.lq < 1 || p.kend < 1 || B < 1 || H < 1 ||
@@ -1483,10 +1498,12 @@ cudaError_t run(const Params& p, int dtype, int bias_dtype, int B, int H,
   }
   return cudaErrorInvalidValue;
 }
+#endif
 
 // The backward's (bias type, ds type) pairs: none; a bias in the input
 // type with ds in it (the token-major entry); an fp32 bias with or without
 // ds (the head-major entry)
+#if VAST_PART_ON(3)
 cudaError_t run_bwd(const BwdParams& p, int dtype, int bias_dtype,
                     cudaStream_t s) {
   if (p.D < 1 || p.D > kMaxD || p.lq < 1 || p.lk < 1 || p.kend < 1 ||
@@ -1509,6 +1526,7 @@ cudaError_t run_bwd(const BwdParams& p, int dtype, int bias_dtype,
   }
   return cudaErrorInvalidValue;
 }
+#endif
 
 // The Params of a token-major qkv (B, L, 3*H*D) whose head h has q, k and
 // v at elements h * head + j * part (j = 0, 1, 2) of each row, and of the
@@ -1719,6 +1737,7 @@ attention_fwd_tma_kernel(const Params p,
   attention_fwd_mma<DP, NoBias>(p, tiles, smem);
 }
 
+#if VAST_PART_ON(2)
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fwd_tma_fp32_kernel(const Params p,
                               const __grid_constant__ CUtensorMap map) {
@@ -1730,6 +1749,7 @@ attention_fwd_tma_fp32_kernel(const Params p,
   const TmaF32Tiles tiles{&map, bar, (int)blockIdx.y, (int)blockIdx.z, p.d};
   attention_fwd_fp32<NoBias>(p, tiles, reinterpret_cast<float*>(smem));
 }
+#endif
 
 using EncodeTiledFn = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -1795,6 +1815,7 @@ cudaError_t launch_tma(const Params& p, const void* qkv, int B, int H,
   return cudaGetLastError();
 }
 
+#if VAST_PART_ON(2)
 cudaError_t launch_tma_fp32(const Params& p, const void* qkv, int B, int H,
                             cudaStream_t stream) {
   CUtensorMap map;
@@ -1809,7 +1830,9 @@ cudaError_t launch_tma_fp32(const Params& p, const void* qkv, int B, int H,
   attention_fwd_tma_fp32_kernel<<<grid, kWarps * 32, smem, stream>>>(p, map);
   return cudaGetLastError();
 }
+#endif
 
+#if VAST_PART_ON(2)
 cudaError_t dispatch_tma(const Params& p, const void* qkv, int B, int H,
                          cudaStream_t s) {
   switch ((p.d + 15) / 16) {
@@ -1824,6 +1847,7 @@ cudaError_t dispatch_tma(const Params& p, const void* qkv, int B, int H,
       return cudaErrorInvalidValue;
   }
 }
+#endif
 
 // ---------------------------------------------------------------------
 // The forward for Hopper: wgmma and the copy engine
@@ -2619,6 +2643,7 @@ bool sm90_takes(const Params& p, int dtype, int B, int H) {
   return reinterpret_cast<uintptr_t>(p.out) % 4 == 0;
 }
 
+#if VAST_PART_ON(1)
 cudaError_t run_sm90(const Params& p, int dtype, int bias_dtype, int B, int H,
                      cudaStream_t s) {
   if (!sm90_takes(p, dtype, B, H)) return cudaErrorInvalidValue;
@@ -2627,12 +2652,14 @@ cudaError_t run_sm90(const Params& p, int dtype, int bias_dtype, int B, int H,
   if (bias_dtype == kF32) return dispatch_sm90<float>(p, B, H, s);
   return cudaErrorInvalidValue;
 }
+#endif
 
 // The token-major entry's: run_sm90's rule, and a bias (qkv's type, (B or
 // 1, H, L, L)) that the copy engine reads too: L and the batch stride
 // multiples of 8 elements, the base 16-byte aligned. At D <= 64 the bias
 // comes through the copy engine, above by the scalar
 // loads of the head-major entry (the stages would not fit).
+#if VAST_PART_ON(1)
 cudaError_t run_tmajor_sm90(const Params& p, int dtype, int B, int H,
                             cudaStream_t s) {
   if (!sm90_takes(p, dtype, B, H) ||
@@ -2643,6 +2670,7 @@ cudaError_t run_tmajor_sm90(const Params& p, int dtype, int B, int H,
     return launch_sm90<64, 4, BoxBias>(p, B, H, s);
   return run_sm90(p, dtype, dtype, B, H, s);
 }
+#endif
 
 // The Params of the head-major entries (their arguments, described there)
 Params hmajor_params(const void* q, const void* k, const void* v,
@@ -3500,6 +3528,7 @@ bool sm90_bwd_takes(const BwdParams& p, int dtype) {
 }
 
 // run_bwd's checks and (bias type, ds type) pairs, on the Hopper body
+#if VAST_PART_ON(4)
 cudaError_t run_bwd_sm90(const BwdParams& p, int dtype, int bias_dtype,
                          cudaStream_t s) {
   if (!sm90_bwd_takes(p, dtype) || p.lq < 1 || p.lk < 1 || p.kend < 1 ||
@@ -3515,6 +3544,7 @@ cudaError_t run_bwd_sm90(const BwdParams& p, int dtype, int bias_dtype,
               : dispatch_bwd_sm90<float, NoBias>(p, s);
   return cudaErrorInvalidValue;
 }
+#endif
 
 // The BwdParams of the token-major entries (their arguments, described at
 // vast_tmajor_attention_bwd): q, k and v of the fused qkv, dq, dk and dv of
@@ -4091,6 +4121,7 @@ bool strip_takes(const Params& p, int dtype, int B, int H) {
 // H, L, L) in qkv's type, batch stride 0 when shared. ``lse`` (null: not
 // written) receives each row's logsumexp, (B, H, L) fp32 contiguous, as
 // the head-major entries write it (the backward reads it).
+#if VAST_PART_ON(0)
 extern "C" int vast_tmajor_attention_fwd(const void* qkv, const void* bias,
                                          void* out, float* lse, int dtype,
                                          int B, int L, int H, int D, int kend,
@@ -4102,6 +4133,7 @@ extern "C" int vast_tmajor_attention_fwd(const void* qkv, const void* bias,
                                     bias_batch_stride, scale),
                   dtype, dtype, B, H, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // The same function, the same arguments, on the Hopper body (wgmma and the
 // copy engine; see "The forward for Hopper" above). Returns
@@ -4110,6 +4142,7 @@ extern "C" int vast_tmajor_attention_fwd(const void* qkv, const void* bias,
 // above 128, qkv not 16-byte aligned, a bias whose L or batch stride is not
 // a multiple of 8 elements or whose base is not 16-byte aligned;
 // cudaErrorNotSupported where CUDA offers no tensor maps.
+#if VAST_PART_ON(1)
 extern "C" int vast_tmajor_attention_fwd_sm90(
     const void* qkv, const void* bias, void* out, float* lse, int dtype,
     int B, int L, int H, int D, int kend, long long bias_batch_stride,
@@ -4120,6 +4153,7 @@ extern "C" int vast_tmajor_attention_fwd_sm90(
                         bias_batch_stride, scale),
       dtype, B, H, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // The token-major layout probe (scripts/bench_tmajor_variants.py), its two
 // Pallas kernels. Both: qkv (B, L, 3*H*D), out (B, L, H*D) in qkv's type,
@@ -4133,6 +4167,7 @@ extern "C" int vast_tmajor_attention_fwd_sm90(
 // nothing, where the copy engine cannot read the strips: D * esize or the
 // row stride not a multiple of 16 bytes, qkv not 16-byte aligned, or D >
 // 128; cudaErrorNotSupported where the driver has no tensor maps.
+#if VAST_PART_ON(2)
 extern "C" int vast_tmajor_dma_attention_fwd(const void* qkv, void* out,
                                              int dtype, int B, int L, int H,
                                              int D, int kend, void* stream) {
@@ -4148,6 +4183,7 @@ extern "C" int vast_tmajor_dma_attention_fwd(const void* qkv, void* out,
   return (int)(dtype == kF32 ? launch_tma_fp32(p, qkv, B, H, s)
                              : dispatch_tma(p, qkv, B, H, s));
 }
+#endif
 
 // Row 10 on Hopper: the same function, the same arguments, on the resident
 // strip (attention_fwd_strip_sm90_kernel: wgmma, the copy engine, each
@@ -4158,6 +4194,7 @@ extern "C" int vast_tmajor_dma_attention_fwd(const void* qkv, void* out,
 // aligned, kend above L or above the resident room (320 keys at D above
 // 64, 768 at and below); cudaErrorNotSupported where CUDA offers no
 // tensor maps.
+#if VAST_PART_ON(2)
 extern "C" int vast_tmajor_dma_attention_fwd_sm90(const void* qkv, void* out,
                                                   int dtype, int B, int L,
                                                   int H, int D, int kend,
@@ -4169,6 +4206,7 @@ extern "C" int vast_tmajor_dma_attention_fwd_sm90(const void* qkv, void* out,
   return (int)(strip_split(L, kend) ? dispatch_strip<true>(p, B, H, s)
                                     : dispatch_strip<false>(p, B, H, s));
 }
+#endif
 
 // Row 11, _sect_kernel (:118): the section-major layout [Q_all | K_all |
 // V_all], head i's q at i*D, k at H*D + i*D, v at 2*H*D + i*D, read by the
@@ -4176,6 +4214,7 @@ extern "C" int vast_tmajor_dma_attention_fwd_sm90(const void* qkv, void* out,
 // operands the copy engine cannot read) at those offsets: fp32, and bf16
 // that vast_tmajor_sect_attention_fwd_sm90 (below) does not take. Its own
 // entry, so that its launches count apart.
+#if VAST_PART_ON(0)
 extern "C" int vast_tmajor_sect_attention_fwd(const void* qkv, void* out,
                                               int dtype, int B, int L, int H,
                                               int D, int kend, void* stream) {
@@ -4185,6 +4224,7 @@ extern "C" int vast_tmajor_sect_attention_fwd(const void* qkv, void* out,
                                  (long long)H * D);
   return (int)run(p, dtype, dtype, B, H, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // Row 11 on Hopper: the same function, the same arguments, on the shared
 // Hopper forward body (attention_fwd_sm90_kernel, the instantiation cur's
@@ -4195,6 +4235,7 @@ extern "C" int vast_tmajor_sect_attention_fwd(const void* qkv, void* out,
 // does not take (run_sm90): any dtype but bf16, D not a multiple of 8 or
 // above 128, qkv not 16-byte aligned, kend above L; cudaErrorNotSupported
 // where CUDA offers no tensor maps.
+#if VAST_PART_ON(1)
 extern "C" int vast_tmajor_sect_attention_fwd_sm90(const void* qkv,
                                                    void* out, int dtype,
                                                    int B, int L, int H, int D,
@@ -4204,6 +4245,7 @@ extern "C" int vast_tmajor_sect_attention_fwd_sm90(const void* qkv,
                                      (long long)H * D),
                        dtype, dtype, B, H, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // Head-major attention (flash_attention): q (B, H, Lq, D), k and v (B, H,
 // Lk, D), out (B, H, Lq, D) and bias (B, H, Lq, Lk), each through
@@ -4212,6 +4254,7 @@ extern "C" int vast_tmajor_sect_attention_fwd_sm90(const void* qkv,
 // Keys >= kend are masked. ``lse`` (null: not written) receives the
 // logsumexp of each row's scores, (B, H, Lq) fp32 contiguous, +inf for a
 // row with no finite score.
+#if VAST_PART_ON(0)
 extern "C" int vast_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, const void* bias,
                                         void* out, float* lse, int dtype,
@@ -4223,6 +4266,7 @@ extern "C" int vast_flash_attention_fwd(const void* q, const void* k,
                                 strides, scale),
                   dtype, bias_dtype, B, H, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // The same function, the same arguments, on the Hopper body (wgmma and the
 // copy engine; see "The forward for Hopper" above). Returns
@@ -4232,6 +4276,7 @@ extern "C" int vast_flash_attention_fwd(const void* q, const void* k,
 // q, k or v not 16-byte aligned, an odd stride of out or an out not
 // 4-byte aligned; cudaErrorNotSupported where the driver has no tensor
 // maps.
+#if VAST_PART_ON(1)
 extern "C" int vast_flash_attention_fwd_sm90(
     const void* q, const void* k, const void* v, const void* bias, void* out,
     float* lse, int dtype, int bias_dtype, int B, int H, int Lq, int D,
@@ -4241,6 +4286,7 @@ extern "C" int vast_flash_attention_fwd_sm90(
                        dtype, bias_dtype, B, H,
                        static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // Backward of the token-major attention (self_attention_tmajor_bwd): from
 // qkv, o (the forward's output) and dout (its cotangent), all (B, L, ...)
@@ -4253,6 +4299,7 @@ extern "C" int vast_flash_attention_fwd_sm90(
 // last key tile that holds a key < kend (tiles of 32 keys here, of 64 on
 // the Hopper body), so the caller zero-fills it when kend < L. Two
 // launches (dQ, then dK/dV); returns the first error.
+#if VAST_PART_ON(3)
 extern "C" int vast_tmajor_attention_bwd(const void* qkv, const void* o,
                                          const void* dout, const void* bias,
                                          void* dqkv, void* dbias, float* lse,
@@ -4270,6 +4317,7 @@ extern "C" int vast_tmajor_attention_bwd(const void* qkv, const void* o,
                         scale),
       dtype, dtype, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // The same function, the same arguments, on the Hopper body (wgmma and the
 // copy engine; see "The backward for Hopper" above). Returns
@@ -4278,6 +4326,7 @@ extern "C" int vast_tmajor_attention_bwd(const void* qkv, const void* o,
 // above 128, qkv, o or dout not 16-byte aligned or with a row stride that
 // is not a multiple of 8 elements, lse or delta not 16-byte aligned;
 // cudaErrorNotSupported where the driver has no tensor maps.
+#if VAST_PART_ON(4)
 extern "C" int vast_tmajor_attention_bwd_sm90(
     const void* qkv, const void* o, const void* dout, const void* bias,
     void* dqkv, void* dbias, float* lse, float* delta, int lse_given,
@@ -4291,6 +4340,7 @@ extern "C" int vast_tmajor_attention_bwd_sm90(
                         scale),
       dtype, dtype, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // Backward of the head-major attention (flash_attention_bwd): q, o, dout
 // and dq (B, H, Lq, D), k, v, dk and dv (B, H, Lk, D), bias (broadcast
@@ -4303,6 +4353,7 @@ extern "C" int vast_tmajor_attention_bwd_sm90(
 // kend (tiles as at vast_tmajor_attention_bwd), so the caller zero-fills
 // dbias when kend < Lk. Keys >= kend get dk = dv = 0. Two launches (dQ, then
 // dK/dV); returns the first error.
+#if VAST_PART_ON(3)
 extern "C" int vast_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* bias, void* dq, void* dk, void* dv,
@@ -4314,6 +4365,7 @@ extern "C" int vast_flash_attention_bwd(
                         delta, B, H, Lq, Lk, D, kend, strides, scale),
       dtype, kF32, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // The same function, the same arguments, on the Hopper body. Returns
 // cudaErrorInvalidValue, and launches nothing, for operands that body does
@@ -4322,6 +4374,7 @@ extern "C" int vast_flash_attention_bwd(
 // 8 elements or a base of theirs not 16-byte aligned, an odd stride of dq,
 // dk or dv or a base of theirs not 4-byte aligned, lse or delta not 16-byte
 // aligned; cudaErrorNotSupported where the driver has no tensor maps.
+#if VAST_PART_ON(4)
 extern "C" int vast_flash_attention_bwd_sm90(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* bias, void* dq, void* dk, void* dv,
@@ -4333,3 +4386,4 @@ extern "C" int vast_flash_attention_bwd_sm90(
                         delta, B, H, Lq, Lk, D, kend, strides, scale),
       dtype, kF32, static_cast<cudaStream_t>(stream));
 }
+#endif

@@ -1,8 +1,11 @@
 """Multi-modal evaluation: retrieval (``ret%...``), captioning
 (``cap%...``) and QA (``qa%...``).
 
-Counterpart of ``vast_tpu.evaluation.evaluation_mm`` for one process on
-one device. ``evaluate_mm`` runs each ``{task--name: loader}`` and each
+Counterpart of ``vast_tpu.evaluation.evaluation_mm``, in one process or
+in each rank of a data-parallel run (``vast_tpu_torch.parallel``), where
+every rank evaluates its shard of the set and the results are gathered
+(``parallel.collectives``), so the metrics come out equal on every rank.
+``evaluate_mm`` runs each ``{task--name: loader}`` and each
 head of its task; ``evaluate_ret`` takes a loader (``BatchLoader``) or
 any iterable of numpy batches, each holding the model's input arrays
 plus ``ids`` (one per sample) and ``ids_txt`` (one per caption).
@@ -20,7 +23,8 @@ at the end.
 
 The ITM rerank scores the ITC top-k (text, candidate) pairs grouped by
 candidate, so each candidate's cross-attention K/V is projected once per
-call (``compute_slice_scores_grouped``).
+call (``compute_slice_scores_grouped``); ranks score disjoint strides of
+the candidate segments and sum their matrices.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from vast_tpu_torch import parallel
 from vast_tpu_torch.config import parse_task_string
 from vast_tpu_torch.device import resolve_device
 from vast_tpu_torch.evaluation.metrics.coco_eval import \
@@ -40,6 +45,8 @@ from vast_tpu_torch.evaluation.vqa_metrics import exact_match_accuracy
 from vast_tpu_torch.logger import LOGGER
 from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.generation import GenerationConfig, generate
+from vast_tpu_torch.parallel.collectives import (gather_array, gather_list,
+                                                 sum_across_hosts)
 
 
 class _StageClock:
@@ -144,7 +151,10 @@ def evaluate_ret(model, subtasks, loader, run_cfg, *,
                  timings: dict | None = None):
     """R@1/5/10 of ITC and of the ITM rerank per subtask.
 
-    ``loader``: a ``BatchLoader`` or an iterable of numpy batches.
+    ``loader``: a ``BatchLoader`` or an iterable of numpy batches (in a
+    data-parallel run, this rank's shard: the ids, features, tokens and
+    condition sequences, trimmed of the ``padded_tail``, are gathered
+    from every rank, in rank order).
     ``vision_transforms`` (None: the loader's dataset config, else
     'none') must match the batches' frames. ``device`` (None: the GPU)
     must be the model's device. ``timings``, when given, receives seconds
@@ -174,14 +184,16 @@ def evaluate_ret(model, subtasks, loader, run_cfg, *,
         toks.append(np.asarray(batch["caption_tokens"])[:nvt])
         masks.append(np.asarray(batch["caption_attention_mask"])[:nvt])
 
-    # drop the loader's cross-host alignment duplicates at the epoch's end
+    # drop the loader's cross-rank alignment duplicates at the epoch's
+    # end, then gather every rank's rows (identity in one process)
     pt = getattr(loader, "padded_tail", 0)
 
     def local(parts, cat):
         x = cat(parts)
-        return x[: x.shape[0] - pt]
+        return gather_array(x[: x.shape[0] - pt])
 
-    ids, ids_txt = ids[: len(ids) - pt], ids_txt[: len(ids_txt) - pt]
+    ids = gather_list(ids[: len(ids) - pt])
+    ids_txt = gather_list(ids_txt[: len(ids_txt) - pt])
     feat_t = local(feats_t, torch.cat).numpy()
     input_ids = local(toks, np.concatenate)
     attention_mask = local(masks, np.concatenate)
@@ -229,7 +241,10 @@ def rerank_scores(model, cond_seqs, input_ids, attention_mask, itc_scores,
     stays on the model's device; ``input_ids``/``attention_mask`` are
     numpy (n_text, L). Pairs are grouped by candidate in segments of up to
     ``texts_per_seg`` texts; ``conds_per_call`` segments share one call,
-    padded to the longest segment of the call.
+    padded to the longest segment of the call. In a data-parallel run
+    (inputs equal on every rank) rank r scores segments r::world and the
+    ranks' matrices, zero off their segments, are summed
+    (vast_tpu evaluation_mm.py:327-337).
     """
     n_text, n_cond = itc_scores.shape
     if direction == "forward":
@@ -248,6 +263,7 @@ def rerank_scores(model, cond_seqs, input_ids, attention_mask, itc_scores,
         by_cand.setdefault(c, []).append(t)
     segs = [(c, ts[s:s + texts_per_seg]) for c, ts in by_cand.items()
             for s in range(0, len(ts), texts_per_seg)]
+    segs = segs[parallel.rank()::parallel.world()]
 
     device = cond_seqs.device
     out = np.zeros_like(itc_scores)
@@ -266,7 +282,7 @@ def rerank_scores(model, cond_seqs, input_ids, attention_mask, itc_scores,
         scores = scores.float().cpu().numpy().reshape(len(call), t_max)
         for gi, (c, ts) in enumerate(call):
             out[ts, c] = scores[gi, : len(ts)]
-    return out
+    return sum_across_hosts(out)
 
 
 def compute_metric_ret(score_matrix, ids, ids_txt, direction="forward"):
@@ -355,9 +371,11 @@ def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
     ``results_test_{dset}/step_{N}_{st}.json`` under ``output_dir``, and
     Bleu_1-4, METEOR, ROUGE_L and CIDEr against the dataset's ``annfile``
     where it has one. In ``captioner_mode``: ``generate_nums`` top-10
-    samples a clip, flushed to ``gencap_rank0_idx{i}_{st}.json`` every
+    samples a clip, flushed to ``gencap_rank{r}_idx{i}_{st}.json`` every
     20,000 clips, and no metrics. ``timings``: seconds per stage
-    (``condition_features``, ``decode``)."""
+    (``condition_features``, ``decode``). In a data-parallel run each
+    rank decodes its shard; the captions are gathered, rank 0 writes
+    the file and every rank scores them."""
     device = _check_device(model, device)
     cfg = model.cfg
     sample = bool(cfg.captioner_mode)
@@ -375,7 +393,8 @@ def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
 
     def flush_gencap(st):
         nonlocal gen_idx
-        path = os.path.join(out_dir, f"gencap_rank0_idx{gen_idx}_{st}.json")
+        path = os.path.join(
+            out_dir, f"gencap_rank{parallel.rank()}_idx{gen_idx}_{st}.json")
         with open(path, "w") as f:
             json.dump(results[st], f)
         gen_idx += 1
@@ -411,10 +430,11 @@ def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
     annfile = getattr(getattr(loader, "dataset", None), "annfile", None)
     val_log = {}
     for st in subtasks:
-        rows = results[st][:len(results[st]) - pt]
-        with open(os.path.join(out_dir, f"step_{global_step}_{st}.json"),
-                  "w") as f:
-            json.dump(rows, f)
+        rows = gather_list(results[st][:len(results[st]) - pt])
+        if parallel.is_main():
+            with open(os.path.join(out_dir, f"step_{global_step}_{st}.json"),
+                      "w") as f:
+                json.dump(rows, f)
         if annfile:
             val_log[f"cap_{st}"] = compute_caption_metrics(rows, annfile)
     return val_log
@@ -429,7 +449,9 @@ def evaluate_qa(model, tokenizer, subtasks, loader, run_cfg, global_step=0,
     ``predict_answers/step{N}_pred_{dset}_{st}.json`` under
     ``output_dir``; the accuracy is the exact match against
     ``raw_answers`` (any element of a list). ``timings``: seconds per
-    stage (``condition_features``, ``decode``)."""
+    stage (``condition_features``, ``decode``). In a data-parallel run
+    each rank decodes its shard; the answers and the ground truth are
+    gathered, rank 0 writes the file and every rank scores them."""
     device = _check_device(model, device)
     gen_cfg = _gen_config(tokenizer, max_new_tokens=10,
                           num_beams=model.cfg.beam_size, length_penalty=1.0)
@@ -453,16 +475,17 @@ def evaluate_qa(model, tokenizer, subtasks, loader, run_cfg, global_step=0,
             preds[st] += tokenizer.batch_decode(toks.cpu().numpy())[:nv]
 
     pt = getattr(loader, "padded_tail", 0)
-    gt_rows = gt_rows[:len(gt_rows) - pt]
+    gt_rows = gather_list(gt_rows[:len(gt_rows) - pt])
     out_dir = os.path.join(run_cfg.get("output_dir", "."), "predict_answers")
     os.makedirs(out_dir, exist_ok=True)
     val_log = {}
     for st in subtasks:
-        rows = preds[st][:len(preds[st]) - pt]
-        with open(os.path.join(
-                out_dir, f"step{global_step}_pred_{dset_name}_{st}.json"),
-                "w") as f:
-            json.dump(rows, f)
+        rows = gather_list(preds[st][:len(preds[st]) - pt])
+        if parallel.is_main():
+            with open(os.path.join(
+                    out_dir, f"step{global_step}_pred_{dset_name}_{st}.json"),
+                    "w") as f:
+                json.dump(rows, f)
         acc = exact_match_accuracy(rows, gt_rows)
         val_log[f"vqa_{st}"] = {"accuracy": round(acc * 100, 2)}
     return val_log

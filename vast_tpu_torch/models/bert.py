@@ -361,11 +361,14 @@ def init_cache(cfg: BertConfig, batch: int, length: int, device=None):
             for _ in range(cfg.num_hidden_layers)]
 
 
-def mlm_loss(logits, labels, ignore_index: int = -100):
-    """Cross entropy in fp32, averaged over the positions whose label is
-    not ``ignore_index`` (0 where there is none)."""
+def mlm_loss(logits, labels, ignore_index: int = -100, denom=None):
+    """Cross entropy in fp32, summed over the positions whose label is
+    not ``ignore_index`` and divided by ``denom`` (None: their count, 1
+    where there is none)."""
     valid = labels != ignore_index
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, torch.where(valid, labels, 0).long()[..., None])
     nll = torch.where(valid, nll[..., 0], 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    if denom is None:
+        denom = valid.sum().clamp(min=1)
+    return nll.sum() / denom

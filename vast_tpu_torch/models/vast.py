@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vast_tpu_torch import parallel
 from vast_tpu_torch.config import parse_task_string
 from vast_tpu_torch.device import resolve_device
 from vast_tpu_torch.models import layers
@@ -69,6 +70,7 @@ from vast_tpu_torch.ops.image import (CLIP_MEAN, CLIP_STD, IMAGENET_MEAN,
                                       IMAGENET_STD, preprocess_frames,
                                       yuv420_to_rgb)
 from vast_tpu_torch.ops.masking import IGNORE_LABEL, mask_tokens
+from vast_tpu_torch.parallel import collectives
 
 # audio normalization stats per encoder (data/audio_mapper.py:19-24)
 AUDIO_STATS = {"ast": (-4.2677393, 4.5689974), "beats": (15.41663, 6.55582)}
@@ -572,32 +574,45 @@ class VASTModel(nn.Module):
 
     def _ret_losses(self, batch, subtasks, cache, feat_t, generator,
                     text_stream):
-        """ITC and ITM over the batch (vast.py:564-623). Each ITC
-        direction detaches its key side, as the reference's gather does;
+        """ITC and ITM over the global batch (vast.py:564-623): this
+        rank's rows against every rank's (``parallel.collectives``; one
+        process is a world of one). Each ITC direction scores its queries
+        against the other side gathered and detached, as the reference's
+        ``concat_all_gather``; the targets are this rank's global rows.
         ITM pairs every caption with its clip, a hard-negative clip and a
-        hard-negative caption, drawn from softmax(sim) + 1e-4 with the
-        diagonal zeroed, or injected (``itm_neg_cond_idx`` /
-        ``itm_neg_text_idx``, (n_subtasks, B))."""
+        hard-negative caption of the global batch, drawn from
+        softmax(sim) + 1e-4 with the caption's own column zeroed, or
+        injected (``itm_neg_cond_idx`` / ``itm_neg_text_idx``: this rank's
+        rows of the global (n_subtasks, B), indices into the global
+        batch); the condition sequences are gathered with their gradient
+        (``GatherLayer``), the captions without. Under DDP's averaging
+        over ranks, the mean of the ranks' losses and its gradient are
+        those of the global batch."""
         c = self.cfg
         input_ids = batch[f"{text_stream}_tokens"]
         attention_mask = batch[f"{text_stream}_attention_mask"]
         bs = feat_t.shape[0]
         dev = feat_t.device
-        targets = torch.arange(bs, device=dev)
+        rows = parallel.rank() * bs + torch.arange(bs, device=dev)
         temp = self.contra_temp.float()
+        feat_t_all = collectives.all_gather_detached(feat_t)
+        ids_all = collectives.all_gather_detached(input_ids)
+        mask_all = collectives.all_gather_detached(attention_mask)
         loss_itc, loss_itm = [], []
         for si, st in enumerate(subtasks):
             feat_cond = self.get_feature(batch, f"feat_{st[1:]}", cache,
                                          generator)
-            sim_c2t = (feat_cond @ feat_t.detach().T).float() / temp
-            sim_t2c = (feat_t @ feat_cond.detach().T).float() / temp
+            feat_cond_all = collectives.all_gather_detached(feat_cond)
+            sim_c2t = (feat_cond @ feat_t_all.T).float() / temp
+            sim_t2c = (feat_t @ feat_cond_all.T).float() / temp
             loss_itc.append(
-                (label_smoothed_ce(sim_c2t, targets, c.label_smoothing)
-                 + label_smoothed_ce(sim_t2c, targets, c.label_smoothing))
+                (label_smoothed_ce(sim_c2t, rows, c.label_smoothing)
+                 + label_smoothed_ce(sim_t2c, rows, c.label_smoothing))
                 / 2)
 
             cond = self.get_feature(batch, f"condition_feats_{st[1:]}",
                                     cache, generator)
+            cond_all = collectives.all_gather_with_grad(cond)
             if "itm_neg_cond_idx" in batch:
                 neg_cond_idx = batch["itm_neg_cond_idx"][si]
                 neg_text_idx = batch["itm_neg_text_idx"][si]
@@ -606,19 +621,20 @@ class VASTModel(nn.Module):
                     raise ValueError("the ITM negatives are drawn at random: "
                                      "pass a generator or inject "
                                      "itm_neg_cond_idx / itm_neg_text_idx")
-                diag = torch.eye(bs, dtype=torch.bool, device=dev)
+                own = torch.zeros_like(sim_t2c, dtype=torch.bool)
+                own[torch.arange(bs, device=dev), rows] = True
                 with torch.no_grad():
                     w_t2c = (torch.softmax(sim_t2c, dim=1) + 1e-4
-                             ).masked_fill(diag, 0.0)
+                             ).masked_fill(own, 0.0)
                     w_c2t = (torch.softmax(sim_c2t, dim=1) + 1e-4
-                             ).masked_fill(diag, 0.0)
+                             ).masked_fill(own, 0.0)
                 g = layers.seeded(layers.next_seed(generator), dev)
                 neg_cond_idx = torch.multinomial(w_t2c, 1, generator=g)[:, 0]
                 neg_text_idx = torch.multinomial(w_c2t, 1, generator=g)[:, 0]
-            ids3 = torch.cat([input_ids, input_ids, input_ids[neg_text_idx]])
+            ids3 = torch.cat([input_ids, input_ids, ids_all[neg_text_idx]])
             mask3 = torch.cat([attention_mask, attention_mask,
-                               attention_mask[neg_text_idx]])
-            cond3 = torch.cat([cond, cond[neg_cond_idx], cond])
+                               mask_all[neg_text_idx]])
+            cond3 = torch.cat([cond, cond_all[neg_cond_idx], cond])
             fused = self.multimodal_encoder.encode(
                 ids3, mask3, encoder_hidden_states=cond3,
                 generator=generator)
@@ -650,14 +666,21 @@ class VASTModel(nn.Module):
     def _mlm_losses(self, batch, subtasks, ids, att3, labels, generator,
                     cache):
         """The MLM loss of ``ids`` under ``att3`` (B, L, L) against each
-        subtask's condition sequence, averaged over the subtasks."""
+        subtask's condition sequence, averaged over the subtasks. The
+        sum over this rank's labelled tokens is divided by the global
+        count over the world's size, so that the mean of the ranks'
+        losses, and its gradient, are the global batch's sum over its
+        count, as ``vast_tpu`` divides (ranks' counts may differ)."""
+        count = (labels != IGNORE_LABEL).sum().float()
+        per_rank = (collectives.all_reduce_sum(count).clamp(min=1)
+                    / parallel.world())
         losses = []
         for st in subtasks:
             cond = self.get_feature(batch, f"condition_feats_{st[1:]}",
                                     cache, generator)
             logits = self.multimodal_encoder(
                 ids, att3, encoder_hidden_states=cond, generator=generator)
-            losses.append(mlm_loss(logits, labels))
+            losses.append(mlm_loss(logits, labels, denom=per_rank))
         return sum(losses) / len(losses)
 
     def _condition_feats(self, batch, subtasks, generator, cache):

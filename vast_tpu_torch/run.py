@@ -7,6 +7,17 @@ reference's utils/args.py). ``--device`` (default: the GPU; ``cpu`` runs
 the plain PyTorch versions of the kernels) is the one flag ``run.py``
 does not have, since it takes its platform from JAX.
 
+Data parallel on N cards, the counterpart of the reference's
+``torch.distributed.launch``:
+
+    torchrun --nproc_per_node N -m vast_tpu_torch.run --config <task.json>
+
+Each rank joins the process group (``parallel.init_distributed``: NCCL,
+one card a rank; ``VAST_DIST_BACKEND=gloo`` lets ranks share a card;
+``--device cpu`` makes CPU ranks over gloo) before it builds its loaders,
+and leaves it at the end (a group its caller started stays up). The
+config's batch sizes are global.
+
 ``--checkpoint`` is a ``.pt`` / ``.bin`` file, a pretrain dir
 (``checkpoint-N/pytorch_model*.bin``) or a training output root (its
 newest ``ckpt/model_step_N.pt``); its weights go through the reference's
@@ -21,9 +32,11 @@ from __future__ import annotations
 import argparse
 import sys
 
+import torch.distributed as dist
+
+from vast_tpu_torch import parallel
 from vast_tpu_torch.config import dump_hps, get_args
 from vast_tpu_torch.convert.vast_ckpt import load_checkpoint
-from vast_tpu_torch.device import resolve_device
 from vast_tpu_torch.logger import LOGGER
 from vast_tpu_torch.training import pipeline
 from vast_tpu_torch.training.optimizer import build_optimizer
@@ -38,12 +51,21 @@ def main(argv=None, timings: dict | None = None):
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default=None)
     known, argv = pre.parse_known_args(argv)
-    device = resolve_device(known.device)
+    joined = not dist.is_initialized()   # a caller's group stays up
+    _, _, device = parallel.init_distributed(known.device)
+    try:
+        return _run(argv, device, timings)
+    finally:
+        if joined:
+            parallel.destroy()
 
+
+def _run(argv, device, timings):
     opts = get_args(argv)
     run_cfg = opts.run_cfg
     pipeline.initialize(opts)
-    if run_cfg.output_dir and run_cfg.output_dir != "none":
+    if run_cfg.output_dir and run_cfg.output_dir != "none" and \
+            parallel.is_main():
         dump_hps(opts)
     tokenizer = pipeline.build_tokenizer(opts)
     model = pipeline.build_model(opts, device, tokenizer)

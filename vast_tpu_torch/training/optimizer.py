@@ -167,12 +167,35 @@ class GroupedAdam:
                                               self.warmup_ratio)
 
     @torch.no_grad()
-    def step(self) -> bool:
+    def grads_from_window(self) -> None:
+        """Before the last backward of an accumulation window whose
+        earlier micro-batches ran under DDP's ``no_sync``: each
+        parameter's ``.grad`` becomes the sum of their gradients (the
+        running mean times ``accum - 1``), which that backward adds its
+        own to and DDP averages over the ranks, as ``no_sync`` would
+        leave it; :meth:`step` with ``window_sum`` then takes the mean."""
+        if self.acc is None or self.mini_step != self.accum - 1:
+            raise RuntimeError("grads_from_window() belongs to the last "
+                               "micro-batch of an accumulation window")
+        for n, p in self.params.items():
+            p.grad = self.acc[n] * (self.accum - 1)
+            self.acc[n].zero_()
+
+    @torch.no_grad()
+    def step(self, window_sum: bool = False) -> bool:
         """Take this micro-batch's gradients; returns whether the
-        parameters were updated (every ``accum``-th call)."""
+        parameters were updated (every ``accum``-th call).
+        ``window_sum``: ``.grad`` holds the sum of the whole window's
+        gradients (:meth:`grads_from_window`), whose mean is applied."""
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in self.params.items()}
-        if self.acc is not None:
+        if window_sum:
+            if self.acc is None or self.mini_step != self.accum - 1:
+                raise RuntimeError("window_sum belongs to the last "
+                                   "micro-batch of an accumulation window")
+            self.mini_step = 0
+            grads = {n: g / self.accum for n, g in grads.items()}
+        elif self.acc is not None:
             k = self.mini_step
             for n, g in grads.items():
                 self.acc[n].add_((g - self.acc[n]) / (k + 1))

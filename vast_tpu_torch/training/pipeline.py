@@ -24,7 +24,16 @@ stream reads and drops them, ``StreamBatchLoader.iter_from``), so it
 continues an unbroken run exactly where the host draws nothing itself (a
 video's training frames are drawn with Python's global ``random`` on the
 loader's threads, as in ``vast_tpu``).
-Meshes, ``fsdp`` and ``tp`` come with the multi-GPU slice and raise here.
+
+Data parallel (a process group runs: ``vast_tpu_torch.parallel``; the
+CLI starts it under ``torchrun``): each rank loads its own rows
+(``batch_size // gradient_accumulation_steps // world``; annotation sets
+and streams sharded by rank, validation sets rank-sharded with a
+``padded_tail``, vast_tpu pipeline.py:117-163), steps through DDP
+(``training/step.py``) with the rank folded into its generator, and
+evaluates with gathers (``evaluation_mm``); rank 0 alone writes the file
+log, the checkpoints and the profiler trace, and each rank logs one
+summary line at the end. ``fsdp`` and ``tp`` are not ported and raise.
 
 ``timings``, where a caller passes a dict, receives seconds per stage:
 ``train_loader_wait`` (blocked on the loader), ``train_step``
@@ -35,14 +44,15 @@ Meshes, ``fsdp`` and ``tp`` come with the multi-GPU slice and raise here.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 
 import numpy as np
 import torch
 
-from vast_tpu_torch import profiling
+from vast_tpu_torch import parallel, profiling
 from vast_tpu_torch.convert.from_jax import init_random_
 from vast_tpu_torch.data import data_registry
 from vast_tpu_torch.data.loader import (STREAM_LENGTH, BatchLoader,
@@ -52,19 +62,22 @@ from vast_tpu_torch.data.tokenizer import BertTokenizer, tiny_tokenizer
 from vast_tpu_torch.evaluation.evaluation_mm import evaluate_mm
 from vast_tpu_torch.logger import LOGGER, RunningMeter, add_log_to_file
 from vast_tpu_torch.models.vast import VASTConfig, VASTModel
+from vast_tpu_torch.ops import flash_attention as fa
 from vast_tpu_torch.training.optimizer import build_optimizer
 from vast_tpu_torch.training.saver import ModelSaver
-from vast_tpu_torch.training.step import create_train_state, \
-    make_train_step
+from vast_tpu_torch.training.step import (create_train_state,
+                                          data_parallel, make_train_step)
 
 
 def initialize(opts) -> None:
-    """Output dirs and the file log (utils/initialize.py:8-28)."""
+    """Output dirs and, on rank 0, the file log (utils/initialize.py:
+    8-28)."""
     out = opts.run_cfg.output_dir
     if out and out != "none":
         for sub in ("log", "ckpt"):
             os.makedirs(os.path.join(out, sub), exist_ok=True)
-        add_log_to_file(os.path.join(out, "log", "log.txt"))
+        if parallel.is_main():
+            add_log_to_file(os.path.join(out, "log", "log.txt"))
 
 
 def build_tokenizer(opts) -> BertTokenizer:
@@ -100,18 +113,24 @@ def init_params(model: VASTModel, opts) -> VASTModel:
 
 def create_train_dataloaders(opts, tokenizer) -> MetaLoader:
     """The MetaLoader over ``data_cfg.train`` (vast_tpu pipeline.py:
-    117-149) on one host: a ``BatchLoader`` for an annotation set, a
+    117-149) for this rank: a ``BatchLoader`` for an annotation set, a
     ``StreamBatchLoader`` for a ``srcindexed`` stream, which must give
-    its ``steps`` and counts as ``STREAM_LENGTH`` samples; each at the
-    batch ``batch_size // gradient_accumulation_steps``."""
+    its ``steps`` and counts as ``STREAM_LENGTH`` samples; each sharded
+    by rank, at the batch ``batch_size // gradient_accumulation_steps //
+    world``. The task draw is seeded by ``seed`` alone, the same on every
+    rank."""
     run_cfg = opts.run_cfg
     accum = run_cfg.get("gradient_accumulation_steps", 1)
+    rank, world = parallel.rank(), parallel.world()
     loaders, lengths = {}, []
     for d_cfg in opts.data_cfg.train:
-        ds = data_registry[d_cfg["type"]](d_cfg, opts, tokenizer)
+        stream = d_cfg["type"] == "srcindexed"
+        ds = data_registry[d_cfg["type"]](
+            d_cfg, opts, tokenizer,
+            **({"host_id": rank, "num_hosts": world} if stream else {}))
         lengths.append(len(ds) if hasattr(ds, "__len__") else STREAM_LENGTH)
-        bs = max(d_cfg["batch_size"] // accum, 1)
-        if d_cfg["type"] == "srcindexed":
+        bs = max(d_cfg["batch_size"] // accum // world, 1)
+        if stream:
             if "steps" not in d_cfg:
                 raise ValueError(f"srcindexed dataset {d_cfg['name']!r} "
                                  f"needs 'steps'")
@@ -119,7 +138,8 @@ def create_train_dataloaders(opts, tokenizer) -> MetaLoader:
         else:
             loader = BatchLoader(ds, bs, shuffle=True,
                                  num_workers=d_cfg.get("n_workers", 4),
-                                 seed=run_cfg.get("seed", 50))
+                                 seed=run_cfg.get("seed", 50),
+                                 host_id=rank, num_hosts=world)
         loaders[f"{d_cfg['task']}--{d_cfg['name']}"] = loader
     steps = compute_train_steps(opts.data_cfg.train, run_cfg, lengths)
     named = {name: (loader, ratio)
@@ -129,12 +149,17 @@ def create_train_dataloaders(opts, tokenizer) -> MetaLoader:
 
 
 def create_val_dataloaders(opts, tokenizer) -> dict:
+    """This rank's shard of each validation set, at ``batch_size //
+    world``, padded to equal lengths (``padded_tail``; vast_tpu
+    pipeline.py:152-163)."""
+    rank, world = parallel.rank(), parallel.world()
     loaders = {}
     for d_cfg in opts.data_cfg.val:
         ds = data_registry[d_cfg["type"]](d_cfg, opts, tokenizer)
         loaders[f"{d_cfg['task']}--{d_cfg['name']}"] = BatchLoader(
-            ds, d_cfg["batch_size"], shuffle=False, drop_last=False,
-            num_workers=d_cfg.get("n_workers", 4))
+            ds, max(d_cfg["batch_size"] // world, 1), shuffle=False,
+            drop_last=False, num_workers=d_cfg.get("n_workers", 4),
+            host_id=rank, num_hosts=world)
     return loaders
 
 
@@ -149,10 +174,13 @@ def get_best_name(eval_name: str, metric: dict):
     return None
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of train step ``step`` (0-based): a function of
-    (seed, step) alone, as ``vast_tpu`` folds the step into its key."""
-    s = np.random.SeedSequence([int(seed), int(step)]).generate_state(1)[0]
+def step_generator(seed: int, step: int, rank: int = 0) -> torch.Generator:
+    """The CPU generator of train step ``step`` (0-based) on ``rank``: a
+    function of (seed, step, rank) alone, as ``vast_tpu`` folds the step
+    into its key; each rank draws its own dropout, crops and [MASK]
+    positions for its own rows (rank 0's are a single process's)."""
+    entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
+    s = np.random.SeedSequence(entropy).generate_state(1)[0]
     return torch.Generator().manual_seed(int(s))
 
 
@@ -200,14 +228,15 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
     run_cfg = opts.run_cfg
     for key in ("fsdp", "tp"):
         if run_cfg.get(key):
-            raise NotImplementedError(f"run_cfg.{key}: sharding comes with "
-                                      f"the multi-GPU slice")
+            raise NotImplementedError(f"run_cfg.{key}: parameter sharding "
+                                      f"is not ported (data parallel only)")
     num_steps = run_cfg.num_train_steps
     device = model.device
     if state is None:
         init_params(model, opts)
         opt, _ = build_optimizer(model, run_cfg, opts.model_cfg, num_steps)
         state = create_train_state(model, opt)
+    rank = parallel.rank()
 
     saver = ModelSaver(run_cfg.output_dir,
                        run_cfg.get("remove_before_ckpt", True))
@@ -224,7 +253,11 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
         if run_cfg.get("zero_shot"):
             return state, {}
 
+    ddp = data_parallel(model) if parallel.active() else None
+    ddp_kw = {} if ddp is None else {"ddp": ddp}
     step_fns, meters = {}, {}
+    # the summary's last fetched losses and step seconds
+    fetched, step_s = deque(maxlen=100), deque(maxlen=100)
     metric_logger_dict = defaultdict(dict)
     best_indicator = {}
     seed = run_cfg.get("seed", 50)
@@ -243,17 +276,18 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
         task = name.split("--")[0]
         if (task, vt) not in step_fns:
             step_fns[task, vt] = make_train_step(model, state.opt, task,
-                                                 vision_transforms=vt)
+                                                 vision_transforms=vt,
+                                                 **ddp_kw)
         if ready is not None:
             cur = torch.cuda.current_stream(device)
             cur.wait_event(ready)
             for t in arrays.values():
                 t.record_stream(cur)
-        if profile_steps and global_step == start_step + 2:
+        if profile_steps and global_step == start_step + 2 and rank == 0:
             prof = profiling.start_trace(device)
         t0 = time.perf_counter()
         state, metrics = step_fns[task, vt](
-            state, arrays, step_generator(seed, global_step))
+            state, arrays, step_generator(seed, global_step, rank))
         if timings is not None:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -266,9 +300,12 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
             prof = None
 
         if global_step % metrics_every == 0 or global_step >= num_steps:
+            # under DDP the metrics are the ranks' means: every rank sees
+            # the same values and strikes (and aborts) together
             bad = 0
-            for k, v in metrics.items():
-                v = float(v)
+            values = {k: float(v) for k, v in metrics.items()}
+            fetched.append({"step": global_step, "task": name, **values})
+            for k, v in values.items():
                 if not np.isfinite(v):
                     bad += 1
                 mname = f"loss_{name}/{k}"
@@ -283,6 +320,7 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
                         f"consecutive checks (step {global_step})")
             else:
                 nan_strikes = 0
+        step_s.append(time.perf_counter() - t0)
         timer.tick()
         if global_step % 50 == 0:
             LOGGER.info({m.name: None if m.val is None else round(m.val, 4)
@@ -322,7 +360,31 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
         profiling.stop_trace(prof, profile_dir, device)
     if timer.summary():
         LOGGER.info("step timing: %s", timer.summary())
+    if ddp is not None:
+        # DDP's own timing (its sampled steps: the first ten, then every
+        # hundredth, each read at the next synchronised forward)
+        comm = ddp._get_ddp_logging_data()
+        log_rank_summary("train", losses=list(fetched), step_s=list(step_s),
+                         grad_allreduce_s=comm.get("avg_backward_comm_time",
+                                                   0) / 1e9,
+                         grad_allreduce_steps=comm.get("iteration", 0))
     return state, metric_logger_dict
+
+
+def log_rank_summary(kind: str, **fields) -> None:
+    """One log line a rank at the end of a data-parallel run:
+    ``summary <kind> rank R of W: <JSON>`` with ``fields``, the kernel
+    launches of this process and, on a GPU, its peak memory. A training
+    run's holds its last 100 fetched losses (the ranks' means), the host
+    seconds of its last 100 steps, each from its start to the end of its
+    loss fetch where it has one, and DDP's mean seconds from a step's
+    first gradient all-reduce to its last one's end (on a GPU by CUDA
+    events) over the steps it sampled, up to ``grad_allreduce_steps``."""
+    fields["launches"] = {k: v for k, v in fa.LAUNCHES.items() if v}
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        fields["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    LOGGER.info("summary %s rank %d of %d: %s", kind, parallel.rank(),
+                parallel.world(), json.dumps(fields))
 
 
 def test(model: VASTModel, opts, tokenizer, val_loaders,
@@ -332,4 +394,6 @@ def test(model: VASTModel, opts, tokenizer, val_loaders,
     for task_name, val_log in eval_log.items():
         for eval_name, metric in val_log.items():
             LOGGER.info("eval %s_%s: %s", task_name, eval_name, metric)
+    if parallel.active():
+        log_rank_summary("test", eval_log=eval_log)
     return eval_log
