@@ -27,7 +27,9 @@ exits non-zero with no result line:
               at 4873 keys, the backward with a bias's ds); the remaining
               towers' (bigE's D 112, EVA02-L's and B's 257 and 197 x 64,
               VideoSwin's 392-token windows with a bias) and the
-              pretraining validation's rerank (640 x 2382). A bf16
+              pretraining validation's rerank (640 x 2382); a tp rank's
+              heads (EVA01-g 8 x 88 and BEATs 6 x 64 on 4 clips, forward
+              and backward; the 640 x 4438 rerank at 6 heads). A bf16
               forward must take the Hopper body (wgmma fed by the copy
               engine: one flash_attention_fwd_sm90 or
               tmajor_attention_fwd_sm90 launch), an fp32 one the CUDA-core
@@ -238,6 +240,33 @@ exits non-zero with no result line:
               counted, one checkpoint pair written by rank 0
               that loads into one process, and ``--mode testing`` under two
               ranks and one with equal R@k.
+24. shard_step (after ddp_step) - parameter sharding: ddp_step's model,
+              batch and step on create_mesh(dp=1, fsdp=2, tp=2) through
+              shard_state(fsdp=True, tp=True), four spawned ranks sharing
+              the card over gloo (and four over NCCL on four cards where
+              the machine has them), against ddp_step's saved reference
+              within its tolerances (every gradient and parameter gathered
+              whole); each rank's parameter and moment bytes exactly as
+              the plan gives them, its towers on their tp heads (EVA01-g
+              8, BEATs 6, BERT 6), rows 1-4 as one rank launches them;
+              step seconds and peak memory per rank.
+25. remat_offload (after shard_step) - ddp_step's model and batch in one
+              process, one forward and backward under 'attn',
+              'attn_offload', 'dots' and 'dots_offload': each offload
+              policy's losses and gradients against its policy's within
+              ddp_step's tolerances, the bytes its cache moved to pinned
+              host memory, its peak device memory lower.
+26. shard_train (last, over cli_ret_tvas' clips) - pipeline.train with
+              mesh=create_mesh(dp=1, fsdp=2, tp=2) in four spawned ranks
+              over gloo: the released retrieval-msrvtt.json with
+              run_cfg.fsdp and tp at ddp_step's depth, bf16, 3 steps of
+              the global batch 8, one evaluation and one save; the saved
+              model_step_3.pt equal to the ranks' whole tensors and
+              loading into an unsharded model with no key missing or
+              unexpected; pipeline.test of it unsharded on the same mesh
+              giving the sharded evaluation's scores within the stated
+              bf16 tolerance (R@k but across near-ties); rows 1-4 and 6
+              (the 640 x 4438 rerank at 6 heads) exactly as counted.
 
 Then the seconds of every phase (``{"phase_seconds": {...}}``), the
 ``{"kernels": [...]}`` line (each row's launches from its path's
@@ -253,9 +282,11 @@ paths) and, last, the ``{"ok": true,
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -288,6 +319,8 @@ TVAS_COND_TOKENS = CLI_EVAL_FRAMES * 257 + 256 + CLI_SUBTITLE_LEN   # 4438
 # conds_per_call 4 segments share a call: 4 calls of 640 queries
 TVAS_RERANK_TEXTS = CLI_TEST_CLIPS
 CLI_RERANK_CALLS = CLI_TEST_CLIPS // RERANK_CANDS
+# phase shard_train's clips a data rank a step (the global 8 over fsdp 2)
+SHARD_CLIPS = 4
 
 # published dense peaks of the card this script is written for (NVIDIA's
 # data sheet, H100 SXM at 700 W): bf16 tensor and fp32 CUDA-core FLOP/s,
@@ -437,6 +470,31 @@ KERNELS = [
          views="token_major", b=RERANK_CANDS,
          lq=TVAS_RERANK_TEXTS * TEXT_LEN, lk=FRAMES * 257 + 256 + 70, h=12,
          d=64, scale=0.125, bias=False),
+    # parameter sharding (phase shard_train, bf16): a tp rank's heads
+    # (tp 2: EVA01-g's 8 of 16, BEATs' 6 of 12, BERT's 6 of 12) on its
+    # data rank's clips (fsdp 2: 4 of the global 8, 8 frames each), and
+    # the ret%tvas rerank's 640 x 4438 (Lk > 4096: the looped kernel)
+    dict(turns=False, name="tmajor_attention_fwd", at="eva01g_tp2",
+         path="shard_train", replaces=f"{PALLAS}:762", layout="tmajor",
+         b=SHARD_CLIPS * FRAMES, lq=257, lk=257, h=8, d=88, scale=1.0,
+         bias=False),
+    dict(turns=False, name="tmajor_attention_fwd_bias", at="beats_tp2",
+         path="shard_train", replaces=f"{PALLAS}:789", layout="tmajor",
+         b=SHARD_CLIPS, lq=256, lk=256, h=6, d=64, scale=64 ** -0.5,
+         bias=True),
+    dict(turns=False, name="tmajor_attention_bwd", at="eva01g_tp2",
+         path="shard_train", replaces=f"{PALLAS}:795", layout="tmajor_bwd",
+         b=SHARD_CLIPS * FRAMES, lq=257, lk=257, h=8, d=88, scale=1.0,
+         bias=False),
+    dict(turns=False, name="tmajor_attention_bwd_bias", at="beats_tp2",
+         path="shard_train", replaces=f"{PALLAS}:841", layout="tmajor_bwd",
+         b=SHARD_CLIPS, lq=256, lk=256, h=6, d=64, scale=64 ** -0.5,
+         bias=True),
+    dict(turns=False, name="flash_attention_fwd", at="tvas_rerank_tp2",
+         path="shard_train", replaces=f"{PALLAS}:137", layout="hmajor",
+         views="token_major", b=RERANK_CANDS,
+         lq=TVAS_RERANK_TEXTS * TEXT_LEN, lk=TVAS_COND_TOKENS, h=6, d=64,
+         scale=0.125, bias=False),
     # the token-major layout probe's two kernels on its data (phase
     # tmajor_variants; lk is its lk_true): the fused layout through the
     # copy engine, and the section-major layout
@@ -3515,40 +3573,60 @@ def timed_allreduce(clock, bucket):
     return fut.then(done)
 
 
-def ddp_step_run(torch, np, rank, world, dev, ref_path, save):
-    """One ret%tvas train step of this rank through ``data_parallel``
-    (its all-reduce timed by ``AllreduceClock``): the model from the
-    seeded init (LayerNorm gains + 1, temperature 0.07, as the tiny steps:
-    a fp32 run is then well conditioned), this rank's rows of ``ddp_batch``. ``save`` (the reference run): the
-    metrics, gradients and updated parameters are saved to ``ref_path``;
-    else rank 0 returns their errors against it."""
+def ddp_model(torch, dev, cfg=None):
+    """``ddp_config``'s model (``cfg``: another) from the seeded init
+    (LayerNorm gains + 1, temperature 0.07, as the tiny steps: a fp32 run
+    is then well conditioned) and its AdamW."""
     from vast_tpu_torch.convert.from_jax import init_random_
     from vast_tpu_torch.models.vast import VASTModel
-    from vast_tpu_torch.ops import flash_attention as fa
-    from vast_tpu_torch.parallel import collectives
     from vast_tpu_torch.training.optimizer import build_optimizer
-    from vast_tpu_torch.training.step import (create_train_state,
-                                              data_parallel, make_train_step)
 
-    model = VASTModel(ddp_config(torch), device=dev)
+    model = VASTModel(cfg or ddp_config(torch), device=dev)
     init_random_(model, torch.Generator(device=dev).manual_seed(SEED))
+    well_conditioned(torch, model)
+    opt, _ = build_optimizer(model, {"learning_rate": DDP_LR,
+                                     "clip_lr": DDP_LR, "warmup_ratio": 0},
+                             {"vision_encoder_type": "evaclip01_giant"}, 10)
+    return model, opt
+
+
+def well_conditioned(torch, model):
+    """LayerNorm gains + 1 and the temperature 0.07 on a seeded init, as
+    the tiny steps: fp32 and bf16 runs are then well conditioned."""
     with torch.no_grad():
         model.contra_temp.fill_(0.07)
         for mod in model.modules():
             if isinstance(mod, torch.nn.LayerNorm):
                 mod.weight.add_(1.0)
-    opt, _ = build_optimizer(model, {"learning_rate": DDP_LR,
-                                     "clip_lr": DDP_LR, "warmup_ratio": 0},
-                             {"vision_encoder_type": "evaclip01_giant"}, 10)
+
+
+def ddp_rows(torch, np, rank, world, dev):
+    """Rank ``rank`` of ``world``'s rows of ``ddp_batch`` on ``dev``, the
+    ITM negatives' columns alike."""
+    b = BATCH // world
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v[:, rank * b:(rank + 1) * b] if k.startswith("itm_neg_")
+        else v[rank * b:(rank + 1) * b])).to(dev)
+        for k, v in ddp_batch(np).items()}
+
+
+def ddp_step_run(torch, np, rank, world, dev, ref_path, save):
+    """One ret%tvas train step of this rank through ``data_parallel``
+    (its all-reduce timed by ``AllreduceClock``): ``ddp_model``, this
+    rank's rows of ``ddp_batch``. ``save`` (the reference run): the
+    metrics, gradients and updated parameters are saved to ``ref_path``;
+    else rank 0 returns their errors against it."""
+    from vast_tpu_torch.ops import flash_attention as fa
+    from vast_tpu_torch.parallel import collectives
+    from vast_tpu_torch.training.step import (create_train_state,
+                                              data_parallel, make_train_step)
+
+    model, opt = ddp_model(torch, dev)
     ddp = data_parallel(model)
     clock = AllreduceClock()
     ddp.register_comm_hook(clock, timed_allreduce)
     step = make_train_step(model, opt, "ret%tvas", ddp=ddp)
-    b = BATCH // world
-    batch = {k: torch.from_numpy(np.ascontiguousarray(
-        v[:, rank * b:(rank + 1) * b] if k.startswith("itm_neg_")
-        else v[rank * b:(rank + 1) * b])).to(dev)
-        for k, v in ddp_batch(np).items()}
+    batch = ddp_rows(torch, np, rank, world, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     zero_launches(fa)
     torch.cuda.synchronize(dev)
@@ -3624,10 +3702,12 @@ def ddp_errors(torch, named, metrics, ref):
     return errs
 
 
-def ddp_step_rank(rank, world, backend, port, out, ref_path, save):
-    """A spawned rank of ``ddp_step``: joins the group as torchrun would
-    start it (``VAST_DIST_BACKEND=gloo`` where ranks share the card),
-    runs ``ddp_step_run`` and writes its JSON to ``out % rank``."""
+def ddp_step_rank(rank, world, backend, port, out, run, args):
+    """A spawned rank of ``ddp_step``, ``shard_step`` or ``shard_train``:
+    joins the group as torchrun would start it (``VAST_DIST_BACKEND=gloo``
+    where ranks share the card), runs ``run`` (the name of one of this
+    script's ``*_run`` functions) with ``args`` and writes its JSON to
+    ``out % rank``."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
@@ -3645,7 +3725,7 @@ def ddp_step_rank(rank, world, backend, port, out, ref_path, save):
     check(torch.distributed.get_backend() == backend, f"rank {rank}: "
           f"{torch.distributed.get_backend()}, not {backend}")
     try:
-        result = ddp_step_run(torch, np, rank, world, dev, ref_path, save)
+        result = globals()[run](torch, np, rank, world, dev, *args)
         with open(out % rank, "w") as f:
             json.dump(result, f)
     finally:
@@ -3660,18 +3740,17 @@ def free_port():
         return s.getsockname()[1]
 
 
-def spawn_ranks(world, backend, tmp, ref_path, tag, save=False):
-    """``world`` spawned ``ddp_step_rank`` processes; their results. A
-    rank that fails or outlasts ``DDP_TIMEOUT`` fails the phase, and every
-    rank is stopped."""
+def spawn_ranks(world, backend, tmp, tag, run, *args):
+    """``world`` spawned ``ddp_step_rank`` processes running ``run`` with
+    ``args``; their results. A rank that fails or outlasts
+    ``DDP_TIMEOUT`` fails the phase, and every rank is stopped."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     out = os.path.join(tmp, f"{tag}_%d.json")
     port = free_port()
     procs = [ctx.Process(target=ddp_step_rank,
-                         args=(r, world, backend, port, out, ref_path,
-                               save))
+                         args=(r, world, backend, port, out, run, args))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -3681,7 +3760,7 @@ def spawn_ranks(world, backend, tmp, ref_path, tag, save=False):
             p.join(max(1.0, deadline - time.monotonic()))
         codes = [p.exitcode for p in procs]
         check(all(c == 0 for c in codes),
-              f"ddp_step {tag}: rank exit codes {codes}")
+              f"{run} {tag}: rank exit codes {codes}")
     finally:
         for p in procs:
             if p.is_alive():
@@ -3704,7 +3783,7 @@ def ddp_step_launches():
             "tmajor_attention_bwd_lse": v + a}
 
 
-def phase_ddp_step(torch, np):
+def phase_ddp_step(torch, np, tmp):
     """Two ranks' ret%tvas train step against one rank's, both through
     ``data_parallel`` on the same global batch of ``BATCH`` clips (each
     rank its half, the ITM negatives global): first a world of one under
@@ -3714,22 +3793,18 @@ def phase_ddp_step(torch, np):
     cards. The losses, every parameter's averaged gradient and the
     parameters after the step must match the reference within the fp32
     tolerances stated; every rank must hold the same gradient and launch
-    rows 1-4 exactly as counted."""
-    import shutil
-    import tempfile
-
-    tmp = tempfile.mkdtemp(prefix="vast_ddp_step_")
+    rows 1-4 exactly as counted. The reference stays in ``tmp`` for
+    ``shard_step``."""
     ref = os.path.join(tmp, "reference.pt")
     runs = {}
     torch.cuda.empty_cache()
-    try:
-        (one,) = spawn_ranks(1, "nccl", tmp, ref, "reference", save=True)
-        runs["gloo_2_ranks"] = spawn_ranks(2, "gloo", tmp, ref, "gloo")
-        if torch.cuda.device_count() >= 2:
-            runs["nccl_2_ranks_2_cards"] = spawn_ranks(2, "nccl", tmp, ref,
-                                                       "nccl")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    (one,) = spawn_ranks(1, "nccl", tmp, "reference", "ddp_step_run", ref,
+                         True)
+    runs["gloo_2_ranks"] = spawn_ranks(2, "gloo", tmp, "gloo",
+                                       "ddp_step_run", ref, False)
+    if torch.cuda.device_count() >= 2:
+        runs["nccl_2_ranks_2_cards"] = spawn_ranks(
+            2, "nccl", tmp, "nccl", "ddp_step_run", ref, False)
     want = ddp_step_launches()
     for name, ranks in [("nccl_1_rank", [one])] + list(runs.items()):
         for r in ranks:
@@ -3855,20 +3930,10 @@ def phase_cli_ddp_ret_tvas(torch, np, root):
         del model
         torch.cuda.empty_cache()
         zero_launches(fa)
-        scores = []
-        real_metric = evaluation_mm.compute_metric_ret
-
-        def recorded(score, ids, ids_txt, direction="forward"):
-            scores.append((score, list(ids), list(ids_txt), direction))
-            return real_metric(score, ids, ids_txt, direction)
-
-        evaluation_mm.compute_metric_ret = recorded
         t0 = time.perf_counter()
-        try:
+        with recorded_scores([]) as scores:
             tested1 = run.main(["--config", cfg_path, "--mode", "testing",
                                 "--checkpoint", ckpt] + reduced)
-        finally:
-            evaluation_mm.compute_metric_ret = real_metric
         test1_wall = time.perf_counter() - t0
         launches1 = {k: v for k, v in fa.LAUNCHES.items() if v}
         torch.cuda.empty_cache()
@@ -3993,6 +4058,492 @@ def phase_cli_ddp_ret_tvas(torch, np, root):
     return train[0]["launches"]
 
 
+# parameter sharding (phases shard_step and shard_train): four ranks on
+# a (dp, fsdp, tp) mesh of 1 x 2 x 2, sharing the card over gloo (and
+# over NCCL on four cards where the machine has them); ddp_step's model,
+# batch and tolerances for the step, the released retrieval config at
+# DDP_DEPTH for the run
+SHARD_MESH = {"dp": 1, "fsdp": 2, "tp": 2}
+SHARD_WORLD = 4
+SHARD_STEPS = 3
+# a tp rank's heads of each tower (tp 2)
+SHARD_HEADS = {"vision": 8, "audio": 6, "bert": 6}
+# shard_train's bf16 score matrices, sharded against the unsharded
+# re-test, both on unit ranges (ITC: cosines of unit features; ITM: a
+# probability), where tp sums every projection's heads in another order:
+# one bf16 rounding (2^-8) of that unit
+SHARD_SCORE_ATOL = 2 ** -8
+
+
+def tower_heads(model):
+    """The heads each tower's first attention runs on this rank."""
+    return {"vision": model.vision_tower.blocks[0].attn.heads,
+            "audio": model.audio_encoder.encoder.layers[0].self_attn.heads,
+            "bert": model.multimodal_encoder.bert.encoder.layer[0]
+            .attention.heads}
+
+
+def planned_bytes(state):
+    """This rank's parameter and moment bytes as the plan gives them,
+    and the bytes of the whole (replicated) tensors."""
+    sh, opt = state.sharding, state.opt
+    local = whole = moments = whole_moments = 0
+    for name, p in state.model.named_parameters():
+        plan = sh.plans[name]
+        n_local, n_whole = math.prod(plan.local_shape()), math.prod(plan.shape)
+        local += n_local * p.element_size()
+        whole += n_whole * p.element_size()
+        for key in ("mu", "nu"):
+            t = getattr(opt, key).get(name)
+            if t is not None:
+                moments += n_local * t.element_size()
+                whole_moments += n_whole * t.element_size()
+    return {"param_bytes": local, "moment_bytes": moments,
+            "whole_param_bytes": whole, "whole_moment_bytes": whole_moments}
+
+
+def shard_step_run(torch, np, rank, world, dev, ref_path):
+    """One ret%tvas train step of ``ddp_model`` sharded by
+    ``shard_state(fsdp=True, tp=True)`` on ``create_mesh(**SHARD_MESH)``,
+    this rank's data rows of ``ddp_batch``; its bytes against the plan;
+    rank 0 holds the losses, every gradient and every parameter after the
+    step, gathered whole, against ddp_step's reference."""
+    from vast_tpu_torch import parallel
+    from vast_tpu_torch.ops import flash_attention as fa
+    from vast_tpu_torch.parallel import collectives
+    from vast_tpu_torch.training.pipeline import shard_bytes
+    from vast_tpu_torch.training.step import (create_train_state,
+                                              make_train_step, shard_state)
+
+    model, opt = ddp_model(torch, dev)
+    mesh = parallel.create_mesh(**SHARD_MESH)
+    state = shard_state(mesh, create_train_state(model, opt), fsdp=True,
+                        tp=True)
+    sh = state.sharding
+    group = parallel.data_group(mesh)
+    drank, dsize = parallel.group_rank(group), parallel.group_size(group)
+    step = make_train_step(model, state.opt, "ret%tvas", sharding=sh)
+    batch = ddp_rows(torch, np, drank, dsize, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches(fa)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    out = {"rank": rank, "world": world, "device": str(dev),
+           "data_rank": [drank, dsize], "step_s": seconds,
+           "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "metrics": {k: v.item() for k, v in metrics.items()},
+           "heads": tower_heads(model), "bytes": shard_bytes(state),
+           "planned": planned_bytes(state)}
+    # every rank must hold the same parameters that stay whole (the
+    # ranks of a tp group step them alike): a fingerprint each
+    finger = torch.stack([p.detach().double().abs().sum() for n, p in
+                          model.named_parameters() if sh.plans[n].whole])
+    prints = collectives.all_gather_detached(finger[None])
+    out["ranks_agree"] = bool((prints == prints[0]).all())
+    # every rank joins the gathers; rank 0 keeps the whole tensors
+    whole = {}
+    for n, p in model.named_parameters():
+        g = None if p.grad is None else sh.full(n, p.grad)
+        w = sh.full(n, p.detach())
+        if rank == 0:
+            w = w.clone()
+            # a gradient the loss did not reach is zeros here (the data
+            # group's all-reduce), absent in the reference
+            w.grad = g if g is not None and bool(g.any()) else None
+            whole[n] = w
+    if rank == 0:
+        out |= ddp_errors(torch, whole, out["metrics"], torch.load(
+            ref_path, map_location=dev, weights_only=True))
+    return out
+
+
+def phase_shard_step(torch, np, tmp):
+    """ddp_step's train step sharded over fsdp 2 x tp 2 (four ranks on
+    the card over gloo; four over NCCL where the machine shows four
+    cards), against ddp_step's one-rank reference in ``tmp``: the losses,
+    every gradient and every parameter after the step within ddp_step's
+    tolerances (``ddp_errors``); each rank's parameter and moment bytes
+    exactly as the plan gives them, its towers on their tp heads, and
+    rows 1-4 launched as one rank launches them (each on its heads)."""
+    ref = os.path.join(tmp, "reference.pt")
+    check(os.path.exists(ref), "shard_step needs ddp_step's reference")
+    runs = {"gloo_4_ranks_1_card": spawn_ranks(
+        SHARD_WORLD, "gloo", tmp, "shard_gloo", "shard_step_run", ref)}
+    if torch.cuda.device_count() >= SHARD_WORLD:
+        runs["nccl_4_ranks_4_cards"] = spawn_ranks(
+            SHARD_WORLD, "nccl", tmp, "shard_nccl", "shard_step_run", ref)
+    want = ddp_step_launches()
+    for name, ranks in runs.items():
+        losses = {json.dumps(r["metrics"], sort_keys=True) for r in ranks}
+        check(len(losses) == 1, f"shard_step {name}: the ranks' losses")
+        for r in ranks:
+            check(r["launches"] == want, f"shard_step {name} rank "
+                  f"{r['rank']}: launches {r['launches']} != {want}")
+            check(r["heads"] == SHARD_HEADS, f"shard_step {name} rank "
+                  f"{r['rank']}: heads {r['heads']}")
+            check(r["ranks_agree"], f"shard_step {name}: the ranks' whole "
+                  f"parameters")
+            for key in ("param_bytes", "moment_bytes"):
+                check(r["bytes"][key] == r["planned"][key],
+                      f"shard_step {name} rank {r['rank']}: {key} "
+                      f"{r['bytes'][key]} != planned {r['planned'][key]}")
+        check("loss_rel" in ranks[0], f"shard_step {name}: rank 0's errors")
+    gloo = runs["gloo_4_ranks_1_card"]
+    emit({"phase": "shard_step", "task": "ret%tvas", "global_batch": BATCH,
+          "mesh": SHARD_MESH, "dtype": "float32", "remat_policy": "attn",
+          "depth": DDP_DEPTH, "route": "own gathers and all-reduces "
+          "(parallel/fsdp.py), one path on every backend",
+          "tolerances": {"loss_rel": DDP_LOSS_RTOL,
+                         "grad_rel_to_tensor_max": DDP_GRAD_RTOL,
+                         "param_in_lr_where_grad_firm": DDP_PARAM_LR_TOL,
+                         "param_bound_in_lr": 2.0},
+          "launches_per_rank": want, "heads_per_rank": SHARD_HEADS,
+          "share_of_whole": {
+              k: gloo[0]["bytes"][k] / gloo[0]["planned"][f"whole_{k}"]
+              for k in ("param_bytes", "moment_bytes")},
+          "runs": runs, "cards": torch.cuda.device_count(),
+          "cross_card_nccl": "nccl_4_ranks_4_cards" in runs})
+    return gloo[0]["launches"]
+
+
+def shard_cli_config(root):
+    """``ddp_cli_config``'s copy with ``run_cfg.fsdp`` and ``tp`` set."""
+    with open(ddp_cli_config(root)) as f:
+        cfg = json.load(f)
+    cfg["run_cfg"] |= {"fsdp": True, "tp": True}
+    path = os.path.join(root, "retrieval-msrvtt-shard.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def shard_train_run(torch, np, rank, world, dev, cfg_path, reduced,
+                    out_dir):
+    """``pipeline.train`` on ``create_mesh(**SHARD_MESH)`` (``run_cfg.fsdp``
+    and ``tp`` set) from the seeded init made ``well_conditioned``:
+    ``SHARD_STEPS`` steps, one evaluation and one save at the end; the whole state gathered (rank 0 holds the saved file
+    against it and loads it into an unsharded model); then
+    ``pipeline.test`` of the saved file in an unsharded model on every
+    rank, over the same mesh."""
+    from vast_tpu_torch import parallel, run
+    from vast_tpu_torch.ops import flash_attention as fa
+    from vast_tpu_torch.training import pipeline
+    from vast_tpu_torch.training.optimizer import build_optimizer
+    from vast_tpu_torch.training.step import create_train_state
+
+    mesh = parallel.create_mesh(**SHARD_MESH)
+    opts = run.get_args(["--config", cfg_path] + reduced)
+    pipeline.initialize(opts)
+    tok = pipeline.build_tokenizer(opts)
+    model = pipeline.build_model(opts, dev, tok)
+    # the seeded init, well conditioned: bf16 scores of a sharded and an
+    # unsharded model then differ by a few roundings (the init alone left
+    # ITC scores 6% of the largest apart on the H100)
+    pipeline.init_params(model, opts)
+    well_conditioned(torch, model)
+    opt, _ = build_optimizer(model, opts.run_cfg, opts.model_cfg,
+                             SHARD_STEPS)
+    train_loader = pipeline.create_train_dataloaders(opts, tok, mesh)
+    val = pipeline.create_val_dataloaders(opts, tok, mesh)
+    # one evaluation and one save, after the last step
+    opts.run_cfg.valid_steps = SHARD_STEPS + 2
+    zero_launches(fa)
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings, sharded_scores, tested_scores = {}, [], []
+    t0 = time.perf_counter()
+    with recorded_scores(sharded_scores):
+        state, logged = pipeline.train(
+            model, opts, tok, train_loader, val,
+            state=create_train_state(model, opt), timings=timings,
+            mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out = {"rank": rank, "train_s": time.perf_counter() - t0,
+           "timings": timings, "heads": tower_heads(model),
+           "sharded": state.sharding is not None,
+           "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "bytes": pipeline.shard_bytes(state),
+           "logged": {k: dict(v) for k, v in logged.items()}}
+    ckpt = os.path.join(out_dir, "ckpt", f"model_step_{SHARD_STEPS}.pt")
+    whole = state.sharding.full_state_dict(keep=rank == 0)
+    if rank == 0:
+        saved = torch.load(ckpt, map_location=dev, weights_only=True)
+        out["files"] = sorted(os.listdir(os.path.dirname(ckpt)))
+        out["saved_keys_equal"] = list(saved) == list(whole)
+        out["saved_differs"] = [k for k in saved if k not in whole
+                                or not torch.equal(saved[k], whole[k])]
+        del saved
+    del whole, state, model
+    torch.cuda.empty_cache()
+    parallel.barrier()
+    plain = pipeline.build_model(opts, dev, tok)
+    reload = plain.load_state_dict(torch.load(
+        ckpt, map_location=dev, weights_only=True), strict=False)
+    out["reload"] = {"missing": reload.missing_keys,
+                     "unexpected": reload.unexpected_keys}
+    zero_launches(fa)
+    with recorded_scores(tested_scores):
+        out["tested"] = pipeline.test(plain, opts, tok, val, mesh=mesh)
+    out["test_launches"] = {k: v for k, v in fa.LAUNCHES.items() if v}
+    out["scores"] = [score_agreement(a, b) for a, b in
+                     zip(sharded_scores, tested_scores, strict=True)]
+    return out
+
+
+class recorded_scores:
+    """Each ``compute_metric_ret`` call's (score matrix, ids, ids_txt,
+    direction) while the context lasts, appended to ``calls``."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        import numpy as np
+
+        from vast_tpu_torch.evaluation import evaluation_mm
+
+        self.module, self.real = evaluation_mm, evaluation_mm.compute_metric_ret
+
+        def recorded(score, ids, ids_txt, direction="forward"):
+            self.calls.append((np.array(score), list(ids), list(ids_txt),
+                               direction))
+            return self.real(score, ids, ids_txt, direction)
+
+        evaluation_mm.compute_metric_ret = recorded
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.module.compute_metric_ret = self.real
+
+
+def score_agreement(a, b):
+    """Two evaluations' score matrices of the same rows in the same order
+    (ITC or ITM; bf16 arithmetic that sums in another order): their
+    largest difference over the larger's largest entry, and the texts
+    whose ground truth ranks differently between them, each with the gap
+    from its ground truth's score to the nearest other score of its row
+    (a near-tie where it is within twice the difference)."""
+    import numpy as np
+
+    (s1, ids1, txt1, d1), (s2, ids2, txt2, d2) = a, b
+    check((ids1, txt1, d1) == (ids2, txt2, d2) and d1 == "forward",
+          "the evaluations' rows and their order")
+    diff = float(np.abs(s1 - s2).max())
+    scale = float(max(np.abs(s1).max(), np.abs(s2).max(), 1e-30))
+    first = {v: j for j, v in reversed(list(enumerate(ids1)))}
+    moved = []
+    for i, t in enumerate(txt1):
+        g = first[t]
+        ranks = [int((s[i] > s[i, g]).sum() + (s[i, :g] == s[i, g]).sum())
+                 for s in (s1, s2)]
+        if ranks[0] != ranks[1]:
+            others = np.delete(s1[i], g)
+            moved.append({"text": i, "ranks": ranks,
+                          "gap": float(np.abs(others - s1[i, g]).min())})
+    return {"max_abs_diff": diff, "largest": scale, "moved": moved}
+
+
+def phase_shard_train(torch, np, root):
+    """``pipeline.train`` with ``mesh=create_mesh(dp=1, fsdp=2, tp=2)``
+    in four spawned ranks sharing the card over gloo, on the released
+    retrieval-msrvtt.json (``shard_cli_config``: full width,
+    ``DDP_DEPTH`` layers, bf16: the Hopper bodies) over write_msrvtt's
+    clips: ``SHARD_STEPS`` steps of the global batch 8 (4 a data rank,
+    the same 4 for both ranks of a tp group), one evaluation and one
+    save. The saved ``model_step_3.pt`` must hold the ranks' whole
+    tensors under every reference name and load into an unsharded model
+    with no key missing or unexpected; ``pipeline.test`` of it, unsharded
+    on the same mesh (the rows in the same ranks' order), must give the
+    sharded evaluation's ITC and ITM scores within ``SHARD_SCORE_ATOL``
+    and its R@k but where a near-tie's order flips; every rank must run
+    its tp heads and launch rows 1-4 and 6 as counted."""
+    import shutil
+
+    cfg_path = shard_cli_config(root)
+    out_dir = os.path.join(root, "output_shard")
+    reduced = ["--train_batch_size", "8", "--test_batch_size", "8",
+               "--checkpointing", "true", "--first_eval", "false",
+               "--num_train_steps", str(SHARD_STEPS),
+               "--output_dir", out_dir]
+    tmp = os.path.join(root, "shard_ranks")
+    os.makedirs(tmp, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(SHARD_WORLD, "gloo", tmp, "shard_train",
+                            "shard_train_run", cfg_path, reduced, out_dir)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(out_dir + "_test", ignore_errors=True)
+    r0 = ranks[0]
+    v, a, bert = DDP_DEPTH["vision"], DDP_DEPTH["audio"], DDP_DEPTH["bert"]
+    step = {"tmajor_attention_fwd": v, "tmajor_attention_fwd_bias": a,
+            "tmajor_attention_fwd_sm90": v + a,
+            "tmajor_attention_bwd": v, "tmajor_attention_bwd_bias": a,
+            "tmajor_attention_bwd_sm90": v + a,
+            "tmajor_attention_bwd_lse": v + a}
+    # per data rank: its 8 test clips in 2 batches of 4, the rerank's 16
+    # segments split 8 a data rank: 2 calls of 4
+    evaluation = {"tmajor_attention_fwd": 2 * v,
+                  "tmajor_attention_fwd_bias": 2 * a,
+                  "tmajor_attention_fwd_sm90": 2 * (v + a),
+                  "flash_attention_fwd": 2 * bert,
+                  "flash_attention_fwd_sm90": 2 * bert}
+    want = {k: SHARD_STEPS * step.get(k, 0) + evaluation.get(k, 0)
+            for k in set(step) | set(evaluation)}
+    key = None
+    for r in ranks:
+        check(r["sharded"], f"shard_train rank {r['rank']}: not sharded")
+        check(r["heads"] == SHARD_HEADS, f"shard_train rank {r['rank']}: "
+              f"heads {r['heads']}")
+        check(r["launches"] == want, f"shard_train rank {r['rank']}: "
+              f"launches {r['launches']} != {want}")
+        check(r["test_launches"] == evaluation, f"shard_train rank "
+              f"{r['rank']}: testing launches {r['test_launches']}")
+        check(r["logged"] == r0["logged"], "the ranks' evaluations")
+        check(not r["reload"]["missing"] and not r["reload"]["unexpected"],
+              f"shard_train rank {r['rank']}: reload {r['reload']}")
+        key = next(iter(r["tested"]))
+        # the unsharded re-test scores the same rows in the same order;
+        # tp sums every projection's heads in another order, so bf16
+        # scores may differ: within SHARD_SCORE_ATOL, and a text's ground
+        # truth may change rank
+        # only across a near-tie (another score of its row within twice
+        # the matrices' largest difference: each may move by it)
+        check(len(r["scores"]) == 2, f"shard_train: {len(r['scores'])} "
+              f"score matrices an evaluation, not ITC and ITM")
+        emit({"phase": "shard_train_scores", "rank": r["rank"],
+              "score_agreement": dict(zip(("itc", "itm"), r["scores"]))})
+        for sc in r["scores"]:
+            check(sc["max_abs_diff"] <= SHARD_SCORE_ATOL, f"shard_train rank "
+                  f"{r['rank']}: scores differ by {sc['max_abs_diff']}")
+            check(all(m["gap"] <= 2 * sc["max_abs_diff"]
+                      for m in sc["moved"]),
+                  f"shard_train rank {r['rank']}: a rank moved beyond a "
+                  f"near-tie {sc['moved']}")
+        check(r["tested"][key] == r0["tested"][key], "the ranks' re-tests")
+    check(r0["files"] == [f"model_step_{SHARD_STEPS}.pt",
+                          f"optimizer_step_{SHARD_STEPS}.pt"],
+          f"shard_train files {r0['files']}")
+    check(r0["saved_keys_equal"] and not r0["saved_differs"],
+          f"shard_train: the saved file differs from the ranks' tensors at "
+          f"{r0['saved_differs'][:5]}")
+    emit({"phase": "shard_train", "config": "vast_tpu/configs/finetune_cfg/"
+          "retrieval-msrvtt.json", "mesh": SHARD_MESH,
+          "launch": "pipeline.train(..., mesh=create_mesh(dp=1, fsdp=2, "
+          "tp=2)) in 4 spawned ranks, gloo on one card",
+          "reduced": {"vision layers": [40, v], "audio layers": [12, a],
+                      "bert layers": [12, bert],
+                      "train_batch_size": [64, 8],
+                      "test_batch_size": [64, 8],
+                      "checkpointing": [False, True],
+                      "num_train_steps": ["3.6 epochs", SHARD_STEPS],
+                      "evaluations": ["every 10% of the run", 1],
+                      "first_eval": [True, False],
+                      "vision_format": ["video_rawvideo", "video_frame"]},
+          "wall_s": wall,
+          "ranks": {r["rank"]: {k: r[k] for k in (
+              "train_s", "timings", "max_memory_allocated", "bytes",
+              "launches")} for r in ranks},
+          "launches_per_rank": {"train": want, "testing": evaluation},
+          "r_at_k": {"sharded": {name[len(key) + 1:]: hist[str(SHARD_STEPS)]
+                                 for name, hist in r0["logged"].items()},
+                     "unsharded_retest": r0["tested"][key]},
+          "score_agreement": dict(zip(("itc", "itm"), r0["scores"])),
+          "score_atol": SHARD_SCORE_ATOL, "checkpoint": r0["files"]})
+    return r0["launches"]
+
+
+def phase_remat_offload(torch, np):
+    """One ret%tvas train step (forward and backward) of ``ddp_model``
+    on ``ddp_batch`` in one process under 'attn', 'attn_offload', 'dots'
+    and 'dots_offload': each offload policy's losses and gradients equal
+    to its policy's within ddp_step's tolerances, the bytes its cache
+    moved to pinned host memory, and its peak device memory lower."""
+    import dataclasses
+
+    from vast_tpu_torch.models import remat
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    model, _ = ddp_model(torch, dev)
+    towers = (model.vision_tower, model.audio_encoder.encoder,
+              model.multimodal_encoder.bert)
+    batch = ddp_rows(torch, np, 0, 1, dev)
+    moved = []
+    real = remat._to_host
+
+    def counted(storage):
+        moved.append(sum(e.val.numel() * e.val.element_size()
+                         for e in remat._cached(storage)
+                         if e.val.device.type == "cuda"))
+        real(storage)
+
+    runs, ref = {}, {}
+    remat._to_host = counted
+    try:
+        for policy in ("attn", "attn_offload", "dots", "dots_offload"):
+            for t in towers:
+                t.cfg = dataclasses.replace(t.cfg, remat_policy=policy)
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            moved.clear()
+            t0 = time.perf_counter()
+            out = model(batch, "ret%tvas", compute_loss=True,
+                        generator=torch.Generator().manual_seed(SEED))
+            sum(out.values()).backward()
+            torch.cuda.synchronize()
+            runs[policy] = {
+                "step_s": time.perf_counter() - t0,
+                "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                "moved_to_host_bytes": sum(moved),
+                "losses": {k: v.item() for k, v in out.items()}}
+            grads = {n: p.grad.detach().clone() for n, p in
+                     model.named_parameters() if p.grad is not None}
+            del out
+            base_policy = policy.removesuffix("_offload")
+            if policy == base_policy:
+                ref[policy] = grads
+                continue
+            want = ref.pop(base_policy)
+            check(set(grads) == set(want), f"{policy}: gradient presence")
+            errs = [((grads[n] - g).abs().max() / g.abs().max().clamp(
+                min=1e-30)).item() for n, g in want.items()]
+            loss_rel = max(abs(runs[policy]["losses"][k] - w) / abs(w)
+                           for k, w in runs[base_policy]["losses"].items())
+            runs[policy] |= {"grad_max_rel_err": max(errs),
+                             "loss_rel": loss_rel,
+                             "peak_lower_by_bytes":
+                                 runs[base_policy]["peak_bytes"]
+                                 - runs[policy]["peak_bytes"]}
+            del want, grads
+            check(loss_rel <= DDP_LOSS_RTOL, f"{policy}: losses {loss_rel}")
+            check(max(errs) <= DDP_GRAD_RTOL, f"{policy}: gradients "
+                  f"{max(errs)}")
+            check(runs[policy]["moved_to_host_bytes"] > 0,
+                  f"{policy}: nothing left the device")
+            check(runs[policy]["peak_lower_by_bytes"] > 0,
+                  f"{policy}: peak {runs[policy]['peak_bytes']} not below "
+                  f"{base_policy}'s {runs[base_policy]['peak_bytes']}")
+    finally:
+        remat._to_host = real
+        del model
+        torch.cuda.empty_cache()
+    emit({"phase": "remat_offload", "task": "ret%tvas", "batch": BATCH,
+          "dtype": "float32", "depth": DDP_DEPTH,
+          "tolerances": {"loss_rel": DDP_LOSS_RTOL,
+                         "grad_rel_to_tensor_max": DDP_GRAD_RTOL},
+          "runs": runs})
+
+
 def body_of(spec):
     body = BODIES[spec["layout"]]
     return body[spec["name"]] if isinstance(body, dict) else body
@@ -4074,7 +4625,14 @@ def main():
     towers = timed("slice_towers", phase_slice_towers, torch, np)
     train_towers = timed("train_towers", phase_train_towers, torch, np)
     torch.cuda.empty_cache()
-    ddp_step = timed("ddp_step", phase_ddp_step, torch, np)
+    ddp_tmp = tempfile.mkdtemp(prefix="vast_ddp_step_")
+    try:
+        ddp_step = timed("ddp_step", phase_ddp_step, torch, np, ddp_tmp)
+        shard_step = timed("shard_step", phase_shard_step, torch, np,
+                           ddp_tmp)
+    finally:
+        shutil.rmtree(ddp_tmp, ignore_errors=True)
+    timed("remat_offload", phase_remat_offload, torch, np)
     with msrvtt_data(np) as (root, data_s):
         cli_launches = timed("cli_ret_tvas", phase_cli_ret_tvas, torch, np,
                              root, data_s)
@@ -4085,6 +4643,9 @@ def main():
         torch.cuda.empty_cache()
         cli_ddp = timed("cli_ddp_ret_tvas", phase_cli_ddp_ret_tvas, torch,
                         np, root)
+        torch.cuda.empty_cache()
+        shard_train = timed("shard_train", phase_shard_train, torch, np,
+                            root)
     emit({"phase_seconds": seconds})
     # each row's launches on its path's counted run (a train block: five
     # steps); the rows of shapes no path reaches have none
@@ -4126,6 +4687,17 @@ def main():
             train_towers["videoswin"]["flash_attention_bwd_dbias"],
         ("flash_attention_fwd", "pretrain_rerank"):
             pretrain["rerank"],
+        # rank 0 of 4's run of shard_train (each rank on its tp heads)
+        ("tmajor_attention_fwd", "eva01g_tp2"):
+            shard_train["tmajor_attention_fwd"],
+        ("tmajor_attention_fwd_bias", "beats_tp2"):
+            shard_train["tmajor_attention_fwd_bias"],
+        ("tmajor_attention_bwd", "eva01g_tp2"):
+            shard_train["tmajor_attention_bwd"],
+        ("tmajor_attention_bwd_bias", "beats_tp2"):
+            shard_train["tmajor_attention_bwd_bias"],
+        ("flash_attention_fwd", "tvas_rerank_tp2"):
+            shard_train["flash_attention_fwd"],
     }
     # the same kernels on the other new paths, at those paths' shapes:
     # BEATs' forward in every tower's slice and train run, EVA01-g's and
@@ -4163,7 +4735,8 @@ def main():
                       "tmajor_attention_bwd_bias")):
         by_path.setdefault(row, {}).update({
             "ddp_step (rank 0 of 2, fp32)": ddp_step[key],
-            "cli_ddp_ret_tvas (rank 0 of 2)": cli_ddp[key]})
+            "cli_ddp_ret_tvas (rank 0 of 2)": cli_ddp[key],
+            "shard_step (rank 0 of 4, fp32, tp heads)": shard_step[key]})
     emit({"kernels": kernels_line(
         [rows[(i, torch.bfloat16)] for i in range(len(KERNELS))],
         launches_at, by_path)})

@@ -24,7 +24,11 @@ rtol 1e-4).
 * the CLI under 2 ranks: rank 0 alone writes the checkpoint, ``--mode
   testing`` gives one process's R@k;
 * no fallback: NCCL with two ranks on one card raises, a process told
-  ``WORLD_SIZE=2`` with no group raises, ``fsdp``/``tp`` raise.
+  ``WORLD_SIZE=2`` with no group raises;
+* the CLI's ``fsdp`` / ``tp`` flags under its dp-only mesh split nothing
+  (as in vast_tpu: parameter sharding is ``pipeline.train(...,
+  mesh=create_mesh(dp, fsdp, tp))``, tests/test_torch_fsdp.py and
+  tests/test_torch_tp.py).
 """
 
 import json
@@ -46,7 +50,6 @@ from vast_tpu_torch import parallel, run
 from vast_tpu_torch.convert.from_jax import from_jax, load_numpy_state_dict
 from vast_tpu_torch.models.vast import VASTModel
 from vast_tpu_torch.parallel.mesh import BACKEND_ENV, choose_backend
-from vast_tpu_torch.training import pipeline
 
 B = 6
 RUN_CFG = {"learning_rate": 1e-3, "clip_lr": 2e-4, "betas": [0.9, 0.98],
@@ -402,11 +405,40 @@ def test_a_rank_without_its_group_raises(monkeypatch):
         collectives.gather_list(["x"])
 
 
-@pytest.mark.parametrize("key", ["fsdp", "tp"])
-def test_parameter_sharding_still_raises(key, cli):
+@pytest.fixture(scope="module")
+def cli_flags(cli, tmp_path_factory):
+    """The CLI under 2 ranks with ``run_cfg.fsdp`` and with ``run_cfg.tp``
+    set in the task config, as the ``cli`` run otherwise."""
     cfg, _, _ = cli
-    opts = run.get_args(["--config", cfg])
-    opts.run_cfg[key] = True
-    model = pipeline.build_model(opts, "cpu")
-    with pytest.raises(NotImplementedError, match=key):
-        pipeline.train(model, opts, None, None, {})
+    root = str(tmp_path_factory.mktemp("cli_flags"))
+    with open(cfg) as f:
+        task = json.load(f)
+    paths = {}
+    for key in ("fsdp", "tp"):
+        t = json.loads(json.dumps(task))
+        t["run_cfg"][key] = True
+        paths[key] = os.path.join(root, f"{key}.json")
+        with open(paths[key], "w") as f:
+            json.dump(t, f)
+    return root, w.spawn(2, w.cli_flags_case, root, paths, root)
+
+
+@pytest.mark.parametrize("key", ["fsdp", "tp"])
+def test_cli_sharding_flags_follow_the_mesh(key, cli, cli_flags):
+    """The CLI passes ``train`` no mesh, so it builds the dp-only
+    ``create_mesh()``: ``fsdp`` / ``tp`` split nothing there, as in
+    vast_tpu, and the run is the ``cli`` run, evaluations and
+    checkpoint alike."""
+    _, out, (r0, _) = cli
+    root, ranks = cli_flags
+    for rk in ranks:
+        got = rk[key]
+        assert not got["sharded"] and got["step"] == 2
+        assert got["logged"] == r0["logged"]
+    a = torch.load(os.path.join(out, "ckpt", "model_step_2.pt"),
+                   weights_only=True)
+    b = torch.load(os.path.join(root, key, "ckpt", "model_step_2.pt"),
+                   weights_only=True)
+    assert list(a) == list(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k

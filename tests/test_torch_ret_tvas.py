@@ -272,16 +272,24 @@ def test_from_model_cfg_matches(path, checkpointing):
 
 def test_from_model_cfg_tiny_dicts():
     """The tiny model_cfg of tests/helpers.py: dict sub-configs become the
-    towers' configs, as vast_tpu's; an unported key raises."""
+    towers' configs, as vast_tpu's (``gelu_approx`` too, now ported); an
+    unported key raises."""
     from tests.helpers import TINY_MODEL_CFG_JSON
 
     jcfg = JaxVASTConfig.from_model_cfg(TINY_MODEL_CFG_JSON)
     cfg = VASTConfig.from_model_cfg(TINY_MODEL_CFG_JSON)
     assert cfg == port_config(jcfg)
+    forced = dict(TINY_MODEL_CFG_JSON,
+                  vision_cfg=dict(TINY_MODEL_CFG_JSON["vision_cfg"],
+                                  gelu_approx=True))
+    assert VASTConfig.from_model_cfg(forced).vision_cfg.gelu_approx is True
+    assert JaxVASTConfig.from_model_cfg(forced).vision_cfg.gelu_approx
+    # BEATs' pre-LN variant: vast_tpu has it, the released config and the
+    # port do not
     bad = dict(TINY_MODEL_CFG_JSON,
-               vision_cfg=dict(TINY_MODEL_CFG_JSON["vision_cfg"],
-                               gelu_approx=True))
-    with pytest.raises(NotImplementedError, match="gelu_approx"):
+               audio_cfg=dict(TINY_MODEL_CFG_JSON["audio_cfg"],
+                              layer_norm_first=True))
+    with pytest.raises(NotImplementedError, match="layer_norm_first"):
         VASTConfig.from_model_cfg(bad)
 
 

@@ -264,3 +264,266 @@ def cli_case(rank, world, cfg_path, out_dir):
         saver._save = real
     return {"logged": {k: dict(v) for k, v in logged.items()},
             "tested": tested, "writes": writes, "step": state.step}
+
+
+# ------------------------------------------------------ parameter sharding
+
+def _data_rows(batch, mesh):
+    """This rank's rows of a global numpy batch: its index in the mesh's
+    data group (the ranks of a tp group take the same rows)."""
+    from vast_tpu_torch import parallel
+
+    group = parallel.data_group(mesh)
+    return _shard(batch, parallel.group_rank(group),
+                  parallel.group_size(group))
+
+
+def sharded_state(cfg, state, mesh, flags, run_cfg, min_size=0):
+    """A fresh model from ``state``, its optimizer, sharded on ``mesh``."""
+    from vast_tpu_torch.training.optimizer import build_optimizer
+    from vast_tpu_torch.training.step import create_train_state, shard_state
+
+    model = _model(cfg, state)
+    opt, _ = build_optimizer(model, run_cfg, {}, 20)
+    return shard_state(mesh, create_train_state(model, opt),
+                       fsdp=flags.get("fsdp", False),
+                       tp=flags.get("tp", False), min_size=min_size)
+
+
+def whole_tensors(st, tensors: dict) -> dict:
+    """{name: whole numpy array} of ``tensors`` (this rank's parts),
+    gathered; every rank calls it."""
+    sh = st.sharding
+    return {n: None if t is None else
+            (t if sh is None else sh.full(n, t)).detach().numpy().copy()
+            for n, t in tensors.items()}
+
+
+def shard_step_case(rank, world, cfg, state, mesh_dims, flags, runs):
+    """``runs``: {name: (task, [global batches], run_cfg)}; each from
+    fresh weights ``state`` sharded on ``create_mesh(**mesh_dims)`` by
+    ``flags`` (min_size 0): the metrics of every step, the whole
+    gradients after the last, the whole parameters, each parameter's
+    local and whole shape and its moments' local shape."""
+    from vast_tpu_torch import parallel
+    from vast_tpu_torch.training.pipeline import step_generator
+    from vast_tpu_torch.training.step import make_train_step
+
+    mesh = parallel.create_mesh(**mesh_dims)
+    data_rank = parallel.group_rank(parallel.data_group(mesh))
+    out = {}
+    for name, (task, batches, run_cfg) in runs.items():
+        st = sharded_state(cfg, state, mesh, flags, run_cfg)
+        step = make_train_step(st.model, st.opt, task,
+                               sharding=st.sharding)
+        metrics = []
+        for i, batch in enumerate(batches):
+            st, m = step(st, _data_rows(batch, mesh),
+                         step_generator(0, i, data_rank))
+            metrics.append({k: v.item() for k, v in m.items()})
+        named = dict(st.model.named_parameters())
+        out[name] = {
+            "metrics": metrics,
+            "grads": whole_tensors(st, {n: p.grad for n, p in named.items()}),
+            "params": whole_tensors(st, {n: p.detach()
+                                         for n, p in named.items()}),
+            "shapes": {n: (tuple(p.shape), tuple(st.opt.mu[n].shape),
+                           tuple(st.opt.nu[n].shape))
+                       for n, p in named.items()},
+            "plan": st.sharding.plans if st.sharding else None}
+    return out
+
+
+def resume_save_case(rank, world, cfg, ckpt_root, out_root, mesh_dims,
+                     flags, run_cfg):
+    """A fresh model (other weights) sharded on the mesh; the newest
+    checkpoint under ``ckpt_root`` restored into it (its whole moments
+    and step returned), then saved again under ``out_root``."""
+    from vast_tpu_torch import parallel
+    from vast_tpu_torch.convert.from_jax import init_random_
+    from vast_tpu_torch.models.vast import VASTModel
+    from vast_tpu_torch.training.saver import ModelSaver
+
+    mesh = parallel.create_mesh(**mesh_dims)
+    other = VASTModel(cfg, device="cpu")
+    init_random_(other, torch.Generator().manual_seed(99))
+    st = sharded_state(cfg, other.state_dict(), mesh, flags, run_cfg)
+    st, start = ModelSaver(ckpt_root).restore_latest(st)
+    opt = st.opt.state_dict()
+    ModelSaver(out_root).save(st, start)
+    return {"start": start, "step": st.step, "count": opt["count"],
+            "mu": {n: t.numpy() for n, t in opt["mu"].items()},
+            "nu": {n: t.numpy() for n, t in opt["nu"].items()}}
+
+
+def fused_eval_case(rank, world, cfg, state, batch, mesh_dims, flags, task,
+                    run_cfg):
+    """Under inference: the condition features (EVA01's fused qkv read
+    through ``FusedCache``), one train step, the features again."""
+    from vast_tpu_torch import parallel
+    from vast_tpu_torch.training.step import make_train_step
+
+    mesh = parallel.create_mesh(**mesh_dims)
+    st = sharded_state(cfg, state, mesh, flags, run_cfg)
+    rows = _data_rows(batch, mesh)
+
+    def feats():
+        with torch.inference_mode():
+            out = st.model.condition_features(rows, ("tvas",))
+        return {k: v.numpy().copy() for k, v in out.items()}
+
+    before = feats()
+    before_again = feats()
+    step = make_train_step(st.model, st.opt, task, sharding=st.sharding)
+    st, _ = step(st, rows, torch.Generator().manual_seed(0))
+    group = parallel.data_group(mesh)
+    named = dict(st.model.named_parameters())
+    return {"before": before, "before_again": before_again,
+            "after": feats(), "rows": (parallel.group_rank(group),
+                                       parallel.group_size(group)),
+            "params_after": whole_tensors(st, {n: p.detach()
+                                               for n, p in named.items()})}
+
+
+def norm_case(rank, world, cfg, state, batch, mesh_dims, flags, task,
+              run_cfg):
+    """One step with clipping: the whole gradient's norm as the sharded
+    optimizer computed it (before clipping), and the whole parameters
+    after the step."""
+    from vast_tpu_torch import parallel
+    from vast_tpu_torch.training.pipeline import step_generator
+    from vast_tpu_torch.training.step import make_train_step
+
+    mesh = parallel.create_mesh(**mesh_dims)
+    st = sharded_state(cfg, state, mesh, flags, run_cfg)
+    data_rank = parallel.group_rank(parallel.data_group(mesh))
+    step = make_train_step(st.model, st.opt, task, sharding=st.sharding)
+    norms, real = [], st.sharding.global_norm
+    st.sharding.global_norm = lambda g: norms.append(real(g)) or norms[-1]
+    st, _ = step(st, _data_rows(batch, mesh), step_generator(0, 0,
+                                                              data_rank))
+    named = dict(st.model.named_parameters())
+    return {"norm": [float(n) for n in norms],
+            "params": whole_tensors(st, {n: p.detach()
+                                         for n, p in named.items()})}
+
+
+def shard_eval_case(rank, world, cfg, state, arrays, batch_size, out_dir,
+                    mesh_dims, flags):
+    """``evaluate_ret`` (ret%tvas, top 3) and ``evaluate_cap`` over this
+    rank's data shard of ``arrays`` with the parameters sharded."""
+    from vast_tpu_torch import parallel
+    from vast_tpu_torch.data.loader import BatchLoader
+    from vast_tpu_torch.data.tokenizer import tiny_tokenizer
+    from vast_tpu_torch.evaluation import evaluation_mm as em
+
+    mesh = parallel.create_mesh(**mesh_dims)
+    st = sharded_state(cfg, state, mesh, flags, {})
+    group = parallel.data_group(mesh)
+    drank, dsize = parallel.group_rank(group), parallel.group_size(group)
+    loader = BatchLoader(ArrayDataset(arrays), max(batch_size // dsize, 1),
+                         shuffle=False, drop_last=False, num_workers=1,
+                         host_id=drank, num_hosts=dsize)
+    run_cfg = {"itm_rerank_num": 3, "ret_bidirection_evaluation": True,
+               "output_dir": out_dir, "seed": 5}
+    with recorded_scores([]) as calls:
+        ret = em.evaluate_ret(st.model, ["tvas"], loader, run_cfg,
+                              device="cpu", mesh=mesh)
+    cap = em.evaluate_cap(st.model, tiny_tokenizer(), ["tvas"], loader,
+                          run_cfg, 0, "synth", device="cpu", mesh=mesh)
+    return {"ret": ret, "scores": calls, "cap": cap}
+
+
+def tower_tp_case(rank, world, tower_cfg, state, pixels, weights,
+                  mesh_dims):
+    """An EVA tower split over tp (min_size 0): its output and the whole
+    gradient of ``sum(output * weights)``."""
+    from vast_tpu_torch import parallel
+    from vast_tpu_torch.models.eva_vit import EvaVisionTransformer
+    from vast_tpu_torch.training.optimizer import GroupedAdam
+    from vast_tpu_torch.training.step import create_train_state, shard_state
+
+    mesh = parallel.create_mesh(**mesh_dims)
+    tower = EvaVisionTransformer(tower_cfg, device="cpu")
+    tower.load_state_dict(state)
+    opt = GroupedAdam(tower, {}, {}, 1)
+    st = shard_state(mesh, create_train_state(tower, opt), tp=True,
+                     min_size=0)
+    out = tower(torch.from_numpy(pixels))
+    (out * torch.from_numpy(weights)).sum().backward()
+    st.sharding.reduce_grads()
+    named = dict(tower.named_parameters())
+    return {"out": out.detach().numpy(),
+            "grads": whole_tensors(st, {n: p.grad
+                                        for n, p in named.items()}),
+            "split": sorted(n for n, pl in st.sharding.plans.items()
+                            if pl.tp_dim is not None),
+            "partial": sorted(n for n, pl in st.sharding.plans.items()
+                              if pl.tp_partial)}
+
+
+def several(rank, world, cases):
+    """``{key: case(rank, world, *args)}`` for ``cases`` ``{key: (case
+    name, args)}``, in order, in one group: one spawn for them all."""
+    return {key: globals()[name](rank, world, *args)
+            for key, (name, args) in cases.items()}
+
+
+def cli_flags_case(rank, world, cfg_paths, out_root):
+    """The CLI in this rank once per config of ``cfg_paths`` ({name:
+    task config}): 2 train steps into ``<out_root>/<name>``."""
+    from vast_tpu_torch import run
+
+    out = {}
+    for name, path in cfg_paths.items():
+        state, logged = run.main(["--config", path, "--output_dir",
+                                  os.path.join(out_root, name),
+                                  "--num_train_steps", "2", "--device",
+                                  "cpu"])
+        out[name] = {"logged": {k: dict(v) for k, v in logged.items()},
+                     "step": state.step,
+                     "sharded": state.sharding is not None}
+    return out
+
+
+def pipeline_mesh_case(rank, world, cfg_path, out_dir, mesh_dims):
+    """``pipeline.train`` on ``create_mesh(**mesh_dims)`` (the task
+    config sets ``run_cfg.fsdp`` / ``tp``; every parameter split that
+    can be: min_size 0), then the saved checkpoint in an unsharded model
+    tested on the same mesh: what ``chip_smoke.py``'s ``shard_train``
+    runs on the card."""
+    from vast_tpu_torch import parallel, run
+    from vast_tpu_torch.parallel import mesh as pmesh
+    from vast_tpu_torch.training import pipeline
+
+    pmesh.MIN_SHARD_SIZE = 0
+    mesh = parallel.create_mesh(**mesh_dims)
+    opts = run.get_args(["--config", cfg_path, "--output_dir", out_dir])
+    pipeline.initialize(opts)
+    tok = pipeline.build_tokenizer(opts)
+    model = pipeline.build_model(opts, "cpu", tok)
+    train_loader = pipeline.create_train_dataloaders(opts, tok, mesh)
+    val = pipeline.create_val_dataloaders(opts, tok, mesh)
+    steps = opts.run_cfg.num_train_steps
+    opts.run_cfg.valid_steps = steps + 2       # one evaluation, at the end
+    state, logged = pipeline.train(model, opts, tok, train_loader, val,
+                                   mesh=mesh)
+    out = {"sharded": state.sharding is not None,
+           "split": sum(not p.whole for p in state.sharding.plans.values()),
+           "logged": {k: dict(v) for k, v in logged.items()}}
+    ckpt = os.path.join(out_dir, "ckpt", f"model_step_{steps}.pt")
+    whole = state.sharding.full_state_dict(keep=rank == 0)
+    if rank == 0:
+        saved = torch.load(ckpt, weights_only=True)
+        out["files"] = sorted(os.listdir(os.path.dirname(ckpt)))
+        out["differs"] = [k for k in saved if k not in whole
+                          or not torch.equal(saved[k], whole[k])]
+        out["keys_equal"] = list(saved) == list(whole)
+    parallel.barrier()
+    plain = pipeline.build_model(opts, "cpu", tok)
+    reload = plain.load_state_dict(torch.load(ckpt, weights_only=True),
+                                   strict=False)
+    out["reload"] = (reload.missing_keys, reload.unexpected_keys)
+    out["tested"] = pipeline.test(plain, opts, tok, val, mesh=mesh)
+    out["steps"] = steps
+    return out

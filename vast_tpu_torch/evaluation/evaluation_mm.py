@@ -5,6 +5,9 @@ Counterpart of ``vast_tpu.evaluation.evaluation_mm``, in one process or
 in each rank of a data-parallel run (``vast_tpu_torch.parallel``), where
 every rank evaluates its shard of the set and the results are gathered
 (``parallel.collectives``), so the metrics come out equal on every rank.
+On a mesh (``mesh=``, ``parallel.create_mesh``) the shards and gathers
+are those of its data group (dp x fsdp); the ranks of a tp group
+evaluate the same rows together, each with its heads of the model.
 ``evaluate_mm`` runs each ``{task--name: loader}`` and each
 head of its task; ``evaluate_ret`` takes a loader (``BatchLoader``) or
 any iterable of numpy batches, each holding the model's input arrays
@@ -47,6 +50,7 @@ from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.generation import GenerationConfig, generate
 from vast_tpu_torch.parallel.collectives import (gather_array, gather_list,
                                                  sum_across_hosts)
+from vast_tpu_torch.parallel.mesh import data_group, tp_group
 
 
 class _StageClock:
@@ -78,9 +82,10 @@ def _to_device(batch, device):
 
 def evaluate_mm(model, tokenizer, val_loaders: dict, run_cfg,
                 global_step: int = 0, *, device=None,
-                timings: dict | None = None):
+                timings: dict | None = None, mesh=None):
     """``{f"{task}--{name}": loader}`` -> ``{key: {metric: ...}}``, as
     ``vast_tpu``'s ``evaluate_mm`` (evaluation_mm.py:45-72)."""
+    kw = dict(device=device, timings=timings, mesh=mesh)
     eval_log = {}
     for key, loader in val_loaders.items():
         task, dset_name = key.split("--")[:2]
@@ -89,15 +94,15 @@ def evaluate_mm(model, tokenizer, val_loaders: dict, run_cfg,
         for head, subtasks in parse_task_string(task):
             if head.startswith("ret"):
                 val_log.update(evaluate_ret(model, subtasks, loader, run_cfg,
-                                            device=device, timings=timings))
+                                            **kw))
             elif head.startswith("cap"):
                 val_log.update(evaluate_cap(
                     model, tokenizer, subtasks, loader, run_cfg, global_step,
-                    dset_name, device=device, timings=timings))
+                    dset_name, **kw))
             elif head.startswith("qa"):
                 val_log.update(evaluate_qa(
                     model, tokenizer, subtasks, loader, run_cfg, global_step,
-                    dset_name, device=device, timings=timings))
+                    dset_name, **kw))
             else:
                 raise NotImplementedError(f"evaluation of the {head!r} head")
         eval_log[key] = val_log
@@ -148,7 +153,7 @@ def _loader_transforms(loader):
 @torch.inference_mode()
 def evaluate_ret(model, subtasks, loader, run_cfg, *,
                  vision_transforms: str | None = None, device=None,
-                 timings: dict | None = None):
+                 timings: dict | None = None, mesh=None):
     """R@1/5/10 of ITC and of the ITM rerank per subtask.
 
     ``loader``: a ``BatchLoader`` or an iterable of numpy batches (in a
@@ -159,9 +164,10 @@ def evaluate_ret(model, subtasks, loader, run_cfg, *,
     'none') must match the batches' frames. ``device`` (None: the GPU)
     must be the model's device. ``timings``, when given, receives seconds
     per stage: ``condition_features``, ``text_features``, ``itc``,
-    ``itm_rerank``.
+    ``itm_rerank``. ``mesh``: the gathers run over its data group.
     """
     device = _check_device(model, device)
+    group = data_group(mesh)
     if vision_transforms is None:
         vision_transforms = _loader_transforms(loader)
     clock = _StageClock(timings, device)
@@ -190,10 +196,10 @@ def evaluate_ret(model, subtasks, loader, run_cfg, *,
 
     def local(parts, cat):
         x = cat(parts)
-        return gather_array(x[: x.shape[0] - pt])
+        return gather_array(x[: x.shape[0] - pt], group)
 
-    ids = gather_list(ids[: len(ids) - pt])
-    ids_txt = gather_list(ids_txt[: len(ids_txt) - pt])
+    ids = gather_list(ids[: len(ids) - pt], group)
+    ids_txt = gather_list(ids_txt[: len(ids_txt) - pt], group)
     feat_t = local(feats_t, torch.cat).numpy()
     input_ids = local(toks, np.concatenate)
     attention_mask = local(masks, np.concatenate)
@@ -209,12 +215,12 @@ def evaluate_ret(model, subtasks, loader, run_cfg, *,
         val_log[f"ret_itc_{st}"] = log
         cseq = local(cond_seqs[st], torch.cat)
         refined = clock("itm_rerank", rerank_scores, model, cseq, input_ids,
-                        attention_mask, score, top_k, "forward")
+                        attention_mask, score, top_k, "forward", group=group)
         log = _metric_log(refined, ids, ids_txt, "forward")
         if both:
             refined_b = clock("itm_rerank", rerank_scores, model, cseq,
                               input_ids, attention_mask, score, top_k,
-                              "backward")
+                              "backward", group=group)
             log.update(_metric_log(refined_b, ids, ids_txt, "backward"))
         val_log[f"ret_itm_{st}"] = log
     return val_log
@@ -232,7 +238,7 @@ def _metric_log(score, ids, ids_txt, direction):
 @torch.inference_mode()
 def rerank_scores(model, cond_seqs, input_ids, attention_mask, itc_scores,
                   top_k, direction: str = "forward", texts_per_seg: int = 32,
-                  conds_per_call: int = 4):
+                  conds_per_call: int = 4, group=None):
     """ITM probabilities at the ITC top-k cells, 0 elsewhere.
 
     ``direction='forward'`` reranks each text's top-k candidates,
@@ -244,7 +250,8 @@ def rerank_scores(model, cond_seqs, input_ids, attention_mask, itc_scores,
     padded to the longest segment of the call. In a data-parallel run
     (inputs equal on every rank) rank r scores segments r::world and the
     ranks' matrices, zero off their segments, are summed
-    (vast_tpu evaluation_mm.py:327-337).
+    (vast_tpu evaluation_mm.py:327-337); the ranks are those of ``group``
+    (None: the world).
     """
     n_text, n_cond = itc_scores.shape
     if direction == "forward":
@@ -263,7 +270,7 @@ def rerank_scores(model, cond_seqs, input_ids, attention_mask, itc_scores,
         by_cand.setdefault(c, []).append(t)
     segs = [(c, ts[s:s + texts_per_seg]) for c, ts in by_cand.items()
             for s in range(0, len(ts), texts_per_seg)]
-    segs = segs[parallel.rank()::parallel.world()]
+    segs = segs[parallel.group_rank(group)::parallel.group_size(group)]
 
     device = cond_seqs.device
     out = np.zeros_like(itc_scores)
@@ -282,7 +289,7 @@ def rerank_scores(model, cond_seqs, input_ids, attention_mask, itc_scores,
         scores = scores.float().cpu().numpy().reshape(len(call), t_max)
         for gi, (c, ts) in enumerate(call):
             out[ts, c] = scores[gi, : len(ts)]
-    return sum_across_hosts(out)
+    return sum_across_hosts(out, group)
 
 
 def compute_metric_ret(score_matrix, ids, ids_txt, direction="forward"):
@@ -364,7 +371,8 @@ def _condition_batches(model, subtasks, loader, device, clock):
 
 @torch.inference_mode()
 def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
-                 dset_name, *, device=None, timings: dict | None = None):
+                 dset_name, *, device=None, timings: dict | None = None,
+                 mesh=None):
     """Captions for every clip (evaluation_mm.py:480-573 of ``vast_tpu``):
     beam search (``beam_size`` beams, length penalty 0.6) of at most
     ``max_caption_len`` tokens, written to
@@ -374,9 +382,10 @@ def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
     samples a clip, flushed to ``gencap_rank{r}_idx{i}_{st}.json`` every
     20,000 clips, and no metrics. ``timings``: seconds per stage
     (``condition_features``, ``decode``). In a data-parallel run each
-    rank decodes its shard; the captions are gathered, rank 0 writes
-    the file and every rank scores them."""
+    rank decodes its shard; the captions are gathered (over ``mesh``'s
+    data group), rank 0 writes the file and every rank scores them."""
     device = _check_device(model, device)
+    group = data_group(mesh)
     cfg = model.cfg
     sample = bool(cfg.captioner_mode)
     gen_cfg = _gen_config(tokenizer, max_new_tokens=cfg.max_caption_len,
@@ -393,10 +402,13 @@ def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
 
     def flush_gencap(st):
         nonlocal gen_idx
-        path = os.path.join(
-            out_dir, f"gencap_rank{parallel.rank()}_idx{gen_idx}_{st}.json")
-        with open(path, "w") as f:
-            json.dump(results[st], f)
+        # one file a data rank: the ranks of a tp group decode the same
+        if mesh is None or parallel.group_rank(tp_group(mesh)) == 0:
+            path = os.path.join(
+                out_dir, f"gencap_rank{parallel.group_rank(group)}_idx"
+                f"{gen_idx}_{st}.json")
+            with open(path, "w") as f:
+                json.dump(results[st], f)
         gen_idx += 1
         results[st] = {}
 
@@ -430,7 +442,7 @@ def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
     annfile = getattr(getattr(loader, "dataset", None), "annfile", None)
     val_log = {}
     for st in subtasks:
-        rows = gather_list(results[st][:len(results[st]) - pt])
+        rows = gather_list(results[st][:len(results[st]) - pt], group)
         if parallel.is_main():
             with open(os.path.join(out_dir, f"step_{global_step}_{st}.json"),
                       "w") as f:
@@ -442,7 +454,8 @@ def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
 
 @torch.inference_mode()
 def evaluate_qa(model, tokenizer, subtasks, loader, run_cfg, global_step=0,
-                dset_name="", *, device=None, timings: dict | None = None):
+                dset_name="", *, device=None, timings: dict | None = None,
+                mesh=None):
     """Answers by beam search (``beam_size`` beams, length penalty 1.0,
     at most 10 tokens) after the prompt question + BOS
     (evaluation_mm.py:576-641 of ``vast_tpu``), written to
@@ -451,8 +464,10 @@ def evaluate_qa(model, tokenizer, subtasks, loader, run_cfg, global_step=0,
     ``raw_answers`` (any element of a list). ``timings``: seconds per
     stage (``condition_features``, ``decode``). In a data-parallel run
     each rank decodes its shard; the answers and the ground truth are
-    gathered, rank 0 writes the file and every rank scores them."""
+    gathered (over ``mesh``'s data group), rank 0 writes the file and
+    every rank scores them."""
     device = _check_device(model, device)
+    group = data_group(mesh)
     gen_cfg = _gen_config(tokenizer, max_new_tokens=10,
                           num_beams=model.cfg.beam_size, length_penalty=1.0)
     clock = _StageClock(timings, device)
@@ -475,12 +490,12 @@ def evaluate_qa(model, tokenizer, subtasks, loader, run_cfg, global_step=0,
             preds[st] += tokenizer.batch_decode(toks.cpu().numpy())[:nv]
 
     pt = getattr(loader, "padded_tail", 0)
-    gt_rows = gather_list(gt_rows[:len(gt_rows) - pt])
+    gt_rows = gather_list(gt_rows[:len(gt_rows) - pt], group)
     out_dir = os.path.join(run_cfg.get("output_dir", "."), "predict_answers")
     os.makedirs(out_dir, exist_ok=True)
     val_log = {}
     for st in subtasks:
-        rows = gather_list(preds[st][:len(preds[st]) - pt])
+        rows = gather_list(preds[st][:len(preds[st]) - pt], group)
         if parallel.is_main():
             with open(os.path.join(
                     out_dir, f"step{global_step}_pred_{dset_name}_{st}.json"),

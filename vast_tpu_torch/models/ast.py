@@ -124,6 +124,10 @@ class AstLayer(nn.Module):
 
 
 class AstEncoder(nn.Module):
+    # tensor parallelism splits EVA, BEATs and BERT only
+    tp_unported = ("tensor parallelism (tp > 1) of the AST tower "
+                   "is not ported: ROADMAP.md queue 1 item 9")
+
     def __init__(self, c: AstConfig, device=None):
         super().__init__()
         self.cfg = c

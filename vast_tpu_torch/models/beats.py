@@ -18,6 +18,12 @@ gate and the relative-bias table. Parameter names are the reference
 torch ones. Training adds activation checkpointing per layer
 (models/remat.py); the released config has no dropout (``dropout`` 0 in
 vast_tpu, unused there too).
+
+Tensor parallel (``parallel/tp.py``): a layer whose heads divide by the
+tp size runs this rank's heads (``q/k/v_proj`` rows, ``out_proj``
+columns), its gate's ``grep_a`` and the relative-bias table's columns
+sliced to them; the head-shared ``grep_linear`` stays whole. Its MLP
+splits where ``encoder_ffn_embed_dim`` divides.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from vast_tpu_torch.models.hmajor import FusedCache, fuse_qkv
 from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.ops.activations import gelu
 from vast_tpu_torch.ops.flash_attention import self_attention_tmajor
+from vast_tpu_torch.parallel import tp as tpl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,37 +106,71 @@ class BeatsAttention(nn.Module):
         self.grep_linear = layers.Linear(c.head_dim, 8, **fk)
         self.grep_a = nn.Parameter(torch.ones(1, h, 1, 1, **fk))
         self._fused = FusedCache()
+        self.heads = h                    # this rank's (tp: H / tp)
+        self.tp = None
+
+    # the q/k/v projections are read here, not through their layers
+    GATHER_CHILDREN = ("q_proj", "k_proj", "v_proj")
+
+    def tp_linears(self) -> dict:
+        return {n: (n, 1) for n in ("q_proj", "k_proj", "v_proj",
+                                    "out_proj")}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.cfg.encoder_attention_heads % tp == 0
+
+    def tp_partial_params(self) -> list:
+        out = ["grep_linear.weight", "grep_linear.bias", "grep_a"]
+        if hasattr(self, "relative_attention_bias"):
+            out.append("relative_attention_bias.weight")
+        return out
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
+        self.heads = self.cfg.encoder_attention_heads // tp.size
+
+    def _heads_slice(self):
+        return (slice(None) if self.tp is None
+                else self.tp.block(self.cfg.encoder_attention_heads))
 
     def compute_bias(self, length: int):
-        """Raw relative bias (H, L, L) in fp32."""
+        """Raw relative bias (H, L, L) in fp32, of this rank's heads."""
         rel = np.arange(length)[None, :] - np.arange(length)[:, None]
         bucket = relative_position_bucket(rel, self.cfg.num_buckets,
                                           self.cfg.max_distance)
-        table = self.relative_attention_bias.weight
+        table = self.relative_attention_bias.weight[:, self._heads_slice()]
         values = table[torch.from_numpy(bucket).to(table.device)]
         return values.permute(2, 0, 1).float()
 
     def fused_qkv(self):
-        ps = (self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
-              self.q_proj.bias, self.k_proj.bias, self.v_proj.bias)
+        """The fused weight and bias of this rank's heads (the biases
+        stay whole under tp and are sliced)."""
+        q, k, v = self.q_proj, self.k_proj, self.v_proj
+        rows = (slice(None) if self.tp is None
+                else self.tp.block(q.bias.shape[0]))
+        ws = (q.weight, k.weight, v.weight)
         return self._fused.get(
-            ps, lambda: fuse_qkv(*ps, self.cfg.encoder_attention_heads))
+            ws + (q.bias, k.bias, v.bias),
+            lambda: fuse_qkv(*ws, q.bias[rows], k.bias[rows], v.bias[rows],
+                             self.heads))
 
     def forward(self, x, position_bias=None):
         """x: (B, L, E) -> (out, position_bias); the raw (ungated) bias is
         threaded through the layers as in the reference."""
         c = self.cfg
         b, l, _ = x.shape
-        h, d = c.encoder_attention_heads, c.head_dim
+        h, d = self.heads, c.head_dim
         if position_bias is None:                         # layer 0
             position_bias = self.compute_bias(l)
+        x = tpl.copy_to(x, self.tp)
         w, bb = self.fused_qkv()
         y = F.linear(x, w.to(x.dtype), bb.to(x.dtype))    # (B, L, H*3*D)
         # gate from the unscaled query (reference beats.py:905-915)
         qt = y.view(b, l, h, 3, d)[..., 0, :]             # (B, L, H, D)
         g = self.grep_linear(qt).view(b, l, h, 2, 4).sum(-1)
         gate_a, gate_b = torch.sigmoid(g).chunk(2, dim=-1)
-        gate = gate_a * (gate_b * self.grep_a.view(1, 1, h, 1) - 1.0) + 2.0
+        grep_a = self.grep_a.view(1, 1, -1, 1)[:, :, self._heads_slice()]
+        gate = gate_a * (gate_b * grep_a - 1.0) + 2.0
         bias = (gate.transpose(1, 2) * position_bias[None]).to(c.dtype)
         out = self_attention_tmajor(y, bias.contiguous(), heads=h,
                                     scale=d ** -0.5)
@@ -149,6 +190,19 @@ class BeatsLayer(nn.Module):
         self.fc2 = layers.Linear(c.encoder_ffn_embed_dim, e, **fk)
         self.final_layer_norm = layers.LayerNorm(e, eps=c.ln_eps, **fk)
         self.alpha = math.pow(2 * c.encoder_layers, 0.25)   # deep norm
+        self.ffn = c.encoder_ffn_embed_dim
+
+    def tp_linears(self) -> dict:
+        return {"fc1": ("fc1", 1), "fc2": ("fc2", 1)}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.ffn % tp == 0
+
+    def tp_partial_params(self) -> list:
+        return []
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
 
     def forward(self, x, position_bias=None):
         y, position_bias = self.self_attn(x, position_bias)

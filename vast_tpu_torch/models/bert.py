@@ -19,6 +19,14 @@ loads as it is. Attention routes by shape (ops/attention.py): the
 caption's self-attention and one caption's cross-attention take the plain
 route, and the grouped rerank's folded query, from 8 texts per candidate
 on, the head-major CUDA kernel.
+
+Tensor parallel (``parallel/tp.py``): an attention whose heads divide by
+the tp size runs this rank's heads (``query``/``key``/``value`` rows,
+the output ``dense`` columns), in self- and cross-attention alike, so the
+cross K/V that ``precompute_cross_kv`` projects once and the decode's KV
+cache (``init_cache``) hold this rank's heads; the MLP splits
+``intermediate.dense`` rows and ``output.dense`` columns where
+``intermediate_size`` divides. Embeddings and the MLM head stay whole.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from vast_tpu_torch.models.layers import dropout
 from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.ops.activations import gelu
 from vast_tpu_torch.ops.attention import multi_head_attention
+from vast_tpu_torch.parallel import tp as tpl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,10 +134,25 @@ class BertAttention(nn.Module):
         self.cfg = c
         self.self = BertSelfAttention(c, device)
         self.output = BertOutput(c, c.hidden_size, device)
+        self.heads = c.num_attention_heads    # this rank's (tp: H / tp)
+        self.tp = None
+
+    def tp_linears(self) -> dict:
+        return {"self.query": ("query", 1), "self.key": ("key", 1),
+                "self.value": ("value", 1), "output.dense": ("out", 1)}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.cfg.num_attention_heads % tp == 0
+
+    def tp_partial_params(self) -> list:
+        return []
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
+        self.heads = self.cfg.num_attention_heads // tp.size
 
     def _heads(self, y):
-        c = self.cfg
-        return y.view(*y.shape[:-1], c.num_attention_heads, c.head_dim)
+        return y.view(*y.shape[:-1], self.heads, self.cfg.head_dim)
 
     def project_kv(self, x):
         """Cross K/V of a condition sequence, (B, Lc, H, D) each."""
@@ -156,7 +180,7 @@ class BertAttention(nn.Module):
                         "grouped cross-attention assumes unmasked "
                         "condition features")
                 q = q.reshape(k.shape[0], b // k.shape[0] * lq,
-                              c.num_attention_heads, c.head_dim)
+                              self.heads, c.head_dim)
         else:
             src = hidden if kv_source is None else kv_source
             k, v = self.project_kv(src)
@@ -166,7 +190,7 @@ class BertAttention(nn.Module):
                 cache["v"][:, cache_index:end] = v.to(cache["v"].dtype)
                 k, v = cache["k"], cache["v"]
         out = multi_head_attention(q, k, v, mask=mask)
-        out = out.reshape(b, lq, c.hidden_size)
+        out = out.reshape(b, lq, self.heads * c.head_dim)
         return self.output(out, hidden, generator)
 
 
@@ -187,6 +211,20 @@ class BertLayer(nn.Module):
         self.crossattention = BertAttention(c, device)
         self.intermediate = BertIntermediate(c, device)
         self.output = BertOutput(c, c.intermediate_size, device)
+        self.ffn = c.intermediate_size
+
+    def tp_linears(self) -> dict:
+        return {"intermediate.dense": ("intermediate", 1),
+                "output.dense": ("output", 1)}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.ffn % tp == 0
+
+    def tp_partial_params(self) -> list:
+        return []
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
 
     def forward(self, hidden, self_mask=None, encoder_hidden_states=None,
                 cross_mask=None, cross_kv=None, seed: Optional[int] = None,
@@ -351,10 +389,12 @@ class BertForMaskedLM(nn.Module):
         return self.bert.precompute_cross_kv(encoder_hidden_states)
 
 
-def init_cache(cfg: BertConfig, batch: int, length: int, device=None):
+def init_cache(cfg: BertConfig, batch: int, length: int, device=None,
+               heads: int | None = None):
     """The decode cache: per layer {"k", "v"} of (B, L, H, D) zeros in the
-    compute dtype (``vast_tpu``'s generate follows the model's)."""
-    h, d = cfg.num_attention_heads, cfg.head_dim
+    compute dtype (``vast_tpu``'s generate follows the model's); ``heads``
+    (None: the config's) the model's own heads, H / tp under tp."""
+    h, d = heads or cfg.num_attention_heads, cfg.head_dim
     kw = dict(dtype=cfg.dtype, device=device)
     return [{"k": torch.zeros(batch, length, h, d, **kw),
              "v": torch.zeros(batch, length, h, d, **kw)}

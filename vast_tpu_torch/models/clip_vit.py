@@ -129,6 +129,10 @@ class ClipTransformer(nn.Module):
 
 
 class ClipVisionTransformer(nn.Module):
+    # tensor parallelism splits EVA, BEATs and BERT only
+    tp_unported = ("tensor parallelism (tp > 1) of the CLIP tower "
+                   "is not ported: ROADMAP.md queue 1 item 9")
+
     def __init__(self, c: ClipVitConfig, device=None):
         super().__init__()
         fk = dict(device=device, dtype=c.pdtype)

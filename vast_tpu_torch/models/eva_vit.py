@@ -5,7 +5,8 @@ Counterpart of ``vast_tpu.models.eva_vit``, every preset of
 ``EVA_PRESETS`` (eva_vit.py:97-113):
 
 * EVA01-g/14: rope-free, fused qkv with q/v biases (k bias zero), plain
-  GELU MLP (exact erf in fp32, tanh in bf16: vast_tpu eva_vit.py:75-81),
+  GELU MLP (``gelu_approx`` None: exact erf in fp32, tanh in bf16; True
+  or False force the tanh or the exact one: vast_tpu eva_vit.py:75-81),
   pre-norm blocks;
 * EVA02 (``subln``): separate q/k/v projections without a k bias, the
   2-D rotary angles of ``rope_2d_freqs`` (interleaved pairs, ``intp_freq``
@@ -32,6 +33,14 @@ adds drop-path (eva_vit.py:299-303, one keep decision per sample, rates
 rising linearly over the blocks) and activation checkpointing per block
 (models/remat.py); parameters may be kept in ``param_dtype`` and cast to
 ``dtype`` at use (models/layers.py).
+
+Tensor parallel (``parallel/tp.py``): an attention whose heads divide by
+the tp size splits them (EVA01's fused ``qkv`` rows of this rank's heads
+from each of its q, k and v thirds; EVA02's ``q/k/v_proj`` rows; the
+``proj`` columns), and an MLP whose hidden size divides splits it
+(``fc1`` / ``w1`` / ``w2`` rows, ``fc2`` / ``w3`` columns). The q and v
+biases stay whole and are sliced; EVA02's sub-LayerNorms normalise the
+split channels with the statistics of all of them.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.hmajor import FusedCache, fuse_qkv
 from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.ops.activations import gelu
+from vast_tpu_torch.parallel import tp as tpl
 from vast_tpu_torch.ops.attention import multi_head_attention
 from vast_tpu_torch.ops.flash_attention import self_attention_tmajor
 
@@ -74,6 +84,9 @@ class EvaVitConfig:
     param_dtype: Optional[torch.dtype] = None     # None: dtype
     remat: bool = False
     remat_policy: str = "dots"
+    # the MLP's GELU: None by the compute dtype (tanh in bf16, exact
+    # erf otherwise); True / False force the tanh or the exact one
+    gelu_approx: Optional[bool] = None
 
     @property
     def pdtype(self) -> torch.dtype:
@@ -156,16 +169,47 @@ class EvaAttention(nn.Module):
             self.inner_attn_ln = layers.LayerNorm(all_dim, eps=c.ln_eps, **fk)
         self.proj = layers.Linear(all_dim, c.width, **fk)
         self._fused = FusedCache()
+        self.heads = c.num_heads          # this rank's (tp: H / tp)
+        self.tp = None
+
+    # the fused qkv weight is read here, not through its layer
+    GATHER_CHILDREN = ("qkv",)
+
+    def tp_linears(self) -> dict:
+        """{layer: (vast_tpu's owner name, runs)}: the layers a tp split
+        cuts (``parallel.mesh.combined_param_sharding``)."""
+        if self.cfg.subln:
+            return {n: (n, 1) for n in ("q_proj", "k_proj", "v_proj",
+                                        "proj")}
+        return {"qkv": ("qkv", 3), "proj": ("proj", 1)}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.cfg.num_heads % tp == 0
+
+    def tp_partial_params(self) -> list:
+        out = ["q_bias", "v_bias"] if self.cfg.qkv_bias else []
+        if self.cfg.subln:
+            out += ["inner_attn_ln.weight", "inner_attn_ln.bias"]
+        return out
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
+        self.heads = self.cfg.num_heads // tp.size
+
+    def _rows(self, n: int):
+        return slice(None) if self.tp is None else self.tp.block(n)
 
     def _biases(self, like):
         if self.cfg.qkv_bias:
-            return self.q_bias, self.v_bias
+            rows = self._rows(self.q_bias.shape[0])
+            return self.q_bias[rows], self.v_bias[rows]
         zero = torch.zeros(like.shape[0] // 3, dtype=like.dtype,
                            device=like.device)
         return zero, zero
 
     def fused_qkv(self):
-        """(H*3*D, W) weight and (H*3*D,) bias in the kernel's layout."""
+        """(H*3*D, W) weight and (H*3*D,) bias in the kernel's layout, of
+        this rank's heads."""
         c = self.cfg
         w = self.qkv.weight
         qb, vb = self._biases(w)
@@ -173,22 +217,27 @@ class EvaAttention(nn.Module):
         def build():
             wq, wk, wv = w.chunk(3, dim=0)
             return fuse_qkv(wq, wk, wv, qb, torch.zeros_like(qb), vb,
-                            c.num_heads, q_scale=c.head_width ** -0.5)
-        return self._fused.get((w, qb, vb), build)
+                            self.heads, q_scale=c.head_width ** -0.5)
+        key = [w] + ([self.q_bias, self.v_bias] if c.qkv_bias else [])
+        return self._fused.get(key, build)
 
     def forward(self, x, rope_angles=None):
         c = self.cfg
         if not c.subln:
+            # the column-parallel region of the fused projection (the
+            # separate projections are column-parallel layers themselves)
+            x = tpl.copy_to(x, self.tp)
             w, b = self.fused_qkv()
             y = F.linear(x, w.to(x.dtype), b.to(x.dtype))  # (B, L, H*3*D)
-            out = self_attention_tmajor(y, heads=c.num_heads)
+            out = self_attention_tmajor(y, heads=self.heads)
             return self.proj(out)
         bsz, l, _ = x.shape
-        h, d = c.num_heads, c.head_width
+        h, d = self.heads, c.head_width
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         if c.qkv_bias:
-            q = q + self.q_bias.to(q.dtype)
-            v = v + self.v_bias.to(v.dtype)
+            qb, vb = self._biases(q)
+            q = q + qb.to(q.dtype)
+            v = v + vb.to(v.dtype)
         q, k, v = (t.view(bsz, l, h, d) for t in (q, k, v))
         if rope_angles is not None:
             # the patch tokens only; the cls token is not rotated
@@ -196,7 +245,9 @@ class EvaAttention(nn.Module):
             q = torch.cat([q[:, :1], apply_rope(q[:, 1:], rope_angles)], 1)
             k = torch.cat([k[:, :1], apply_rope(k[:, 1:], rope_angles)], 1)
         out = multi_head_attention(q, k, v, scale=d ** -0.5)
-        return self.proj(self.inner_attn_ln(out.reshape(bsz, l, h * d)))
+        out = tpl.layer_norm(out.reshape(bsz, l, h * d), self.inner_attn_ln,
+                             self.tp)
+        return self.proj(out)
 
 
 class EvaMlp(nn.Module):
@@ -204,6 +255,9 @@ class EvaMlp(nn.Module):
         super().__init__()
         fk = dict(device=device, dtype=c.pdtype)
         hidden = int(c.width * c.mlp_ratio)
+        self.hidden = hidden
+        self.gelu_approx = c.gelu_approx
+        self.tp = None
         self.swiglu = c.swiglu
         if c.swiglu:
             self.w1 = layers.Linear(c.width, hidden, **fk)
@@ -217,13 +271,27 @@ class EvaMlp(nn.Module):
         else:
             self.fc2 = layers.Linear(hidden, c.width, **fk)
 
+    def tp_linears(self) -> dict:
+        names = ("w1", "w2", "w3") if self.swiglu else ("fc1", "fc2")
+        return {n: (n, 1) for n in names}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.hidden % tp == 0
+
+    def tp_partial_params(self) -> list:
+        return [] if self.ffn_ln is None else ["ffn_ln.weight",
+                                               "ffn_ln.bias"]
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
+
     def forward(self, x):
         if self.swiglu:
             x = F.silu(self.w1(x)) * self.w2(x)
         else:
-            x = gelu(self.fc1(x))
+            x = gelu(self.fc1(x), approximate=self.gelu_approx)
         if self.ffn_ln is not None:
-            x = self.ffn_ln(x)
+            x = tpl.layer_norm(x, self.ffn_ln, self.tp)
         return self.w3(x) if self.swiglu else self.fc2(x)
 
 

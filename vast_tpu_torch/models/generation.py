@@ -107,7 +107,8 @@ def generate(model, cond_feats, cfg: GenerationConfig, prompt_ids=None,
     cross_kv = bert.precompute_cross_kv(cond_feats)
 
     # the prefill writes the prompt's K/V under the bidirectional mask
-    cache = init_cache(bert.cfg, b, total, device=dev)
+    cache = init_cache(bert.cfg, b, total, device=dev,
+                       heads=bert.bert.encoder.layer[0].attention.heads)
     m3 = torch.nn.functional.pad(_prefill_mask(prompt_mask),
                                  (0, total - p))
     _, cache = bert.bert(prompt_ids, cache=cache, cache_index=0,

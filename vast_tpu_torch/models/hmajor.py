@@ -40,7 +40,13 @@ class FusedCache:
     """Holds a value derived from some parameters; rebuilds it when any of
     them was written to, moved or re-typed since the last build. While
     autograd records, it builds the value afresh and keeps nothing: a
-    cached value would carry no gradient to the parameters."""
+    cached value would carry no gradient to the parameters.
+
+    A parameter split over fsdp (``parallel/fsdp.py``) is read as a
+    whole tensor gathered anew for each forward, perhaps at the address
+    and version of the last one: the key is then that of the part the
+    rank stores (``_vast_shard``), which an optimizer step or a restore
+    writes to."""
 
     def __init__(self):
         self._key = None
@@ -49,8 +55,9 @@ class FusedCache:
     def get(self, params, build):
         if torch.is_grad_enabled():
             return build()
+        stored = [getattr(p, "_vast_shard", p) for p in params]
         key = tuple((p._version, p.data_ptr(), p.dtype, p.device)
-                    for p in params)
+                    for p in stored)
         if key != self._key:
             with torch.no_grad():
                 self._value = build()

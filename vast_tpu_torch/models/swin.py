@@ -225,6 +225,10 @@ class SwinPatchEmbed(nn.Module):
 
 
 class SwinTransformer(nn.Module):
+    # tensor parallelism splits EVA, BEATs and BERT only
+    tp_unported = ("tensor parallelism (tp > 1) of the Swin tower "
+                   "is not ported: ROADMAP.md queue 1 item 9")
+
     def __init__(self, c: SwinConfig, device=None):
         super().__init__()
         fk = dict(device=device, dtype=c.pdtype)

@@ -42,6 +42,7 @@ as ``audio_embeddings.*`` + ``audio_encoder.*``), so a released VAST
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
@@ -222,6 +223,21 @@ def _tower_config(cls, d: dict, sub: dict):
     return cls(**{k: v for k, v in d.items() if k in fields}, **sub)
 
 
+def _entry(fn):
+    """An entry point of ``VASTModel``: under parameter sharding
+    (``parallel/fsdp.py``) it runs with the model's own split parameters
+    gathered (``gather_own``, set by ``shard_state``)."""
+
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        gather = self.__dict__.get("gather_own")
+        if gather is None:
+            return fn(self, *args, **kwargs)
+        with gather():
+            return fn(self, *args, **kwargs)
+    return run
+
+
 def label_smoothed_ce(logits, targets, smoothing: float):
     """Cross entropy with label smoothing, in fp32 (vast.py:180-187,
     torch ``F.cross_entropy`` semantics)."""
@@ -336,6 +352,9 @@ class VASTModel(nn.Module):
         self.audio_type_embeddings = nn.Parameter(torch.zeros(1, 1, md, **fk))
         self.subtitle_type_embeddings = nn.Parameter(
             torch.zeros(1, 1, md, **fk))
+        # the ranks that split the batch (training/step.py shard_state
+        # sets the mesh's data group; None: the default group)
+        self.data_group = None
 
     # ---------------- encoders ----------------
 
@@ -587,22 +606,25 @@ class VASTModel(nn.Module):
         batch); the condition sequences are gathered with their gradient
         (``GatherLayer``), the captions without. Under DDP's averaging
         over ranks, the mean of the ranks' losses and its gradient are
-        those of the global batch."""
+        those of the global batch. The ranks are those of
+        ``data_group`` (the mesh's dp x fsdp ranks; None: the world)."""
         c = self.cfg
         input_ids = batch[f"{text_stream}_tokens"]
         attention_mask = batch[f"{text_stream}_attention_mask"]
         bs = feat_t.shape[0]
         dev = feat_t.device
-        rows = parallel.rank() * bs + torch.arange(bs, device=dev)
+        group = self.data_group
+        rows = (parallel.group_rank(group) * bs
+                + torch.arange(bs, device=dev))
         temp = self.contra_temp.float()
-        feat_t_all = collectives.all_gather_detached(feat_t)
-        ids_all = collectives.all_gather_detached(input_ids)
-        mask_all = collectives.all_gather_detached(attention_mask)
+        feat_t_all = collectives.all_gather_detached(feat_t, group)
+        ids_all = collectives.all_gather_detached(input_ids, group)
+        mask_all = collectives.all_gather_detached(attention_mask, group)
         loss_itc, loss_itm = [], []
         for si, st in enumerate(subtasks):
             feat_cond = self.get_feature(batch, f"feat_{st[1:]}", cache,
                                          generator)
-            feat_cond_all = collectives.all_gather_detached(feat_cond)
+            feat_cond_all = collectives.all_gather_detached(feat_cond, group)
             sim_c2t = (feat_cond @ feat_t_all.T).float() / temp
             sim_t2c = (feat_t @ feat_cond_all.T).float() / temp
             loss_itc.append(
@@ -612,7 +634,7 @@ class VASTModel(nn.Module):
 
             cond = self.get_feature(batch, f"condition_feats_{st[1:]}",
                                     cache, generator)
-            cond_all = collectives.all_gather_with_grad(cond)
+            cond_all = collectives.all_gather_with_grad(cond, group)
             if "itm_neg_cond_idx" in batch:
                 neg_cond_idx = batch["itm_neg_cond_idx"][si]
                 neg_text_idx = batch["itm_neg_text_idx"][si]
@@ -672,8 +694,9 @@ class VASTModel(nn.Module):
         losses, and its gradient, are the global batch's sum over its
         count, as ``vast_tpu`` divides (ranks' counts may differ)."""
         count = (labels != IGNORE_LABEL).sum().float()
-        per_rank = (collectives.all_reduce_sum(count).clamp(min=1)
-                    / parallel.world())
+        group = self.data_group
+        per_rank = (collectives.all_reduce_sum(count, group).clamp(min=1)
+                    / parallel.group_size(group))
         losses = []
         for st in subtasks:
             cond = self.get_feature(batch, f"condition_feats_{st[1:]}",
@@ -733,12 +756,14 @@ class VASTModel(nn.Module):
         return {"loss_qa": self._mlm_losses(batch, subtasks, ids, att3,
                                             labels, generator, cache)}
 
+    @_entry
     def text_features(self, caption_tokens, caption_attention_mask):
         """feat_t for a text-only chunk (the evaluation path)."""
         batch = {"caption_tokens": caption_tokens,
                  "caption_attention_mask": caption_attention_mask}
         return self.get_feature(batch, "feat_t", {})
 
+    @_entry
     def condition_features(self, batch, subtasks):
         """{feat_cond_st, condition_feats_st} for the video/audio side."""
         cache, out = {}, {}
@@ -753,6 +778,7 @@ class VASTModel(nn.Module):
         logits = self.itm_head(fused[:, 0]).float()
         return torch.softmax(logits, dim=1)[:, 1]
 
+    @_entry
     def compute_slice_scores(self, condition_feats, input_ids,
                              attention_mask):
         """ITM softmax[:, 1] of each (text, condition) row pair."""
@@ -760,6 +786,7 @@ class VASTModel(nn.Module):
             input_ids, attention_mask,
             encoder_hidden_states=condition_feats))
 
+    @_entry
     def compute_slice_scores_grouped(self, condition_feats, input_ids,
                                      attention_mask):
         """ITM scores with per-candidate K/V reuse: ``input_ids`` (G*T, L)
@@ -769,6 +796,7 @@ class VASTModel(nn.Module):
         return self._itm_prob(self.multimodal_encoder.encode(
             input_ids, attention_mask, cross_kv=kv))
 
+    @_entry
     def forward(self, batch, task: str, compute_loss: bool = False,
                 generator: Optional[torch.Generator] = None):
         """The task heads of ``task`` (vast.py:762-810). ``generator``:

@@ -182,6 +182,10 @@ class VideoPatchEmbed(nn.Module):
 
 
 class VideoSwinTransformer(nn.Module):
+    # tensor parallelism splits EVA, BEATs and BERT only
+    tp_unported = ("tensor parallelism (tp > 1) of the VideoSwin tower "
+                   "is not ported: ROADMAP.md queue 1 item 9")
+
     def __init__(self, c: VideoSwinConfig, device=None, frames: int = 8,
                  image_size: int = 224):
         """Built for clips of ``frames`` frames at ``image_size`` pixels

@@ -3,10 +3,12 @@
 Counterpart of ``vast_tpu.parallel.collectives`` (collectives.py:81-145:
 ``gather_array``, ``sum_across_hosts``, ``gather_list``) and of the
 reference's utils/distributed.py:12-66 (``GatherLayer``,
-``concat_all_gather``), on ``torch.distributed``'s default group. Every
-one is built on ``all_gather`` and ``all_reduce`` alone, which gloo
-(CPU ranks, or CUDA ranks sharing a card) and NCCL both serve. Without
-a process group each is the identity. ``host_rows`` and
+``concat_all_gather``), over ``group`` (None: ``torch.distributed``'s
+default group; a sharded run passes its mesh's data group, the dp x fsdp
+ranks that split the batch: ``parallel.mesh.data_group``). Every one is
+built on ``all_gather`` and ``all_reduce`` alone, which gloo (CPU ranks,
+or CUDA ranks sharing a card) and NCCL both serve. Without a process
+group each is the identity. ``host_rows`` and
 ``assemble_addressable_rows`` have no counterpart: a rank's outputs are
 its own rows already.
 
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from vast_tpu_torch.parallel.mesh import active
+from vast_tpu_torch.parallel.mesh import active, group_rank, group_size
 
 # at most this many bytes a rank in one call of sum_across_hosts
 SUM_CHUNK_BYTES = 64 << 20
@@ -35,23 +37,23 @@ def _comm_device(t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def _all_gather(t: torch.Tensor) -> list[torch.Tensor]:
+def _all_gather(t: torch.Tensor, group=None) -> list[torch.Tensor]:
     """Every rank's ``t`` (same shape on every rank), in rank order."""
     t = t.contiguous()
-    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, t)
+    out = [torch.empty_like(t) for _ in range(group_size(group))]
+    dist.all_gather(out, t, group=group)
     return out
 
 
-def _gather_ragged(t: torch.Tensor) -> list[torch.Tensor]:
+def _gather_ragged(t: torch.Tensor, group=None) -> list[torch.Tensor]:
     """Every rank's ``t``, whose leading dims may differ: padded to the
     largest for the gather, each cut back to its own count."""
     count = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
-    counts = [int(c) for c in _all_gather(count)]
+    counts = [int(c) for c in _all_gather(count, group)]
     most = max(counts)
     if t.shape[0] < most:
         t = torch.cat([t, t.new_zeros((most - t.shape[0],) + t.shape[1:])])
-    return [p[:c] for p, c in zip(_all_gather(t), counts)]
+    return [p[:c] for p, c in zip(_all_gather(t, group), counts)]
 
 
 def _as_tensor(x):
@@ -63,7 +65,7 @@ def _as_tensor(x):
     return t.to(_comm_device(t)), lambda t: t.cpu().numpy()
 
 
-def gather_array(x):
+def gather_array(x, group=None):
     """Concatenate every rank's ``x`` along axis 0, in rank order; the
     ranks' row counts may differ (ragged: an evaluation shard trimmed of
     its ``padded_tail``), as the reference's ``ddp_allgather``
@@ -71,10 +73,10 @@ def gather_array(x):
     if not active():
         return x
     t, back = _as_tensor(x)
-    return back(torch.cat(_gather_ragged(t)))
+    return back(torch.cat(_gather_ragged(t, group)))
 
 
-def gather_list(items: list) -> list:
+def gather_list(items: list, group=None) -> list:
     """Concatenate every rank's list of JSON-serialisable items, in rank
     order: each list travels as UTF-8 JSON, padded to the longest."""
     if not active():
@@ -82,12 +84,12 @@ def gather_list(items: list) -> list:
     payload = np.frombuffer(json.dumps(items).encode("utf-8"), np.uint8)
     t, _ = _as_tensor(payload.copy())
     out: list = []
-    for part in _gather_ragged(t):
+    for part in _gather_ragged(t, group):
         out.extend(json.loads(bytes(part.cpu().numpy()).decode("utf-8")))
     return out
 
 
-def sum_across_hosts(x):
+def sum_across_hosts(x, group=None):
     """Elementwise sum of every rank's ``x`` (the same shape on each):
     the merge of disjoint partial results, such as each rank's share of
     the rerank's score matrix (``evaluation_mm.rerank_scores``), zero
@@ -100,32 +102,31 @@ def sum_across_hosts(x):
     rows = max(1, SUM_CHUNK_BYTES // row)
     for s in range(0, t.shape[0], rows):
         part = t[s:s + rows]
-        dist.all_reduce(part)
+        dist.all_reduce(part, group=group)
     return back(t)
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """The sum of ``t`` over the ranks (a new tensor; no gradient)."""
     out = t.detach().clone()
     if active():
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
     return out
 
 
-def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
+def all_reduce_mean(t: torch.Tensor, group=None) -> torch.Tensor:
     """The mean of ``t`` over the ranks (a new tensor; no gradient)."""
-    out = all_reduce_sum(t)
-    return out / dist.get_world_size() if active() else out
+    return all_reduce_sum(t, group) / group_size(group)
 
 
 @torch.no_grad()
-def all_gather_detached(t: torch.Tensor) -> torch.Tensor:
+def all_gather_detached(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``t`` concatenated along axis 0, carrying no
     gradient: the reference's ``concat_all_gather``. The ranks' shapes
     must be equal."""
     if not active():
         return t.detach()
-    return torch.cat(_all_gather(t.detach()))
+    return torch.cat(_all_gather(t.detach(), group))
 
 
 class _GatherWithGrad(torch.autograd.Function):
@@ -134,19 +135,21 @@ class _GatherWithGrad(torch.autograd.Function):
     over the ranks and returns this rank's slice."""
 
     @staticmethod
-    def forward(ctx, t):
-        return torch.cat(_all_gather(t))
+    def forward(ctx, t, group):
+        ctx.group = group
+        return torch.cat(_all_gather(t, group))
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        return grad.chunk(dist.get_world_size())[dist.get_rank()]
+        dist.all_reduce(grad, group=ctx.group)
+        return (grad.chunk(group_size(ctx.group))[group_rank(ctx.group)],
+                None)
 
 
-def all_gather_with_grad(t: torch.Tensor) -> torch.Tensor:
+def all_gather_with_grad(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``t`` concatenated along axis 0, with the gradient of
     this rank's rows summed over every rank's use of them."""
     if not active():
         return t
-    return _GatherWithGrad.apply(t)
+    return _GatherWithGrad.apply(t, group)

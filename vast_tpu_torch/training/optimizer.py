@@ -39,6 +39,14 @@ Swin's ``relative_position_bias_table``, BEATs'
 ``pos_conv`` bias (JAX ``pos_conv_bias``), BERT's
 ``cls.predictions.bias`` (JAX ``decoder_bias``), embeddings and
 ``contra_temp`` are decayed.
+
+Under parameter sharding (``reshard``, from ``training.step.
+shard_state``) each rank steps its parts of the parameters with moments
+of the same parts; the clipping norm is that of the whole gradient
+(``ShardedParams.global_norm``: each element counted once, as
+``vast_tpu``'s ``clip_by_global_norm`` sees the whole tree), and
+``state_dict`` / ``load_state_dict`` keep the reference names and whole
+shapes, gathered on save and split again on load.
 """
 
 from __future__ import annotations
@@ -138,25 +146,48 @@ class GroupedAdam:
         self.mini_step = 0      # micro-batches accumulated toward the next
         self.acc = ({n: torch.zeros_like(p) for n, p in self.params.items()}
                     if self.accum > 1 else None)
+        self.sharding = None
+
+    def _tensors(self):
+        return ("mu", "nu") + (("acc",) if self.acc is not None else ())
+
+    @torch.no_grad()
+    def reshard(self, sharding) -> None:
+        """The parameters were split (``shard_state``): keep this rank's
+        part of each moment and of the running mean."""
+        self.sharding = sharding
+        for key in self._tensors():
+            mine = getattr(self, key)
+            for n in mine:
+                mine[n] = sharding.split(n, mine[n]).clone()
 
     def state_dict(self) -> dict:
         """What a resumed run needs to continue exactly: the moments, the
         update count (the schedule's position) and the accumulation
-        window's micro-batch count and mean gradient."""
-        return {"mu": self.mu, "nu": self.nu, "count": self.count,
-                "mini_step": self.mini_step, "acc": self.acc}
+        window's micro-batch count and mean gradient; whole tensors under
+        sharding (every rank calls it)."""
+        out = {"count": self.count, "mini_step": self.mini_step, "acc": None}
+        for key in self._tensors():
+            out[key] = {n: (t if self.sharding is None
+                            else self.sharding.full(n, t))
+                        for n, t in getattr(self, key).items()}
+        return out
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         """Copy ``state`` (:meth:`state_dict`'s form) into this optimizer's
-        tensors, in their dtypes and on their device."""
-        for key in ("mu", "nu") + (("acc",) if self.acc is not None else ()):
+        tensors, in their dtypes and on their device; under sharding this
+        rank's parts of the whole tensors."""
+        for key in self._tensors():
             mine, theirs = getattr(self, key), state[key]
             if theirs is None or set(theirs) != set(mine):
                 raise ValueError(f"optimizer state {key!r} does not match "
                                  f"the model's trainable parameters")
             for n, t in mine.items():
-                t.copy_(theirs[n])
+                src = theirs[n].to(t.device)
+                if self.sharding is not None:
+                    src = self.sharding.split(n, src)
+                t.copy_(src)
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
 
@@ -207,7 +238,8 @@ class GroupedAdam:
             for a in self.acc.values():
                 a.zero_()
         if self.max_norm is not None and self.max_norm > 0:
-            norm = global_norm(grads.values())
+            norm = (global_norm(grads.values()) if self.sharding is None
+                    else self.sharding.global_norm(grads))
             if not bool(norm < self.max_norm):
                 for g in grads.values():
                     g.copy_(g / norm.to(g.dtype) * self.max_norm)

@@ -33,7 +33,17 @@ and streams sharded by rank, validation sets rank-sharded with a
 (``training/step.py``) with the rank folded into its generator, and
 evaluates with gathers (``evaluation_mm``); rank 0 alone writes the file
 log, the checkpoints and the profiler trace, and each rank logs one
-summary line at the end. ``fsdp`` and ``tp`` are not ported and raise.
+summary line at the end.
+
+Parameter sharding (``train(..., mesh=create_mesh(dp, fsdp, tp))``, as
+``vast_tpu``'s ``train(mesh=)``): ``shard_state`` splits the state by
+``run_cfg.fsdp`` / ``run_cfg.tp`` before a resume is restored into it
+(pipeline.py:176-205 of ``vast_tpu``); the ranks of the mesh's data
+group (dp x fsdp) each load their rows, and the ranks of a tp group the
+same rows (pass the mesh to ``create_train_dataloaders`` and
+``create_val_dataloaders``). With no mesh and a world above one,
+``train`` builds ``create_mesh()``, which is dp only, so the CLI's
+``fsdp`` / ``tp`` flags change nothing there, as in ``vast_tpu``.
 
 ``timings``, where a caller passes a dict, receives seconds per stage:
 ``train_loader_wait`` (blocked on the loader), ``train_step``
@@ -63,10 +73,12 @@ from vast_tpu_torch.evaluation.evaluation_mm import evaluate_mm
 from vast_tpu_torch.logger import LOGGER, RunningMeter, add_log_to_file
 from vast_tpu_torch.models.vast import VASTConfig, VASTModel
 from vast_tpu_torch.ops import flash_attention as fa
+from vast_tpu_torch.parallel.mesh import create_mesh, data_group
 from vast_tpu_torch.training.optimizer import build_optimizer
 from vast_tpu_torch.training.saver import ModelSaver
 from vast_tpu_torch.training.step import (create_train_state,
-                                          data_parallel, make_train_step)
+                                          data_parallel, make_train_step,
+                                          shard_state)
 
 
 def initialize(opts) -> None:
@@ -111,17 +123,24 @@ def init_params(model: VASTModel, opts) -> VASTModel:
     return init_random_(model, gen)
 
 
-def create_train_dataloaders(opts, tokenizer) -> MetaLoader:
+def _data_rank(mesh):
+    """(this rank's index, size) in the group that splits the batch: the
+    mesh's data group, or the world."""
+    group = data_group(mesh)
+    return parallel.group_rank(group), parallel.group_size(group)
+
+
+def create_train_dataloaders(opts, tokenizer, mesh=None) -> MetaLoader:
     """The MetaLoader over ``data_cfg.train`` (vast_tpu pipeline.py:
     117-149) for this rank: a ``BatchLoader`` for an annotation set, a
     ``StreamBatchLoader`` for a ``srcindexed`` stream, which must give
     its ``steps`` and counts as ``STREAM_LENGTH`` samples; each sharded
-    by rank, at the batch ``batch_size // gradient_accumulation_steps //
-    world``. The task draw is seeded by ``seed`` alone, the same on every
-    rank."""
+    by the rank in ``mesh``'s data group (None: the world), at the batch
+    ``batch_size // gradient_accumulation_steps // that group's size``.
+    The task draw is seeded by ``seed`` alone, the same on every rank."""
     run_cfg = opts.run_cfg
     accum = run_cfg.get("gradient_accumulation_steps", 1)
-    rank, world = parallel.rank(), parallel.world()
+    rank, world = _data_rank(mesh)
     loaders, lengths = {}, []
     for d_cfg in opts.data_cfg.train:
         stream = d_cfg["type"] == "srcindexed"
@@ -148,11 +167,12 @@ def create_train_dataloaders(opts, tokenizer) -> MetaLoader:
                       seed=run_cfg.get("seed", 50))
 
 
-def create_val_dataloaders(opts, tokenizer) -> dict:
-    """This rank's shard of each validation set, at ``batch_size //
-    world``, padded to equal lengths (``padded_tail``; vast_tpu
+def create_val_dataloaders(opts, tokenizer, mesh=None) -> dict:
+    """This rank's shard of each validation set (by its rank in
+    ``mesh``'s data group; None: the world), at ``batch_size // that
+    group's size``, padded to equal lengths (``padded_tail``; vast_tpu
     pipeline.py:152-163)."""
-    rank, world = parallel.rank(), parallel.world()
+    rank, world = _data_rank(mesh)
     loaders = {}
     for d_cfg in opts.data_cfg.val:
         ds = data_registry[d_cfg["type"]](d_cfg, opts, tokenizer)
@@ -221,31 +241,37 @@ def _device_batches(batches, device, timings=None):
 
 
 def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
-          state=None, start_step: int = 0, timings: dict | None = None):
+          state=None, start_step: int = 0, timings: dict | None = None,
+          mesh=None):
     """The train loop. ``state``: a ``TrainState`` of ``model`` (None:
     fresh parameters from ``init_params`` and a new optimizer).
-    Returns ``(state, metric_logger_dict)``."""
+    ``mesh``: a ``create_mesh(dp, fsdp, tp)`` mesh (None: ``create_mesh()``
+    in a world above one). Returns ``(state, metric_logger_dict)``."""
     run_cfg = opts.run_cfg
-    for key in ("fsdp", "tp"):
-        if run_cfg.get(key):
-            raise NotImplementedError(f"run_cfg.{key}: parameter sharding "
-                                      f"is not ported (data parallel only)")
     num_steps = run_cfg.num_train_steps
     device = model.device
+    if mesh is None and parallel.world() > 1:
+        mesh = create_mesh()
     if state is None:
         init_params(model, opts)
         opt, _ = build_optimizer(model, run_cfg, opts.model_cfg, num_steps)
         state = create_train_state(model, opt)
-    rank = parallel.rank()
+    if mesh is not None:
+        state = shard_state(mesh, state, fsdp=run_cfg.get("fsdp", False),
+                            tp=run_cfg.get("tp", False), opt=state.opt)
+    # each rank's draws are its rows': tp peers share them
+    rank, _ = _data_rank(mesh)
 
     saver = ModelSaver(run_cfg.output_dir,
                        run_cfg.get("remove_before_ckpt", True))
     if run_cfg.get("resume") and start_step == 0:
+        # after shard_state, so that the moments land on the parts
         state, start_step = saver.restore_latest(state)
 
     if run_cfg.get("first_eval") or run_cfg.get("zero_shot"):
         eval_log = evaluate_mm(model, tokenizer, val_loaders, run_cfg,
-                               start_step, device=device, timings=timings)
+                               start_step, device=device, timings=timings,
+                               mesh=mesh)
         for task_name, val_log in eval_log.items():
             for eval_name, metric in val_log.items():
                 LOGGER.info("eval %s_%s @ step %d: %s", task_name,
@@ -253,8 +279,12 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
         if run_cfg.get("zero_shot"):
             return state, {}
 
-    ddp = data_parallel(model) if parallel.active() else None
-    ddp_kw = {} if ddp is None else {"ddp": ddp}
+    ddp, step_kw = None, {}
+    if state.sharding is not None:
+        step_kw = {"sharding": state.sharding}
+    elif mesh is not None and parallel.group_size(data_group(mesh)) > 1:
+        ddp = data_parallel(model, data_group(mesh))
+        step_kw = {"ddp": ddp}
     step_fns, meters = {}, {}
     # the summary's last fetched losses and step seconds
     fetched, step_s = deque(maxlen=100), deque(maxlen=100)
@@ -277,7 +307,7 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
         if (task, vt) not in step_fns:
             step_fns[task, vt] = make_train_step(model, state.opt, task,
                                                  vision_transforms=vt,
-                                                 **ddp_kw)
+                                                 **step_kw)
         if ready is not None:
             cur = torch.cuda.current_stream(device)
             cur.wait_event(ready)
@@ -333,7 +363,7 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
                 global_step >= num_steps:
             eval_log = evaluate_mm(model, tokenizer, val_loaders, run_cfg,
                                    global_step, device=device,
-                                   timings=timings)
+                                   timings=timings, mesh=mesh)
             for task_name, val_log in eval_log.items():
                 for eval_name, metric in val_log.items():
                     eval_name = f"{task_name}_{eval_name}"
@@ -368,7 +398,22 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
                          grad_allreduce_s=comm.get("avg_backward_comm_time",
                                                    0) / 1e9,
                          grad_allreduce_steps=comm.get("iteration", 0))
+    elif state.sharding is not None:
+        log_rank_summary("train", losses=list(fetched), step_s=list(step_s),
+                         **shard_bytes(state))
     return state, metric_logger_dict
+
+
+def shard_bytes(state) -> dict:
+    """This rank's bytes of parameters and of optimizer moments (and of
+    the accumulation window's running mean)."""
+    opt = state.opt
+    moments = [t for key in ("mu", "nu", "acc")
+               for t in (getattr(opt, key) or {}).values()]
+    return {"param_bytes": sum(p.numel() * p.element_size()
+                               for p in state.model.parameters()),
+            "moment_bytes": sum(t.numel() * t.element_size()
+                                for t in moments)}
 
 
 def log_rank_summary(kind: str, **fields) -> None:
@@ -388,9 +433,16 @@ def log_rank_summary(kind: str, **fields) -> None:
 
 
 def test(model: VASTModel, opts, tokenizer, val_loaders,
-         timings: dict | None = None) -> dict:
+         timings: dict | None = None, mesh=None) -> dict:
+    """Evaluate ``model`` (sharded or whole) over ``val_loaders``.
+    ``mesh``: as ``train``'s (None: ``create_mesh()`` in a world above
+    one); the loaders must split the rows over its data group."""
+    if mesh is None and parallel.world() > 1:
+        mesh = create_mesh()
+    if mesh is not None:
+        model.data_group = data_group(mesh)
     eval_log = evaluate_mm(model, tokenizer, val_loaders, opts.run_cfg, 0,
-                           device=model.device, timings=timings)
+                           device=model.device, timings=timings, mesh=mesh)
     for task_name, val_log in eval_log.items():
         for eval_name, metric in val_log.items():
             LOGGER.info("eval %s_%s: %s", task_name, eval_name, metric)

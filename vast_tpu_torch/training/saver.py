@@ -17,7 +17,10 @@ false, and with ``save_best`` copies the model file to
 a temporary name and renamed, so a cut run leaves no partial checkpoint.
 In a data-parallel run rank 0 alone writes (the bare module's state, the
 same on every rank) while the others wait at a barrier, and every rank
-restores.
+restores. A sharded state (``training.step.shard_state``) writes the
+same files as an unsharded one: every rank joins the gathers of the
+whole tensors (reference names and shapes, EVA01's ``qkv`` in reference
+row order), rank 0 writes them; a restore splits them again.
 """
 
 from __future__ import annotations
@@ -58,14 +61,24 @@ class ModelSaver:
 
     def save(self, state, step: int, best_indicator: dict | None = None,
              save_best: bool = False) -> None:
-        if parallel.is_main():
-            self._write(state, step, best_indicator, save_best)
+        main = parallel.is_main()
+        sh = getattr(state, "sharding", None)
+        if sh is not None:
+            # every rank gathers; rank 0 keeps and writes
+            model_sd = sh.full_state_dict(keep=main)
+            opt_sd = state.opt.state_dict()
+        elif main:
+            model_sd, opt_sd = state.model.state_dict(), state.opt.state_dict()
+        if main:
+            self._write(model_sd, opt_sd, state.step, step, best_indicator,
+                        save_best)
         parallel.barrier()
 
-    def _write(self, state, step, best_indicator, save_best) -> None:
+    def _write(self, model_sd, opt_sd, state_step, step, best_indicator,
+               save_best) -> None:
         prev = self.latest_step()
-        _save(state.model.state_dict(), self.path("model", step))
-        _save({"step": state.step, "optimizer": state.opt.state_dict()},
+        _save(model_sd, self.path("model", step))
+        _save({"step": state_step, "optimizer": opt_sd},
               self.path("optimizer", step))
         if save_best and best_indicator:
             for metric, is_best in best_indicator.items():
@@ -95,9 +108,13 @@ class ModelSaver:
         if step is None:
             return state, 0
         device = next(state.model.parameters()).device
-        state.model.load_state_dict(torch.load(
-            self.path("model", step), map_location=device,
-            weights_only=True))
+        model_sd = torch.load(self.path("model", step), map_location=device,
+                              weights_only=True)
+        sh = getattr(state, "sharding", None)
+        if sh is None:
+            state.model.load_state_dict(model_sd)
+        else:
+            sh.load_full_state_dict(model_sd)
         saved = torch.load(self.path("optimizer", step), map_location=device,
                            weights_only=True)
         state.opt.load_state_dict(saved["optimizer"])
