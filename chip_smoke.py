@@ -168,11 +168,11 @@ exits non-zero with no result line:
               launches no kernel (BERT's attentions take the plain route).
 17. cli_cap_tvas (after cli_ret_tvas, over its clips) - the port's CLI
               on the released caption-msrvtt.json (cap%tvas), reduced as
-              cli_ret_tvas is but to 2 steps at a learning rate of 1e-6
+              cli_ret_tvas is but to 1 step at a learning rate of 1e-6
               (at 1e-4 the captions turn empty): first_eval at step 0, an
-              evaluation and a save after each step, then ``--mode
-              testing`` from model_step_2.pt, whose captions and metrics
-              must equal the run's at step 2. The losses exactly
+              evaluation and a save after the step, then ``--mode
+              testing`` from model_step_1.pt, whose captions and metrics
+              must equal the run's at step 1. The losses exactly
               {loss_cap, total_loss}; per step 52 forwards and 52
               backwards on the Hopper bodies, given the lse; per
               evaluation 40 + 12 token-major forwards a batch and no
@@ -250,13 +250,28 @@ exits non-zero with no result line:
               the plan gives them, its towers on their tp heads (EVA01-g
               8, BEATs 6, BERT 6), rows 1-4 as one rank launches them;
               step seconds and peak memory per rank.
-25. remat_offload (after shard_step) - ddp_step's model and batch in one
+25. shard_towers (after shard_step) - the towers split over tp last:
+              CLIP-L/14-336 + AST (8 and 4 layers), VideoSwin + BEATs and
+              Swin-B + BEATs (two blocks a stage, every stage; BEATs 4
+              layers), each with 4 BERT layers, full width, fp32, 'attn',
+              one ret%tva step of ddp_batch (336 px for CLIP): a world of
+              one under NCCL (the reference), then four spawned ranks
+              over gloo on create_mesh(dp=1, fsdp=2, tp=2) (and over NCCL
+              on four cards where the machine has them). Losses, every
+              gradient and parameter within ddp_step's tolerances; every
+              rank's losses equal, its bytes as planned, its towers on
+              their tp heads by stage, its launches (rows 2, 4, 5, 7-9,
+              the fp32 entries) as one rank's at those heads; CLIP +
+              AST's evaluate_ret over 16 clips (the rerank: row 6 at 640
+              x 4873, 6 heads) with ITC and ITM scores within 2^-8 of the
+              reference's largest entry.
+26. remat_offload (after shard_towers) - ddp_step's model and batch in one
               process, one forward and backward under 'attn',
               'attn_offload', 'dots' and 'dots_offload': each offload
               policy's losses and gradients against its policy's within
               ddp_step's tolerances, the bytes its cache moved to pinned
               host memory, its peak device memory lower.
-26. shard_train (last, over cli_ret_tvas' clips) - pipeline.train with
+27. shard_train (last, over cli_ret_tvas' clips) - pipeline.train with
               mesh=create_mesh(dp=1, fsdp=2, tp=2) in four spawned ranks
               over gloo: the released retrieval-msrvtt.json with
               run_cfg.fsdp and tp at ddp_step's depth, bf16, 3 steps of
@@ -273,7 +288,8 @@ Then the seconds of every phase (``{"phase_seconds": {...}}``), the
 counted run: the slice for forwards, the train step for lse forwards and
 backwards, the probe's run for its two kernels, the CLI's training run
 for the 16-frame rerank, the towers' slice and train runs for their
-shapes, the pretraining run for its rerank; 0 for the rows no path
+shapes, the pretraining run for its rerank, rank 0 of shard_train and
+of shard_towers for a tp rank's heads; 0 for the rows no path
 reaches; each row names its bf16 body and its launches on the other new
 paths) and, last, the ``{"ok": true,
 ...}`` line. Imports nothing of JAX or of ``vast_tpu``.
@@ -495,6 +511,48 @@ KERNELS = [
          views="token_major", b=RERANK_CANDS,
          lq=TVAS_RERANK_TEXTS * TEXT_LEN, lk=TVAS_COND_TOKENS, h=6, d=64,
          scale=0.125, bias=False),
+    # the towers' tp split (phase shard_towers, fp32 there): a tp rank's
+    # heads (CLIP-L/14-336's 8 of 16, AST's 6 of 12, VideoSwin's first
+    # stage's 2 of 4, BERT's 6 of 12) on its data rank's 4 clips (8
+    # frames each; VideoSwin's 64 windows a clip); CLIP + AST's rerank
+    # of 16 texts a candidate over 8 x 577 + 257 = 4873 condition tokens
+    dict(turns=False, name="flash_attention_fwd", at="clip_l14_336_tp2",
+         path="shard_towers", replaces=f"{PALLAS}:87", layout="hmajor",
+         views="packed", b=SHARD_CLIPS * FRAMES, lq=577, lk=577, h=8, d=64,
+         scale=0.125, bias=False),
+    dict(turns=False, name="flash_attention_fwd_lse", at="clip_l14_336_tp2",
+         path="shard_towers", replaces=f"{PALLAS}:52", layout="hmajor",
+         views="packed", lse=True, b=SHARD_CLIPS * FRAMES, lq=577, lk=577,
+         h=8, d=64, scale=0.125, bias=False),
+    dict(turns=False, name="flash_attention_bwd", at="clip_l14_336_tp2",
+         path="shard_towers", replaces=f"{PALLAS}:372",
+         replaces_also=[f"{PALLAS}:451"], layout="hmajor_bwd",
+         views="packed", b=SHARD_CLIPS * FRAMES, lq=577, lk=577, h=8, d=64,
+         scale=0.125, bias=False),
+    dict(turns=False, name="flash_attention_fwd", at="ast_tp2",
+         path="shard_towers", replaces=f"{PALLAS}:87", layout="hmajor",
+         views="token_major", b=SHARD_CLIPS, lq=257, lk=257, h=6, d=64,
+         scale=0.125, bias=False),
+    dict(turns=False, name="flash_attention_fwd_lse", at="ast_tp2",
+         path="shard_towers", replaces=f"{PALLAS}:52", layout="hmajor",
+         views="token_major", lse=True, b=SHARD_CLIPS, lq=257, lk=257, h=6,
+         d=64, scale=0.125, bias=False),
+    dict(turns=False, name="flash_attention_bwd", at="ast_tp2",
+         path="shard_towers", replaces=f"{PALLAS}:363", layout="hmajor_bwd",
+         views="token_major", b=SHARD_CLIPS, lq=257, lk=257, h=6, d=64,
+         scale=0.125, bias=False),
+    dict(turns=False, name="flash_attention_fwd_lse", at="videoswin_tp2",
+         path="shard_towers", replaces=f"{PALLAS}:52", layout="hmajor",
+         views="packed", lse=True, b=SHARD_CLIPS * 64, lq=392, lk=392, h=2,
+         d=32, scale=32 ** -0.5, bias=True),
+    dict(turns=False, name="flash_attention_bwd_dbias", at="videoswin_tp2",
+         path="shard_towers", replaces=f"{PALLAS}:321", layout="hmajor_bwd",
+         views="packed", b=SHARD_CLIPS * 64, lq=392, lk=392, h=2, d=32,
+         scale=32 ** -0.5, bias=True),
+    dict(turns=False, name="flash_attention_fwd", at="clip_ast_rerank_tp2",
+         path="shard_towers", replaces=f"{PALLAS}:137", layout="hmajor",
+         views="token_major", b=RERANK_CANDS, lq=CA_RERANK_TEXTS * TEXT_LEN,
+         lk=CA_COND_TOKENS, h=6, d=64, scale=0.125, bias=False),
     # the token-major layout probe's two kernels on its data (phase
     # tmajor_variants; lk is its lk_true): the fused layout through the
     # copy engine, and the section-major layout
@@ -2857,7 +2915,7 @@ def phase_cli_ret_tvas(torch, np, root, data_s):
 # is past the first's one-off costs)
 CLI_GEN = {
     "cap": {"config": "caption-msrvtt.json", "task": "cap%tvas",
-            "dset": "caption_msrvtt", "steps": 2, "loss": "loss_cap",
+            "dset": "caption_msrvtt", "steps": 1, "loss": "loss_cap",
             "max_new_tokens": 40,
             "metrics": ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR",
                         "ROUGE_L", "CIDEr")},
@@ -3492,8 +3550,9 @@ def ddp_config(torch):
                             hidden_dropout_prob=0.0, **sub))
 
 
-def ddp_batch(np):
-    """The global batch of ``BATCH`` clips (numpy): 8 frames at 224 px,
+def ddp_batch(np, resolution=224):
+    """The global batch of ``BATCH`` clips (numpy): 8 frames at
+    ``resolution`` px,
     1024 fbank frames of waveform, a padded caption and a 70-token
     subtitle; the ITM negatives injected as global indices that cross
     the ranks' halves."""
@@ -3507,8 +3566,9 @@ def ddp_batch(np):
     sub_mask = np.ones((BATCH, CLI_SUBTITLE_LEN), np.int32)
     sub_mask[::3, 50:] = 0
     return {
-        "vision_frames": rs.randint(0, 256, (BATCH, FRAMES, 224, 224, 3)
-                                    ).astype(np.uint8),
+        "vision_frames": rs.randint(
+            0, 256, (BATCH, FRAMES, resolution, resolution, 3)
+        ).astype(np.uint8),
         "audio_waveforms": (rs.randn(BATCH, wave) * 3000).astype(np.float32),
         "caption_tokens": rs.randint(1000, 20000, (BATCH, TEXT_LEN)
                                      ).astype(np.int32),
@@ -3524,6 +3584,7 @@ def ddp_group(name):
     """A parameter's group for the errors by group."""
     return next((g for p, g in (("vision_encoder.", "vision"),
                                 ("audio_encoder.", "audio"),
+                                ("audio_embeddings.", "audio"),
                                 ("multimodal_encoder.", "bert"))
                  if name.startswith(p)), "heads")
 
@@ -3586,7 +3647,8 @@ def ddp_model(torch, dev, cfg=None):
     well_conditioned(torch, model)
     opt, _ = build_optimizer(model, {"learning_rate": DDP_LR,
                                      "clip_lr": DDP_LR, "warmup_ratio": 0},
-                             {"vision_encoder_type": "evaclip01_giant"}, 10)
+                             {"vision_encoder_type":
+                              model.cfg.vision_encoder_type}, 10)
     return model, opt
 
 
@@ -3600,14 +3662,14 @@ def well_conditioned(torch, model):
                 mod.weight.add_(1.0)
 
 
-def ddp_rows(torch, np, rank, world, dev):
+def ddp_rows(torch, np, rank, world, dev, resolution=224):
     """Rank ``rank`` of ``world``'s rows of ``ddp_batch`` on ``dev``, the
     ITM negatives' columns alike."""
     b = BATCH // world
     return {k: torch.from_numpy(np.ascontiguousarray(
         v[:, rank * b:(rank + 1) * b] if k.startswith("itm_neg_")
         else v[rank * b:(rank + 1) * b])).to(dev)
-        for k, v in ddp_batch(np).items()}
+        for k, v in ddp_batch(np, resolution).items()}
 
 
 def ddp_step_run(torch, np, rank, world, dev, ref_path, save):
@@ -4066,8 +4128,8 @@ def phase_cli_ddp_ret_tvas(torch, np, root):
 SHARD_MESH = {"dp": 1, "fsdp": 2, "tp": 2}
 SHARD_WORLD = 4
 SHARD_STEPS = 3
-# a tp rank's heads of each tower (tp 2)
-SHARD_HEADS = {"vision": 8, "audio": 6, "bert": 6}
+# a tp rank's heads of each tower (tp 2; heads_by_stage)
+SHARD_HEADS = {"vision": [8], "audio": [6], "bert": [6]}
 # shard_train's bf16 score matrices, sharded against the unsharded
 # re-test, both on unit ranges (ITC: cosines of unit features; ITM: a
 # probability), where tp sums every projection's heads in another order:
@@ -4075,12 +4137,18 @@ SHARD_HEADS = {"vision": 8, "audio": 6, "bert": 6}
 SHARD_SCORE_ATOL = 2 ** -8
 
 
-def tower_heads(model):
-    """The heads each tower's first attention runs on this rank."""
-    return {"vision": model.vision_tower.blocks[0].attn.heads,
-            "audio": model.audio_encoder.encoder.layers[0].self_attn.heads,
-            "bert": model.multimodal_encoder.bert.encoder.layer[0]
-            .attention.heads}
+def heads_by_stage(model):
+    """The heads each attention runs on this rank: the vision tower's
+    first of each stage, the audio tower's first and BERT's first."""
+    def first(mod):
+        return next(m.heads for m in mod.modules()
+                    if hasattr(m, "tp_linears") and hasattr(m, "heads"))
+
+    vt = model.vision_tower
+    stages = vt.layers if hasattr(vt, "layers") else [vt]
+    return {"vision": [first(s) for s in stages],
+            "audio": [first(model.audio_encoder)],
+            "bert": [first(model.multimodal_encoder)]}
 
 
 def planned_bytes(state):
@@ -4137,7 +4205,7 @@ def shard_step_run(torch, np, rank, world, dev, ref_path):
            "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
            "metrics": {k: v.item() for k, v in metrics.items()},
-           "heads": tower_heads(model), "bytes": shard_bytes(state),
+           "heads": heads_by_stage(model), "bytes": shard_bytes(state),
            "planned": planned_bytes(state)}
     # every rank must hold the same parameters that stay whole (the
     # ranks of a tp group step them alike): a fingerprint each
@@ -4211,6 +4279,396 @@ def phase_shard_step(torch, np, tmp):
     return gloo[0]["launches"]
 
 
+# phase shard_towers: the towers whose tp split came last, each with
+# BERT-base, sharded as shard_step shards EVA01-g + BEATs: CLIP-L/14-336
+# + AST (DDP_DEPTH layers), VideoSwin and Swin-B + BEATs (two blocks a
+# stage, all four stages, so that every head count runs); four ranks on
+# SHARD_MESH against a world of one on the same seeded weights and
+# batch, fp32, 'attn', ddp_step's tolerances; CLIP + AST's evaluate_ret
+# on the mesh against the world of one
+SHARD_TOWERS = {
+    "clip_ast": dict(vision_encoder_type="clip_vit_large_14_336px",
+                     vision_resolution=336, audio_encoder_type="ast"),
+    "videoswin_beats": dict(vision_encoder_type="videoswin"),
+    "swin_beats": dict(vision_encoder_type="swin_base_22k_224"),
+}
+SHARD_STAGES = (2, 2, 2, 2)
+# a tp rank's heads (tp 2): the vision tower's by stage, the audio
+# tower's and BERT's
+SHARD_TOWER_HEADS = {
+    "clip_ast": {"vision": [8], "audio": [6], "bert": [6]},
+    "videoswin_beats": {"vision": [2, 4, 8, 16], "audio": [6], "bert": [6]},
+    "swin_beats": {"vision": [2, 4, 8, 16], "audio": [6], "bert": [6]},
+}
+# CLIP + AST's evaluation: 16 clips at 336 px in batches of SHARD_CLIPS
+# on each data rank, every text reranking every clip (16 texts a
+# candidate's segment: Lq 640 over CA_COND_TOKENS)
+SHARD_EVAL_CLIPS = 16
+
+
+def shard_towers_config(torch, name):
+    """``SHARD_TOWERS[name]`` at full width, fp32 parameters and compute,
+    'attn' checkpointing, no dropout: CLIP at ``DDP_DEPTH`` layers,
+    Swin-B and VideoSwin at ``SHARD_STAGES`` blocks, AST and BEATs at
+    ``DDP_DEPTH``'s audio layers, BERT-base at its layers."""
+    import dataclasses
+
+    from vast_tpu_torch.models.ast import AstConfig
+    from vast_tpu_torch.models.beats import BeatsConfig
+    from vast_tpu_torch.models.bert import BertConfig
+    from vast_tpu_torch.models.clip_vit import CLIP_PRESETS
+    from vast_tpu_torch.models.swin import SWIN_PRESETS
+    from vast_tpu_torch.models.vast import VASTConfig
+    from vast_tpu_torch.models.videoswin import VideoSwinConfig
+
+    f32 = torch.float32
+    sub = dict(dtype=f32, param_dtype=f32, remat=True, remat_policy="attn")
+    kw = SHARD_TOWERS[name]
+    vtype = kw["vision_encoder_type"]
+    if vtype in CLIP_PRESETS:
+        vision = dataclasses.replace(CLIP_PRESETS[vtype],
+                                     layers=DDP_DEPTH["vision"], **sub)
+    elif vtype in SWIN_PRESETS:
+        vision = dataclasses.replace(SWIN_PRESETS[vtype],
+                                     depths=SHARD_STAGES, **sub)
+    else:
+        vision = VideoSwinConfig(depths=SHARD_STAGES, **sub)
+    audio = (AstConfig(num_hidden_layers=DDP_DEPTH["audio"], **sub)
+             if kw.get("audio_encoder_type") == "ast"
+             else BeatsConfig(encoder_layers=DDP_DEPTH["audio"], **sub))
+    return VASTConfig(
+        dtype=f32, param_dtype=f32, checkpointing=True, remat_policy="attn",
+        max_subtitle_len=CLI_SUBTITLE_LEN, vision_cfg=vision,
+        audio_cfg=audio,
+        bert_cfg=BertConfig(num_hidden_layers=DDP_DEPTH["bert"],
+                            hidden_dropout_prob=0.0, **sub), **kw)
+
+
+def shard_towers_launches(name, data_ranks):
+    """What one rank launches (fp32: the mma.sync / CUDA-core entries):
+    the step's (one a layer or block for a forward with its lse and for
+    its backward; Swin's 49-token windows take the plain route) and, for
+    CLIP + AST, the evaluation's over its data rank's clips, by stage."""
+    v, a, bert = DDP_DEPTH["vision"], DDP_DEPTH["audio"], DDP_DEPTH["bert"]
+    beats = {"tmajor_attention_fwd_bias": a, "tmajor_attention_bwd_bias": a,
+             "tmajor_attention_bwd_lse": a}
+    blocks = sum(SHARD_STAGES)
+    step = {"clip_ast": {"flash_attention_fwd_lse": v + a,
+                         "flash_attention_bwd": v + a},
+            "videoswin_beats": beats | {"flash_attention_fwd_lse": blocks,
+                                        "flash_attention_bwd_dbias": blocks},
+            "swin_beats": beats}[name]
+    if name != "clip_ast":
+        return step, None
+    clips = SHARD_EVAL_CLIPS // data_ranks
+    batches, calls = clips // SHARD_CLIPS, clips // RERANK_CANDS
+    return step, {"vision": {"flash_attention_fwd": v * batches},
+                  "audio": {"flash_attention_fwd": a * batches},
+                  "rerank": {"flash_attention_fwd": bert * calls}}
+
+
+def shard_eval_batches(np, drank, dsize):
+    """This data rank's contiguous share of 16 synthetic clips at 336 px
+    (``synthetic_batches``), in batches of ``SHARD_CLIPS``."""
+    clips = synthetic_batches(np, 336)
+    whole = {k: (sum((b[k] for b in clips), []) if isinstance(b0, list)
+                 else np.concatenate([b[k] for b in clips]))
+             for k, b0 in clips[0].items()}
+    n = SHARD_EVAL_CLIPS // dsize
+    return [{k: v[i:i + SHARD_CLIPS] for k, v in whole.items()}
+            for i in range(drank * n, (drank + 1) * n, SHARD_CLIPS)]
+
+
+def shard_towers_eval(torch, np, model, dev, mesh, drank, dsize):
+    """``evaluate_ret`` (ret%tva, every text reranking every clip) over
+    this data rank's share of the 16 clips: its seconds, launches by
+    stage and the ITC and ITM score matrices."""
+    from vast_tpu_torch.evaluation.evaluation_mm import evaluate_ret
+    from vast_tpu_torch.ops import flash_attention as fa
+
+    batches = shard_eval_batches(np, drank, dsize)
+    calls = []
+    model.eval()
+    with TowerLaunches(fa, model) as by_stage, recorded_scores(calls):
+        zero_launches(fa)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        log = evaluate_ret(model, ["tva"], batches,
+                           {"itm_rerank_num": SHARD_EVAL_CLIPS},
+                           vision_transforms="none", device=dev, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in fa.LAUNCHES.items() if v}
+    model.train()
+    rest = {k: v - by_stage["vision"].get(k, 0)
+            - by_stage["audio"].get(k, 0) for k, v in launches.items()}
+    by_stage["rerank"] = {k: v for k, v in rest.items() if v}
+    return {"eval_s": seconds, "eval_launches": launches,
+            "eval_by_stage": by_stage, "eval_log": log}, calls
+
+
+def wait_for_reference(path):
+    """Wait for the reference run's file ``path`` (the reference runs
+    beside the ranks); fail where the reference failed or outlasts
+    ``DDP_TIMEOUT``."""
+    failed = os.path.join(os.path.dirname(path), "reference_failed")
+    deadline = time.monotonic() + DDP_TIMEOUT
+    while not os.path.exists(path):
+        check(not os.path.exists(failed), "shard_towers: the reference "
+              "run failed")
+        check(time.monotonic() < deadline, f"shard_towers: no {path}")
+        time.sleep(0.5)
+
+
+def shard_towers_run(torch, np, rank, world, dev, ref_dir):
+    """Each model of ``SHARD_TOWERS`` in turn, from ``ddp_model``'s seeded
+    init, on this rank's data rows of ``ddp_batch`` (336 px for CLIP):
+    CLIP + AST's evaluation, then one ret%tva train step. A world of one
+    is the reference: unsharded, it saves its losses, gradients,
+    parameters after the step and score matrices under ``ref_dir``. On
+    ``SHARD_MESH`` the state is sharded (``shard_state(fsdp=True,
+    tp=True)``); each rank reports its heads, launches and bytes against
+    the plan, and rank 0 its errors against the reference."""
+    import gc
+
+    from vast_tpu_torch import parallel
+    from vast_tpu_torch.ops import flash_attention as fa
+    from vast_tpu_torch.parallel import collectives
+    from vast_tpu_torch.training.pipeline import shard_bytes
+    from vast_tpu_torch.training.step import (create_train_state,
+                                              make_train_step, shard_state)
+
+    save = world == 1
+    mesh = None if save else parallel.create_mesh(**SHARD_MESH)
+    group = parallel.data_group(mesh)
+    drank, dsize = parallel.group_rank(group), parallel.group_size(group)
+    out = {"rank": rank, "world": world, "device": str(dev),
+           "data_rank": [drank, dsize]}
+    for name, kw in SHARD_TOWERS.items():
+        t0 = time.perf_counter()
+        model, opt = ddp_model(torch, dev, shard_towers_config(torch, name))
+        state = create_train_state(model, opt)
+        if not save:
+            state = shard_state(mesh, state, fsdp=True, tp=True)
+        sh = state.sharding
+        res = {"heads": heads_by_stage(model),
+               "build_s": time.perf_counter() - t0}
+        ref_path = os.path.join(ref_dir, f"shard_towers_{name}.pt")
+        calls = None
+        if name == "clip_ast":
+            got, calls = shard_towers_eval(torch, np, model, dev, mesh,
+                                           drank, dsize)
+            res |= got
+        step = make_train_step(model, state.opt, "ret%tva", sharding=sh)
+        batch = ddp_rows(torch, np, drank, dsize, dev,
+                         kw.get("vision_resolution", 224))
+        bwd_by_lq, bwd = {}, fa.flash_attention_bwd
+
+        def tallied_bwd(q, *args, **kwargs):
+            bwd_by_lq[q.shape[2]] = bwd_by_lq.get(q.shape[2], 0) + 1
+            return bwd(q, *args, **kwargs)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with TowerLaunches(fa, model) as by_tower:
+            fa.flash_attention_bwd = tallied_bwd
+            try:
+                zero_launches(fa)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch,
+                                      torch.Generator().manual_seed(SEED))
+                torch.cuda.synchronize(dev)
+                res["step_s"] = time.perf_counter() - t0
+                res["launches"] = {k: v for k, v in fa.LAUNCHES.items()
+                                   if v}
+            finally:
+                fa.flash_attention_bwd = bwd
+        res |= {"lse_by_tower": {t: c.get("flash_attention_fwd_lse", 0)
+                                 for t, c in by_tower.items()},
+                "bwd_by_lq": {str(k): v for k, v in bwd_by_lq.items()},
+                "max_memory_allocated":
+                    torch.cuda.max_memory_allocated(dev),
+                "metrics": {k: v.item() for k, v in metrics.items()}}
+        named = dict(model.named_parameters())
+        t0 = time.perf_counter()         # the save, or the comparison
+        if save:
+            # written whole, then renamed: the ranks wait for the name
+            torch.save({"metrics": res["metrics"],
+                        "grads": {n: None if p.grad is None
+                                  else p.grad.cpu()
+                                  for n, p in named.items()},
+                        "params": {n: p.detach().cpu()
+                                   for n, p in named.items()},
+                        "scores": calls}, ref_path + ".tmp")
+            os.replace(ref_path + ".tmp", ref_path)
+        else:
+            res |= {"bytes": shard_bytes(state),
+                    "planned": planned_bytes(state)}
+            finger = torch.stack([p.detach().double().abs().sum()
+                                  for n, p in named.items()
+                                  if sh.plans[n].whole])
+            prints = collectives.all_gather_detached(finger[None])
+            res["ranks_agree"] = bool((prints == prints[0]).all())
+            whole = {}
+            for n, p in named.items():
+                g = None if p.grad is None else sh.full(n, p.grad)
+                w = sh.full(n, p.detach())
+                if rank == 0:
+                    w = w.clone()
+                    w.grad = g if g is not None and bool(g.any()) else None
+                    whole[n] = w
+            if rank == 0:
+                wait_for_reference(ref_path)
+                ref = torch.load(ref_path, map_location=dev,
+                                 weights_only=False)
+                res |= ddp_errors(torch, whole, res["metrics"], ref)
+                if calls is not None:
+                    res["score_agreement"] = [
+                        score_agreement(a, b)
+                        | {"reference_largest": float(np.abs(b[0]).max())}
+                        for a, b in zip(calls, ref["scores"], strict=True)]
+                del ref
+            del whole
+        res["compare_s"] = time.perf_counter() - t0
+        out[name] = res
+        del model, opt, state, step, batch, named
+        gc.collect()
+        torch.cuda.empty_cache()
+        parallel.barrier()
+    return out
+
+
+def phase_shard_towers(torch, np, tmp):
+    """CLIP-L/14-336 + AST, VideoSwin + BEATs and Swin-B + BEATs (each
+    with BERT-base; ``shard_towers_config``) sharded over fsdp 2 x tp 2:
+    a world of one under NCCL (the reference), then four ranks sharing
+    the card over gloo (and four over NCCL where the machine shows four
+    cards), on the same seeded weights and global batch of ``BATCH``
+    clips (4 a data rank). For each model the losses, every gradient and
+    every parameter after the step within ddp_step's tolerances
+    (``ddp_errors``); every rank's losses equal, its parameter and moment
+    bytes exactly as the plan gives them, its towers on their tp heads
+    (``SHARD_TOWER_HEADS``) and its launches as one rank's at those heads
+    (``shard_towers_launches``, the reference's own too); for CLIP + AST
+    the evaluation's ITC and ITM scores within ``SHARD_SCORE_ATOL`` of
+    the reference's largest entry, R@k moving only across a near-tie.
+    The reference runs beside the gloo ranks, which wait for its files:
+    the times of each include the other's load on the host and the card.
+    Returns rank 0 of the gloo run's results."""
+    import threading
+
+    reference = {}
+
+    def run_reference():
+        try:
+            reference["ranks"] = spawn_ranks(
+                1, "nccl", tmp, "towers_reference", "shard_towers_run", tmp)
+        except Exception as exc:          # reported after the join
+            reference["error"] = exc
+            open(os.path.join(tmp, "reference_failed"), "w").close()
+
+    beside = threading.Thread(target=run_reference)
+    beside.start()
+    try:
+        runs = {"gloo_4_ranks_1_card": spawn_ranks(
+            SHARD_WORLD, "gloo", tmp, "towers_gloo", "shard_towers_run",
+            tmp)}
+    finally:
+        beside.join()
+    if "error" in reference:
+        raise reference["error"]
+    (one,) = reference["ranks"]
+    if torch.cuda.device_count() >= SHARD_WORLD:
+        runs["nccl_4_ranks_4_cards"] = spawn_ranks(
+            SHARD_WORLD, "nccl", tmp, "towers_nccl", "shard_towers_run", tmp)
+    for name in SHARD_TOWERS:
+        step, evaluation = shard_towers_launches(name, 1)
+        r = one[name]
+        check(r["launches"] == step, f"shard_towers {name} reference: "
+              f"launches {r['launches']} != {step}")
+        if evaluation is not None:
+            check(r["eval_by_stage"] == evaluation, f"shard_towers {name} "
+                  f"reference: evaluation launches {r['eval_by_stage']}")
+        for run, ranks in runs.items():
+            step, evaluation = shard_towers_launches(name, 2)
+            losses = {json.dumps(r[name]["metrics"], sort_keys=True)
+                      for r in ranks}
+            check(len(losses) == 1, f"shard_towers {name} {run}: the "
+                  f"ranks' losses")
+            for r in ranks:
+                got, tag = r[name], f"shard_towers {name} {run} rank " \
+                                    f"{r['rank']}"
+                check(got["launches"] == step,
+                      f"{tag}: launches {got['launches']} != {step}")
+                check(got["heads"] == SHARD_TOWER_HEADS[name],
+                      f"{tag}: heads {got['heads']}")
+                check(got["ranks_agree"], f"{tag}: the ranks' whole "
+                      f"parameters")
+                for key in ("param_bytes", "moment_bytes"):
+                    check(got["bytes"][key] == got["planned"][key],
+                          f"{tag}: {key} {got['bytes'][key]} != planned "
+                          f"{got['planned'][key]}")
+                if evaluation is not None:
+                    check(got["eval_by_stage"] == evaluation,
+                          f"{tag}: evaluation launches "
+                          f"{got['eval_by_stage']} != {evaluation}")
+                    check(got["eval_log"] == ranks[0][name]["eval_log"],
+                          f"{tag}: the ranks' R@k")
+            r0 = ranks[0][name]
+            check("loss_rel" in r0, f"shard_towers {name} {run}: rank 0's "
+                  f"errors")
+            for sc in r0.get("score_agreement", []):
+                lim = SHARD_SCORE_ATOL * sc["reference_largest"]
+                check(sc["max_abs_diff"] < lim, f"shard_towers {name} "
+                      f"{run}: scores differ by {sc['max_abs_diff']}, not "
+                      f"under {lim}")
+                check(all(m["gap"] <= 2 * sc["max_abs_diff"]
+                          for m in sc["moved"]),
+                      f"shard_towers {name} {run}: a rank moved beyond a "
+                      f"near-tie {sc['moved']}")
+            if evaluation is not None:
+                check(len(r0["score_agreement"]) == 2,
+                      f"shard_towers {name} {run}: ITC and ITM matrices")
+    gloo = runs["gloo_4_ranks_1_card"]
+    reduced = {
+        "clip_ast": {"vision layers": [24, DDP_DEPTH["vision"]],
+                     "audio layers": [12, DDP_DEPTH["audio"]],
+                     "bert layers": [12, DDP_DEPTH["bert"]]},
+        "videoswin_beats": {"vision blocks by stage": [[2, 2, 18, 2],
+                                                       list(SHARD_STAGES)],
+                            "audio layers": [12, DDP_DEPTH["audio"]],
+                            "bert layers": [12, DDP_DEPTH["bert"]]},
+        "swin_beats": {"vision blocks by stage": [[2, 2, 18, 2],
+                                                  list(SHARD_STAGES)],
+                       "audio layers": [12, DDP_DEPTH["audio"]],
+                       "bert layers": [12, DDP_DEPTH["bert"]]}}
+    emit({"phase": "shard_towers", "task": "ret%tva", "global_batch": BATCH,
+          "mesh": SHARD_MESH, "dtype": "float32", "remat_policy": "attn",
+          "models": {n: kw | {"reduced": reduced[n],
+                              "heads_per_rank": SHARD_TOWER_HEADS[n],
+                              "launches_per_rank": dict(zip(
+                                  ("step", "evaluation"),
+                                  shard_towers_launches(n, 2)))}
+                     for n, kw in SHARD_TOWERS.items()},
+          "evaluation": {"model": "clip_ast", "clips": SHARD_EVAL_CLIPS,
+                         "itm_rerank_num": SHARD_EVAL_CLIPS,
+                         "score_atol_of_largest": SHARD_SCORE_ATOL},
+          "tolerances": {"loss_rel": DDP_LOSS_RTOL,
+                         "grad_rel_to_tensor_max": DDP_GRAD_RTOL,
+                         "param_in_lr_where_grad_firm": DDP_PARAM_LR_TOL,
+                         "param_bound_in_lr": 2.0},
+          "reference": one,
+          "share_of_whole": {
+              n: {k: gloo[0][n]["bytes"][k]
+                  / gloo[0][n]["planned"][f"whole_{k}"]
+                  for k in ("param_bytes", "moment_bytes")}
+              for n in SHARD_TOWERS},
+          "runs": runs, "cards": torch.cuda.device_count(),
+          "cross_card_nccl": "nccl_4_ranks_4_cards" in runs})
+    return gloo[0]
+
+
 def shard_cli_config(root):
     """``ddp_cli_config``'s copy with ``run_cfg.fsdp`` and ``tp`` set."""
     with open(ddp_cli_config(root)) as f:
@@ -4263,7 +4721,7 @@ def shard_train_run(torch, np, rank, world, dev, cfg_path, reduced,
             mesh=mesh)
     torch.cuda.synchronize(dev)
     out = {"rank": rank, "train_s": time.perf_counter() - t0,
-           "timings": timings, "heads": tower_heads(model),
+           "timings": timings, "heads": heads_by_stage(model),
            "sharded": state.sharding is not None,
            "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
@@ -4630,6 +5088,9 @@ def main():
         ddp_step = timed("ddp_step", phase_ddp_step, torch, np, ddp_tmp)
         shard_step = timed("shard_step", phase_shard_step, torch, np,
                            ddp_tmp)
+        torch.cuda.empty_cache()
+        shard_towers = timed("shard_towers", phase_shard_towers, torch, np,
+                             ddp_tmp)
     finally:
         shutil.rmtree(ddp_tmp, ignore_errors=True)
     timed("remat_offload", phase_remat_offload, torch, np)
@@ -4698,6 +5159,31 @@ def main():
             shard_train["tmajor_attention_bwd_bias"],
         ("flash_attention_fwd", "tvas_rerank_tp2"):
             shard_train["flash_attention_fwd"],
+        # rank 0 of 4's run of shard_towers (fp32; each rank on its tp
+        # heads): CLIP + AST's evaluation by stage and step by tower and
+        # query length, VideoSwin's step over its four stages
+        ("flash_attention_fwd", "clip_l14_336_tp2"):
+            shard_towers["clip_ast"]["eval_by_stage"]["vision"][
+                "flash_attention_fwd"],
+        ("flash_attention_fwd", "ast_tp2"):
+            shard_towers["clip_ast"]["eval_by_stage"]["audio"][
+                "flash_attention_fwd"],
+        ("flash_attention_fwd", "clip_ast_rerank_tp2"):
+            shard_towers["clip_ast"]["eval_by_stage"]["rerank"][
+                "flash_attention_fwd"],
+        ("flash_attention_fwd_lse", "clip_l14_336_tp2"):
+            shard_towers["clip_ast"]["lse_by_tower"]["vision"],
+        ("flash_attention_fwd_lse", "ast_tp2"):
+            shard_towers["clip_ast"]["lse_by_tower"]["audio"],
+        ("flash_attention_bwd", "clip_l14_336_tp2"):
+            shard_towers["clip_ast"]["bwd_by_lq"]["577"],
+        ("flash_attention_bwd", "ast_tp2"):
+            shard_towers["clip_ast"]["bwd_by_lq"]["257"],
+        ("flash_attention_fwd_lse", "videoswin_tp2"):
+            shard_towers["videoswin_beats"]["lse_by_tower"]["vision"],
+        ("flash_attention_bwd_dbias", "videoswin_tp2"):
+            shard_towers["videoswin_beats"]["launches"][
+                "flash_attention_bwd_dbias"],
     }
     # the same kernels on the other new paths, at those paths' shapes:
     # BEATs' forward in every tower's slice and train run, EVA01-g's and
@@ -4737,6 +5223,14 @@ def main():
             "ddp_step (rank 0 of 2, fp32)": ddp_step[key],
             "cli_ddp_ret_tvas (rank 0 of 2)": cli_ddp[key],
             "shard_step (rank 0 of 4, fp32, tp heads)": shard_step[key]})
+    # BEATs at its tp heads in shard_towers (rank 0 of 4, fp32): the
+    # VideoSwin and Swin-B models' steps, at shard_train's shapes
+    for row in (("tmajor_attention_fwd_bias", "beats_tp2"),
+                ("tmajor_attention_bwd_bias", "beats_tp2")):
+        by_path.setdefault(row, {})[
+            "shard_towers (rank 0 of 4, fp32)"] = sum(
+                shard_towers[m]["launches"][row[0]]
+                for m in ("videoswin_beats", "swin_beats"))
     emit({"kernels": kernels_line(
         [rows[(i, torch.bfloat16)] for i in range(len(KERNELS))],
         launches_at, by_path)})

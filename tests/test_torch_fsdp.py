@@ -22,6 +22,7 @@ every parameter with a divisible dim is split. The ranks run in one spawn
 * clipping by the whole gradient's norm.
 """
 
+import contextlib
 import os
 
 import jax
@@ -80,10 +81,14 @@ def eval_clips():
     return arrays
 
 
-def jax_sharded_step(jm, params, batch, task, dims, fsdp=False, tp=False):
+def jax_sharded_step(jm, params, batch, task, dims, fsdp=False, tp=False,
+                     eval_constants=False):
     """vast_tpu's losses, gradient and AdamW update of one step on the
     global batch, its state placed by ``shard_state`` (min_size 0) on
-    ``create_mesh(**dims)`` over conftest's CPU devices."""
+    ``create_mesh(**dims)`` over conftest's CPU devices;
+    ``eval_constants`` computes what depends on no input while tracing
+    (vast_tpu's VideoSwin builds its shift masks with numpy from jnp
+    values)."""
     n = dims["dp"] * dims["fsdp"] * dims["tp"]
     mesh = create_mesh(devices=jax.devices()[:n], **dims)
     tx, _ = j_build_optimizer(params, RUN_CFG, {}, 20)
@@ -93,6 +98,11 @@ def jax_sharded_step(jm, params, batch, task, dims, fsdp=False, tp=False):
             tx=tx, min_size=0)
 
         def step(state, b):
+            with (jax.ensure_compile_time_eval() if eval_constants
+                  else contextlib.nullcontext()):
+                return _step(state, b)
+
+        def _step(state, b):
             def loss_fn(p):
                 out = jm.apply({"params": p}, b, task, compute_loss=True,
                                deterministic=True)

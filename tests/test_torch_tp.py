@@ -7,8 +7,8 @@ port. Weights, batches and tolerances as ``tests/test_torch_fsdp.py``
 
 * the plan: which parameter is split over tp (and on which dim, in
   torch's layout) and which over fsdp, parameter by parameter, against
-  ``vast_tpu``'s ``combined_param_sharding``; towers without a tp port
-  raise;
+  ``vast_tpu``'s ``combined_param_sharding`` (the CLIP, AST, Swin and
+  VideoSwin towers: tests/test_torch_tp_towers.py);
 * ``ret%tvas`` and ``cap%tvas`` on each mesh: losses, every gradient and
   the parameters after the step, against vast_tpu's;
 * EVA02 with rope, SwiGLU and its sub-LayerNorms split over tp: the
@@ -17,7 +17,6 @@ port. Weights, batches and tolerances as ``tests/test_torch_fsdp.py``
   files, and clipping by the whole norm, as in the fsdp tests.
 """
 
-import dataclasses
 import json
 import os
 
@@ -28,21 +27,18 @@ import pytest
 import torch
 
 from tests import torch_dist_workers as w
-from tests.helpers import (TINY_CLIP, make_synth_dataset, make_task_config,
-                           tiny_vast_config)
+from tests.helpers import make_synth_dataset, make_task_config
 from tests.test_torch_fsdp import (build_setup, check_eval, check_fused,
                                    check_moments_split, check_norm,
                                    check_resume_and_save, check_step,
                                    jax_sharded_step, one_process,  # noqa
                                    setup, sharded_cases)  # noqa: F401
-from tests.test_torch_models import _port_cfg, port_config
+from tests.test_torch_models import _port_cfg
 from vast_tpu.models import eva_vit as j_eva
 from vast_tpu.parallel.mesh import combined_param_sharding, create_mesh
 from vast_tpu_torch.convert import from_jax as convert
 from vast_tpu_torch.convert.from_jax import from_jax
 from vast_tpu_torch.models import eva_vit
-from vast_tpu_torch.models.clip_vit import ClipVitConfig
-from vast_tpu_torch.models.vast import VASTModel
 from vast_tpu_torch.parallel import mesh as pmesh
 
 TP = {"dp": 1, "fsdp": 1, "tp": 2}
@@ -131,20 +127,6 @@ def test_eva01_qkv_rows_take_each_rank_heads_from_each_third():
     assert rows[0].tolist() == (list(range(0, 16)) + list(range(32, 48))
                                 + list(range(64, 80)))
     assert sorted(np.concatenate(rows).tolist()) == list(range(96))
-
-
-def test_towers_without_a_tp_port_raise():
-    cfg = port_config(tiny_vast_config())
-    clip = dataclasses.replace(
-        cfg, vision_encoder_type="clip_vit_base_patch16",
-        vision_cfg=_port_cfg(ClipVitConfig, TINY_CLIP))
-    model = VASTModel(clip, device="cpu")
-    with pytest.raises(NotImplementedError, match="CLIP.*ROADMAP"):
-        pmesh.combined_param_sharding(TP, model, min_size=0)
-    # under fsdp every tower is split
-    plan = pmesh.combined_param_sharding({"fsdp": 2}, model, min_size=0)
-    assert any(p.fsdp_dim is not None for n, p in plan.items()
-               if n.startswith("vision_encoder."))
 
 
 # ------------------------------------------------------------------ steps
@@ -294,8 +276,10 @@ def test_eva02_sub_layernorms_under_tp(eva02, tmp_path):
     """rope, q/k/v split by heads, inner_attn_ln and the SwiGLU's ffn_ln
     over split channels: output and every gradient as vast_tpu's."""
     want_out, want_grads, cfg, state, px, wts = eva02
-    outs = w.spawn(2, w.tower_tp_case, tmp_path, cfg, state, px, wts, TP)
-    for out in outs:
+    outs = w.spawn(2, w.towers_tp_case, tmp_path, {"eva02": (
+        eva_vit.__name__, "EvaVisionTransformer", cfg, {}, state, px, wts)},
+        TP)
+    for out in (rank["eva02"] for rank in outs):
         np.testing.assert_allclose(out["out"], want_out, rtol=0,
                                    atol=1e-5 * np.abs(want_out).max())
         assert "blocks.0.mlp.w1.weight" in out["split"]

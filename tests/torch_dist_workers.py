@@ -434,32 +434,41 @@ def shard_eval_case(rank, world, cfg, state, arrays, batch_size, out_dir,
     return {"ret": ret, "scores": calls, "cap": cap}
 
 
-def tower_tp_case(rank, world, tower_cfg, state, pixels, weights,
-                  mesh_dims):
-    """An EVA tower split over tp (min_size 0): its output and the whole
-    gradient of ``sum(output * weights)``."""
+def towers_tp_case(rank, world, towers, mesh_dims):
+    """Towers split over tp (min_size 0), one after another on the same
+    mesh: ``towers`` {name: (module, class name, config, constructor
+    keywords, state dict, input, weights)}; each one's output, the whole
+    gradient of ``sum(output * weights)``, its split and partial
+    parameters and the heads of each attention module on this rank."""
+    import importlib
+
     from vast_tpu_torch import parallel
-    from vast_tpu_torch.models.eva_vit import EvaVisionTransformer
     from vast_tpu_torch.training.optimizer import GroupedAdam
     from vast_tpu_torch.training.step import create_train_state, shard_state
 
     mesh = parallel.create_mesh(**mesh_dims)
-    tower = EvaVisionTransformer(tower_cfg, device="cpu")
-    tower.load_state_dict(state)
-    opt = GroupedAdam(tower, {}, {}, 1)
-    st = shard_state(mesh, create_train_state(tower, opt), tp=True,
-                     min_size=0)
-    out = tower(torch.from_numpy(pixels))
-    (out * torch.from_numpy(weights)).sum().backward()
-    st.sharding.reduce_grads()
-    named = dict(tower.named_parameters())
-    return {"out": out.detach().numpy(),
+    out = {}
+    for name, (module, cls, cfg, kw, state, x, weights) in towers.items():
+        tower = getattr(importlib.import_module(module), cls)(
+            cfg, device="cpu", **kw)
+        tower.load_state_dict(state)
+        st = shard_state(mesh, create_train_state(
+            tower, GroupedAdam(tower, {}, {}, 1)), tp=True, min_size=0)
+        y = tower(torch.from_numpy(x))
+        (y * torch.from_numpy(weights)).sum().backward()
+        st.sharding.reduce_grads()
+        named = dict(tower.named_parameters())
+        plans = st.sharding.plans
+        out[name] = {
+            "out": y.detach().numpy(),
             "grads": whole_tensors(st, {n: p.grad
                                         for n, p in named.items()}),
-            "split": sorted(n for n, pl in st.sharding.plans.items()
+            "split": sorted(n for n, pl in plans.items()
                             if pl.tp_dim is not None),
-            "partial": sorted(n for n, pl in st.sharding.plans.items()
-                              if pl.tp_partial)}
+            "partial": sorted(n for n, pl in plans.items() if pl.tp_partial),
+            "heads": [m.heads for m in tower.modules()
+                      if hasattr(m, "tp_linears") and hasattr(m, "heads")]}
+    return out
 
 
 def several(rank, world, cases):

@@ -18,7 +18,9 @@ and the names here follow it (vast_ckpt.py:184-218):
 layernorm2, ff_layer.linear{1,2}}``, ``audio_encoder.last_layernorm``.
 :class:`AstModel` holds the two; ``VASTModel`` adopts them under those
 names. Layers run under activation checkpointing when asked
-(models/remat.py), as ``vast_tpu`` wraps them (ast.py:91-94).
+(models/remat.py), as ``vast_tpu`` wraps them (ast.py:91-94). Under
+tensor parallelism (``parallel/tp.py``) each layer's attention runs on
+this rank's heads and its feed-forward on its part of the hidden size.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.ops.activations import gelu
 from vast_tpu_torch.ops.attention import multi_head_attention_hmajor
+from vast_tpu_torch.parallel import tp as tpl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,29 +84,67 @@ class AstEmbeddings(nn.Module):
 
 
 class AstAttention(nn.Module):
-    """q, k, v and the output projection as ``linears.{0..3}``."""
+    """q, k, v and the output projection as ``linears.{0..3}``. Under tp
+    this rank runs its heads: q, k and v stay whole, as ``vast_tpu``'s
+    plan keeps them (their owner names ``q``, ``k``, ``v`` are neither
+    column- nor row-parallel), and each rank uses its heads' rows of them
+    (``tp_partial``); the output projection is row-parallel."""
 
     def __init__(self, c: AstConfig, device=None):
         super().__init__()
-        self.heads = c.num_attention_heads
+        self.cfg = c
+        self.heads = c.num_attention_heads    # this rank's (tp: H / tp)
+        self.tp = None
         self.linears = nn.ModuleList(
             layers.Linear(c.hidden_size, c.hidden_size, device=device,
                           dtype=c.pdtype) for _ in range(4))
 
+    def tp_linears(self) -> dict:
+        return {"linears.3": ("proj", 1)}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.cfg.num_attention_heads % tp == 0
+
+    def tp_partial_params(self) -> list:
+        return [f"linears.{i}.{p}" for i in range(3)
+                for p in ("weight", "bias")]
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
+        for lin in self.linears[:3]:
+            tpl.parallelize(lin, "part", tp)
+        self.heads = self.cfg.num_attention_heads // tp.size
+
     def forward(self, x):
-        b, l, w = x.shape
-        q, k, v = (lin(x).view(b, l, self.heads, w // self.heads)
-                   .transpose(1, 2) for lin in self.linears[:3])
-        out = multi_head_attention_hmajor(q, k, v)             # (B, H, L, D)
-        return self.linears[3](out.transpose(1, 2).reshape(b, l, w))
+        b, l, _ = x.shape
+        d = self.cfg.hidden_size // self.cfg.num_attention_heads
+        q, k, v = (lin(x).view(b, l, self.heads, d).transpose(1, 2)
+                   for lin in self.linears[:3])
+        out = multi_head_attention_hmajor(q, k, v)             # (B, h, L, D)
+        return self.linears[3](out.transpose(1, 2).reshape(b, l,
+                                                           self.heads * d))
 
 
 class AstFeedForward(nn.Module):
     def __init__(self, c: AstConfig, device=None):
         super().__init__()
         fk = dict(device=device, dtype=c.pdtype)
+        self.cfg = c
+        self.tp = None
         self.linear1 = layers.Linear(c.hidden_size, c.intermediate_size, **fk)
         self.linear2 = layers.Linear(c.intermediate_size, c.hidden_size, **fk)
+
+    def tp_linears(self) -> dict:
+        return {"linear1": ("fc1", 1), "linear2": ("fc2", 1)}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.cfg.intermediate_size % tp == 0
+
+    def tp_partial_params(self) -> list:
+        return []
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
 
     def forward(self, x):
         return self.linear2(gelu(self.linear1(x)))
@@ -124,10 +165,6 @@ class AstLayer(nn.Module):
 
 
 class AstEncoder(nn.Module):
-    # tensor parallelism splits EVA, BEATs and BERT only
-    tp_unported = ("tensor parallelism (tp > 1) of the AST tower "
-                   "is not ported: ROADMAP.md queue 1 item 9")
-
     def __init__(self, c: AstConfig, device=None):
         super().__init__()
         self.cfg = c

@@ -18,7 +18,10 @@ ones (``transformer.resblocks.{i}.attn.in_proj_weight``, ...), so the
 state dict is what ``vast_ckpt.convert_clip_vit`` (vast_ckpt.py:114-139)
 reads. Blocks run under activation checkpointing when asked
 (models/remat.py); parameters may be kept in ``param_dtype`` and cast to
-``dtype`` at use (models/layers.py).
+``dtype`` at use (models/layers.py). Under tensor parallelism
+(``parallel/tp.py``) each block's attention runs on this rank's heads
+and its MLP on this rank's part of the hidden size, as ``vast_tpu``'s
+plan splits ``in_proj``, ``out_proj``, ``c_fc`` and ``c_proj``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from torch import nn
 from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.ops.attention import multi_head_attention_hmajor
+from vast_tpu_torch.parallel import tp as tpl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +75,9 @@ def quick_gelu(x):
 
 class ClipAttention(nn.Module):
     """``nn.MultiheadAttention``'s parameters: the packed ``in_proj``
-    (q, k, v rows in that order) and ``out_proj``."""
+    (q, k, v rows in that order) and ``out_proj``. Under tp the packed
+    weight holds this rank's heads of each of q, k and v (its bias stays
+    whole and is sliced alike), and ``out_proj`` is row-parallel."""
 
     # vast_tpu keeps this bias under the leaf name "bias", which its
     # optimizer does not decay (training/optimizer.py)
@@ -80,20 +86,42 @@ class ClipAttention(nn.Module):
     def __init__(self, c: ClipVitConfig, device=None):
         super().__init__()
         fk = dict(device=device, dtype=c.pdtype)
-        self.heads = c.heads
+        self.cfg = c
+        self.heads = c.heads              # this rank's (tp: H / tp)
+        self.tp = None
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * c.width, c.width,
                                                        **fk))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * c.width, **fk))
         self.out_proj = layers.Linear(c.width, c.width, **fk)
 
+    def tp_linears(self) -> dict:
+        """{layer: (vast_tpu's owner name, runs)}; ``in_proj`` is the bare
+        ``in_proj_weight`` / ``in_proj_bias`` pair."""
+        return {"in_proj": ("in_proj", 3), "out_proj": ("out_proj", 1)}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.cfg.heads % tp == 0
+
+    def tp_partial_params(self) -> list:
+        return []
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
+        self.heads = self.cfg.heads // tp.size
+
     def forward(self, x):
-        b, l, w = x.shape
+        b, l, _ = x.shape
+        d = self.cfg.width // self.cfg.heads
+        x = tpl.copy_to(x, self.tp)
+        bias = (self.in_proj_bias if self.tp is None
+                else self.tp.part(self.in_proj_bias, 3))
         y = F.linear(x, self.in_proj_weight.to(x.dtype),
-                     self.in_proj_bias.to(x.dtype))            # (B, L, 3W)
+                     bias.to(x.dtype))                         # (B, L, 3hD)
         q, k, v = (t.transpose(1, 2) for t in
-                   y.view(b, l, 3, self.heads, w // self.heads).unbind(2))
-        out = multi_head_attention_hmajor(q, k, v)             # (B, H, L, D)
-        return self.out_proj(out.transpose(1, 2).reshape(b, l, w))
+                   y.view(b, l, 3, self.heads, d).unbind(2))
+        out = multi_head_attention_hmajor(q, k, v)             # (B, h, L, D)
+        return self.out_proj(out.transpose(1, 2).reshape(b, l,
+                                                         self.heads * d))
 
 
 class ClipMlp(nn.Module):
@@ -102,6 +130,20 @@ class ClipMlp(nn.Module):
         fk = dict(device=device, dtype=c.pdtype)
         self.c_fc = layers.Linear(c.width, 4 * c.width, **fk)
         self.c_proj = layers.Linear(4 * c.width, c.width, **fk)
+        self.hidden = 4 * c.width
+        self.tp = None
+
+    def tp_linears(self) -> dict:
+        return {"c_fc": ("c_fc", 1), "c_proj": ("c_proj", 1)}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.hidden % tp == 0
+
+    def tp_partial_params(self) -> list:
+        return []
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
 
     def forward(self, x):
         return self.c_proj(quick_gelu(self.c_fc(x)))
@@ -129,10 +171,6 @@ class ClipTransformer(nn.Module):
 
 
 class ClipVisionTransformer(nn.Module):
-    # tensor parallelism splits EVA, BEATs and BERT only
-    tp_unported = ("tensor parallelism (tp > 1) of the CLIP tower "
-                   "is not ported: ROADMAP.md queue 1 item 9")
-
     def __init__(self, c: ClipVitConfig, device=None):
         super().__init__()
         fk = dict(device=device, dtype=c.pdtype)

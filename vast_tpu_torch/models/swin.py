@@ -18,7 +18,11 @@ the reference torch ones (``patch_embed.proj``, ``patch_embed.norm``,
 ``layers.{s}.downsample.reduction``, ``norm``), so the state dict is what
 ``vast_ckpt.convert_swin`` reads; the position index and the masks are
 buffers left out of it. Blocks run under activation checkpointing when
-asked (models/remat.py).
+asked (models/remat.py). Under tensor parallelism (``parallel/tp.py``)
+each block's attention runs on this rank's heads and its MLP on its part
+of the hidden size, as ``vast_tpu``'s plan splits ``qkv``, ``proj``,
+``fc1`` and ``fc2``; the patch merging's reduction is split over fsdp
+only.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.ops.activations import gelu
 from vast_tpu_torch.ops.attention import multi_head_attention
+from vast_tpu_torch.parallel import tp as tpl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,13 +117,17 @@ class WindowAttention(nn.Module):
     """Multi-head attention inside each window, with the relative
     position bias ``relative_position_bias_table[index]`` (``index``: a
     window's (n, n) table rows) and an optional per-window mask. Shared
-    by the 2-D and 3-D towers."""
+    by the 2-D and 3-D towers. Under tp this rank runs its heads: ``qkv``
+    holds its heads of each of q, k and v, ``proj`` is row-parallel, and
+    the table (whole) gives its heads' columns."""
 
     def __init__(self, dim, heads, index: np.ndarray, table_rows: int,
                  device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
-        self.heads = heads
+        self.num_heads = heads
+        self.heads = heads                # this rank's (tp: H / tp)
+        self.tp = None
         self.qkv = layers.Linear(dim, 3 * dim, **fk)
         self.proj = layers.Linear(dim, dim, **fk)
         self.relative_position_bias_table = nn.Parameter(
@@ -127,28 +136,57 @@ class WindowAttention(nn.Module):
                              torch.from_numpy(index.reshape(-1)).to(device),
                              persistent=False)
 
+    def tp_linears(self) -> dict:
+        return {"qkv": ("qkv", 3), "proj": ("proj", 1)}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.num_heads % tp == 0
+
+    def tp_partial_params(self) -> list:
+        return ["relative_position_bias_table"]
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
+        self.heads = self.num_heads // tp.size
+
     def forward(self, x, mask=None):
         """x (nB, n, C); ``mask`` (nW, n, n) bool or None, nB a multiple
         of nW (the windows of each sample in order)."""
         nb, n, c = x.shape
-        h = self.heads
-        q, k, v = self.qkv(x).view(nb, n, 3, h, c // h).unbind(2)
-        # (H, n, n) with its keys contiguous, as the kernels read a bias
-        bias = self.relative_position_bias_table[
-            self.relative_position_index].view(n, n, h).permute(
-                2, 0, 1).contiguous()
+        h, d = self.heads, c // self.num_heads
+        q, k, v = self.qkv(x).view(nb, n, 3, h, d).unbind(2)
+        table = self.relative_position_bias_table
+        if self.tp is not None:
+            table = table[:, self.tp.block(self.num_heads)]
+        # (h, n, n) with its keys contiguous, as the kernels read a bias
+        bias = table[self.relative_position_index].view(n, n, h).permute(
+            2, 0, 1).contiguous()
         attn_mask = None
         if mask is not None:
             attn_mask = mask[:, None].repeat(nb // mask.shape[0], 1, 1, 1)
         out = multi_head_attention(q, k, v, bias=bias[None], mask=attn_mask)
-        return self.proj(out.reshape(nb, n, c))
+        return self.proj(out.reshape(nb, n, h * d))
 
 
 class Mlp(nn.Module):
     def __init__(self, dim, hidden, **fk):
         super().__init__()
+        self.hidden = hidden
+        self.tp = None
         self.fc1 = layers.Linear(dim, hidden, **fk)
         self.fc2 = layers.Linear(hidden, dim, **fk)
+
+    def tp_linears(self) -> dict:
+        return {"fc1": ("fc1", 1), "fc2": ("fc2", 1)}
+
+    def tp_splits(self, tp: int) -> bool:
+        return self.hidden % tp == 0
+
+    def tp_partial_params(self) -> list:
+        return []
+
+    def enable_tp(self, tp) -> None:
+        tpl.split_module(self, tp)
 
     def forward(self, x):
         return self.fc2(gelu(self.fc1(x)))
@@ -225,10 +263,6 @@ class SwinPatchEmbed(nn.Module):
 
 
 class SwinTransformer(nn.Module):
-    # tensor parallelism splits EVA, BEATs and BERT only
-    tp_unported = ("tensor parallelism (tp > 1) of the Swin tower "
-                   "is not ported: ROADMAP.md queue 1 item 9")
-
     def __init__(self, c: SwinConfig, device=None):
         super().__init__()
         fk = dict(device=device, dtype=c.pdtype)

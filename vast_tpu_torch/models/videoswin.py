@@ -21,7 +21,8 @@ head width 32 takes whatever route ``ops.attention``'s rule gives it
 Module and parameter names are the reference torch ones (``patch_embed.
 proj`` a Conv3d, ``layers.{s}.blocks.{b}.attn.relative_position_bias_
 table``, ...), so the state dict is what ``vast_ckpt.convert_videoswin``
-reads; the position index and the masks are left out of it.
+reads; the position index and the masks are left out of it. Its blocks'
+attention and MLP are Swin's, and split over tp as Swin's do.
 """
 
 from __future__ import annotations
@@ -182,10 +183,6 @@ class VideoPatchEmbed(nn.Module):
 
 
 class VideoSwinTransformer(nn.Module):
-    # tensor parallelism splits EVA, BEATs and BERT only
-    tp_unported = ("tensor parallelism (tp > 1) of the VideoSwin tower "
-                   "is not ported: ROADMAP.md queue 1 item 9")
-
     def __init__(self, c: VideoSwinConfig, device=None, frames: int = 8,
                  image_size: int = 224):
         """Built for clips of ``frames`` frames at ``image_size`` pixels

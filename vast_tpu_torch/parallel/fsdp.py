@@ -21,13 +21,18 @@ the whole tensor exists only while a layer uses it.
 * ``reduction``: a gradient is averaged over the data group, as DDP
   averages; summed over the tp group too where a tp module uses the
   parameter in part; and averaged over the tp group where its ranks
-  hold the same parameter whole, which keeps their copies equal.
+  hold the same parameter whole, which keeps their copies equal. A
+  parameter both used in part and split over fsdp (AST's q, k and v)
+  has its whole gradient summed over the tp group and averaged over the
+  data group in one all-reduce over the world, before the rank keeps
+  its fsdp part; the clipping norm counts each part once.
 
 Every collective is an all-gather or an all-reduce, which gloo carries
 on CPU and CUDA tensors and NCCL on CUDA ones: one code path on every
 backend. ``full`` and ``split`` move a tensor between its whole form
-(reference names and shapes, EVA01's fused ``qkv`` in reference row
-order) and this rank's part, for the saver and the optimizer's state.
+(reference names and shapes, the packed q/k/v weights of EVA01, CLIP,
+Swin and VideoSwin in reference row order) and this rank's part, for the
+saver and the optimizer's state.
 """
 
 from __future__ import annotations

@@ -295,22 +295,35 @@ def _fsdp_dim(shape, fsdp: int, skip) -> int | None:
     return None
 
 
+def tp_params(mod: nn.Module, child: str) -> tuple:
+    """The names under ``mod`` of the weight and the bias (None: none) of
+    ``child`` of its ``tp_linears()``: a linear layer's ``weight`` and
+    ``bias``, or the module's own bare pair ``{child}_weight`` /
+    ``{child}_bias`` (``nn.MultiheadAttention``'s packed ``in_proj``,
+    CLIP's, under the reference's names)."""
+    try:
+        layer = mod.get_submodule(child)
+    except AttributeError:
+        bias = f"{child}_bias"
+        return (f"{child}_weight",
+                bias if getattr(mod, bias, None) is not None else None)
+    return f"{child}.weight", None if layer.bias is None else f"{child}.bias"
+
+
 def tp_modules(model: nn.Module, tp: int, min_size: int) -> dict:
     """``{module name: module}`` of the modules that split over ``tp``:
     those with a ``tp_linears()`` table whose ``tp_splits(tp)`` holds (its
     heads, or its hidden size, divide) and whose weights are all at
-    least ``min_size`` elements and divide. A tower without a tp port
-    raises (``tp_unported``)."""
+    least ``min_size`` elements and divide. A module whose weights lie
+    on both sides of ``min_size`` stays whole, where ``vast_tpu``'s rule,
+    parameter by parameter, would split the larger alone."""
     out = {}
     for name, mod in model.named_modules():
-        why = getattr(mod, "tp_unported", None)
-        if why:
-            raise NotImplementedError(why)
         if not hasattr(mod, "tp_linears") or not mod.tp_splits(tp):
             continue
         ok = True
         for child, (flax_name, _) in mod.tp_linears().items():
-            w = mod.get_submodule(child).weight
+            w = mod.get_parameter(tp_params(mod, child)[0])
             dim = 0 if flax_name in COL else 1
             ok &= w.numel() >= min_size and w.shape[dim] % tp == 0
         if ok:
@@ -349,10 +362,11 @@ def combined_param_sharding(mesh, model: nn.Module, use_fsdp: bool = True,
         pre = f"{mname}." if mname else ""
         for child, (flax_name, groups) in mod.tp_linears().items():
             col = flax_name in COL
-            tp_of[f"{pre}{child}.weight"] = (0 if col else 1, groups)
-            if col and mod.get_submodule(child).bias is not None:
+            weight, bias = tp_params(mod, child)
+            tp_of[f"{pre}{weight}"] = (0 if col else 1, groups)
+            if col and bias is not None:
                 # whole, sliced to this rank's rows at use
-                partial.add(f"{pre}{child}.bias")
+                partial.add(f"{pre}{bias}")
         partial.update(f"{pre}{n}" for n in mod.tp_partial_params())
     plans = {}
     for mname, mod in model.named_modules():

@@ -16,10 +16,14 @@ the MLP's down projection). Two autograd functions join the parts
 
 :class:`ColumnParallelLinear` and :class:`RowParallelLinear` are
 ``layers.Linear`` with those around it; the row-parallel one adds its
-bias once, after the sum. A parameter that stays whole but that a split
-module uses only in part (a column layer's bias, EVA's q and v biases,
-BEATs' head gate) is sliced at use and its gradient summed over the
-group by the trainer (``ParamPlan.tp_partial``). :func:`layer_norm`
+bias once, after the sum. A column-parallel weight of several runs (the
+packed q, k and v of CLIP's ``in_proj`` and Swin's ``qkv``) holds this
+rank's heads of each run, and its bias is sliced alike (``TpInfo.part``).
+A parameter that stays whole but that a split module uses only in part
+(a column layer's bias, EVA's q and v biases, BEATs' head gate, Swin's
+relative-position table, AST's q, k and v: :class:`PartColumnLinear`) is
+sliced at use and its gradient summed over the group by the trainer
+(``ParamPlan.tp_partial``). :func:`layer_norm`
 normalises a tensor whose channels are split over the group (EVA02's
 sub-LayerNorms) with the mean and variance of all of them.
 """
@@ -47,6 +51,14 @@ class TpInfo:
         """This rank's contiguous part of ``n`` channels."""
         part = n // self.size
         return slice(self.rank * part, (self.rank + 1) * part)
+
+    def part(self, t: torch.Tensor, runs: int = 1) -> torch.Tensor:
+        """This rank's rows (dim 0) of ``t``: its block of each of
+        ``runs`` equal runs (``ParamPlan.tp_index``'s rows)."""
+        if runs == 1:
+            return t[self.block(t.shape[0])]
+        t = t.unflatten(0, (runs, -1))
+        return t[:, self.block(t.shape[1])].flatten(0, 1)
 
 
 def _all_reduce(x: torch.Tensor, tp: TpInfo) -> torch.Tensor:
@@ -123,16 +135,30 @@ def layer_norm(x, ln: layers.LayerNorm, tp: TpInfo | None, rows=None):
 
 
 class ColumnParallelLinear(layers.Linear):
-    """This rank's output rows; the bias stays whole and is sliced."""
+    """This rank's output rows (its block of each of ``runs`` runs); the
+    bias stays whole and is sliced alike."""
 
     tp: TpInfo
+    runs: int = 1
 
     def forward(self, x):
         x = copy_to(x, self.tp)
         b = None
         if self.bias is not None:
-            b = self.bias[self.tp.block(self.bias.shape[0])].to(x.dtype)
+            b = self.tp.part(self.bias, self.runs).to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class PartColumnLinear(ColumnParallelLinear):
+    """A column-parallel layer whose weight stays whole too (vast_tpu
+    keeps AST's q, k and v whole under tp): this rank's rows of the
+    weight and the bias are sliced at use."""
+
+    def forward(self, x):
+        x = copy_to(x, self.tp)
+        b = None if self.bias is None else self.tp.part(self.bias)
+        return F.linear(x, self.tp.part(self.weight).to(x.dtype),
+                        None if b is None else b.to(x.dtype))
 
 
 class RowParallelLinear(layers.Linear):
@@ -146,21 +172,27 @@ class RowParallelLinear(layers.Linear):
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
-def parallelize(linear: layers.Linear, kind: str, tp: TpInfo) -> None:
-    """Make ``linear`` (its weight already this rank's part) column- or
-    row-parallel in place: its parameters and names stay."""
+def parallelize(linear: layers.Linear, kind: str, tp: TpInfo,
+                runs: int = 1) -> None:
+    """Make ``linear`` column-parallel ('col', its weight already this
+    rank's part, of ``runs`` runs), row-parallel ('row') or a whole layer
+    used in part ('part') in place: its parameters and names stay."""
     linear.__class__ = {"col": ColumnParallelLinear,
-                        "row": RowParallelLinear}[kind]
+                        "row": RowParallelLinear,
+                        "part": PartColumnLinear}[kind]
     linear.tp = tp
+    linear.runs = runs
 
 
 def split_module(module, tp: TpInfo) -> None:
     """Turn the layers of ``module.tp_linears()`` column- or
     row-parallel, as vast_tpu's owner names class them, and give
-    ``module`` its ``tp``."""
-    from vast_tpu_torch.parallel.mesh import COL
+    ``module`` its ``tp``. A bare weight of the table (CLIP's packed
+    ``in_proj_weight``) is the module's own: its forward splits it."""
+    from vast_tpu_torch.parallel.mesh import COL, tp_params
 
-    for child, (owner, _) in module.tp_linears().items():
-        parallelize(module.get_submodule(child),
-                    "col" if owner in COL else "row", tp)
+    for child, (owner, runs) in module.tp_linears().items():
+        if tp_params(module, child)[0] == f"{child}.weight":
+            parallelize(module.get_submodule(child),
+                        "col" if owner in COL else "row", tp, runs)
     module.tp = tp

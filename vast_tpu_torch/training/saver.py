@@ -19,8 +19,9 @@ In a data-parallel run rank 0 alone writes (the bare module's state, the
 same on every rank) while the others wait at a barrier, and every rank
 restores. A sharded state (``training.step.shard_state``) writes the
 same files as an unsharded one: every rank joins the gathers of the
-whole tensors (reference names and shapes, EVA01's ``qkv`` in reference
-row order), rank 0 writes them; a restore splits them again.
+whole tensors (reference names and shapes, the packed q/k/v weights of
+EVA01, CLIP, Swin and VideoSwin in reference row order: q of every head,
+then k, then v), rank 0 writes them; a restore splits them again.
 """
 
 from __future__ import annotations

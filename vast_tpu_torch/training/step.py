@@ -17,8 +17,8 @@ evaluation never see DDP's ``module.`` prefix.
 
 Parameter sharding (``shard_state``, the counterpart of step.py:96-154):
 on a ``create_mesh(dp, fsdp, tp)`` mesh, ``fsdp`` splits parameters
-over the fsdp axis and ``tp`` splits EVA's, BEATs' and BERT's heads and
-MLPs over the tp axis, by ``combined_param_sharding``'s plan
+over the fsdp axis and ``tp`` splits every tower's heads and MLPs (and
+BERT's) over the tp axis, by ``combined_param_sharding``'s plan
 (``parallel/fsdp.py``); the optimizer's moments are split with their
 parameters. A sharded step needs no DDP: the gathers' backward and
 ``ShardedParams.reduce_grads`` average the gradients over the data
@@ -83,7 +83,7 @@ def shard_state(mesh, state: TrainState, fsdp: bool = False,
                 min_size: int | None = None) -> TrainState:
     """Place ``state`` on ``mesh`` (``parallel.create_mesh``), as
     ``vast_tpu``'s ``shard_state``: ``tp`` splits the column- and
-    row-parallel layers of EVA, BEATs and BERT over the ``tp`` axis,
+    row-parallel layers of the towers and BERT over the ``tp`` axis,
     ``fsdp`` each other parameter of at least ``min_size`` elements over
     ``fsdp`` (``combined_param_sharding``), each only where that axis is
     above one. The optimizer's moments (``opt``, default the state's)
