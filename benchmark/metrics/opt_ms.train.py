@@ -1,0 +1,10 @@
+"""opt_ms.train: the median, over the traced steps, of the device ms of
+the program's span ``vast.train.optimizer`` (the gradient norm, the
+host's wait for it, the per-tensor AdamW update): the interval between
+its timing events, device idle inside it included."""
+
+from benchmark.metrics._spans import step_phase_ms
+
+
+def read(obs):
+    return step_phase_ms(obs, "vast.train.optimizer")

@@ -266,11 +266,21 @@ def test_nan_strikes_abort_after_three(synth, monkeypatch):
 
 def test_profile_steps_write_a_trace(synth):
     """--profile_steps 1: the third step (after two of warm-up) under
-    torch.profiler, its Chrome trace under <output_dir>/log/profile."""
+    torch.profiler, its Chrome trace under <output_dir>/log/profile, and
+    beside it the summary of the spans recorded in that window: one
+    train step with its forward, backward and optimizer."""
     root, cfg = synth
     out = os.path.join(root, "profiled")
     _run(cfg, out, ["--num_train_steps", "3", "--profile_steps", "1"])
-    traces = os.listdir(os.path.join(out, "log", "profile"))
-    assert len(traces) == 1 and traces[0].endswith(".json")
-    with open(os.path.join(out, "log", "profile", traces[0])) as f:
+    files = sorted(os.listdir(os.path.join(out, "log", "profile")))
+    assert len(files) == 2
+    trace, spans = files
+    assert spans == trace[:-len(".json")] + "_spans.json"
+    with open(os.path.join(out, "log", "profile", trace)) as f:
         assert json.load(f)["traceEvents"]
+    with open(os.path.join(out, "log", "profile", spans)) as f:
+        summary = json.load(f)
+    for name in ("vast.train.step", "vast.train.forward",
+                 "vast.train.backward", "vast.train.optimizer"):
+        assert summary[name]["count"] == 1, name
+        assert summary[name]["host_s"] > 0

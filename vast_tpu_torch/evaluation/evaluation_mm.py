@@ -34,12 +34,11 @@ from __future__ import annotations
 
 import json
 import os
-import time
 
 import numpy as np
 import torch
 
-from vast_tpu_torch import parallel
+from vast_tpu_torch import parallel, profiling
 from vast_tpu_torch.config import parse_task_string
 from vast_tpu_torch.device import resolve_device
 from vast_tpu_torch.evaluation.metrics.coco_eval import \
@@ -51,28 +50,6 @@ from vast_tpu_torch.models.generation import GenerationConfig, generate
 from vast_tpu_torch.parallel.collectives import (gather_array, gather_list,
                                                  sum_across_hosts)
 from vast_tpu_torch.parallel.mesh import data_group, tp_group
-
-
-class _StageClock:
-    """Seconds per stage, accumulated into ``timings`` (device work is
-    synchronized at each stage boundary so its time lands in its stage)."""
-
-    def __init__(self, timings, device):
-        self.timings = timings
-        self.cuda = device.type == "cuda"
-
-    def __call__(self, stage, fn, *args, **kwargs):
-        if self.timings is None:
-            return fn(*args, **kwargs)
-        if self.cuda:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if self.cuda:
-            torch.cuda.synchronize()
-        self.timings[stage] = (self.timings.get(stage, 0.0)
-                               + time.perf_counter() - t0)
-        return out
 
 
 def _to_device(batch, device):
@@ -162,68 +139,78 @@ def evaluate_ret(model, subtasks, loader, run_cfg, *,
     from every rank, in rank order).
     ``vision_transforms`` (None: the loader's dataset config, else
     'none') must match the batches' frames. ``device`` (None: the GPU)
-    must be the model's device. ``timings``, when given, receives seconds
-    per stage: ``condition_features``, ``text_features``, ``itc``,
-    ``itm_rerank``. ``mesh``: the gathers run over its data group.
+    must be the model's device. ``mesh``: the gathers run over its data
+    group.
+
+    The evaluation is the span ``vast.eval``; its stages are the spans
+    ``vast.eval.condition_features``, ``.text_features``, ``.itc`` and
+    ``.itm_rerank`` (``profiling.span``). ``timings``, when given,
+    receives each stage's seconds, synchronised at its edges, under the
+    last part of its name (``condition_features``, ...).
     """
     device = _check_device(model, device)
     group = data_group(mesh)
     if vision_transforms is None:
         vision_transforms = _loader_transforms(loader)
-    clock = _StageClock(timings, device)
-    ids, ids_txt, feats_t, toks, masks = [], [], [], [], []
-    cond_feats = {st: [] for st in subtasks}
-    cond_seqs = {st: [] for st in subtasks}
-    for batch, nv, nvt in _full_batches(loader):
-        db = _to_device(batch, device)
-        db["vision_transforms"] = vision_transforms
-        ids += list(batch["ids"])[:nv]
-        ids_txt += list(batch["ids_txt"])[:nvt]
-        out = clock("condition_features", model.condition_features, db,
-                    tuple(subtasks))
-        ft = clock("text_features", model.text_features,
-                   db["caption_tokens"], db["caption_attention_mask"])
+    with profiling.span("vast.eval"):
+        ids, ids_txt, feats_t, toks, masks = [], [], [], [], []
+        cond_feats = {st: [] for st in subtasks}
+        cond_seqs = {st: [] for st in subtasks}
+        for batch, nv, nvt in _full_batches(loader):
+            db = _to_device(batch, device)
+            db["vision_transforms"] = vision_transforms
+            ids += list(batch["ids"])[:nv]
+            ids_txt += list(batch["ids_txt"])[:nvt]
+            with profiling.span("vast.eval.condition_features", timings):
+                out = model.condition_features(db, tuple(subtasks))
+            with profiling.span("vast.eval.text_features", timings):
+                ft = model.text_features(db["caption_tokens"],
+                                         db["caption_attention_mask"])
+            for st in subtasks:
+                cond_feats[st].append(
+                    out[f"feat_cond_{st}"][:nv].float().cpu())
+                cond_seqs[st].append(out[f"condition_feats_{st}"][:nv])
+            feats_t.append(ft[:nvt].float().cpu())
+            toks.append(np.asarray(batch["caption_tokens"])[:nvt])
+            masks.append(np.asarray(batch["caption_attention_mask"])[:nvt])
+
+        # drop the loader's cross-rank alignment duplicates at the epoch's
+        # end, then gather every rank's rows (identity in one process)
+        pt = getattr(loader, "padded_tail", 0)
+
+        def local(parts, cat):
+            x = cat(parts)
+            return gather_array(x[: x.shape[0] - pt], group)
+
+        ids = gather_list(ids[: len(ids) - pt], group)
+        ids_txt = gather_list(ids_txt[: len(ids_txt) - pt], group)
+        feat_t = local(feats_t, torch.cat).numpy()
+        input_ids = local(toks, np.concatenate)
+        attention_mask = local(masks, np.concatenate)
+        top_k = int(run_cfg.get("itm_rerank_num", 50))
+        both = bool(run_cfg.get("ret_bidirection_evaluation"))
+        val_log = {}
         for st in subtasks:
-            cond_feats[st].append(out[f"feat_cond_{st}"][:nv].float().cpu())
-            cond_seqs[st].append(out[f"condition_feats_{st}"][:nv])
-        feats_t.append(ft[:nvt].float().cpu())
-        toks.append(np.asarray(batch["caption_tokens"])[:nvt])
-        masks.append(np.asarray(batch["caption_attention_mask"])[:nvt])
-
-    # drop the loader's cross-rank alignment duplicates at the epoch's
-    # end, then gather every rank's rows (identity in one process)
-    pt = getattr(loader, "padded_tail", 0)
-
-    def local(parts, cat):
-        x = cat(parts)
-        return gather_array(x[: x.shape[0] - pt], group)
-
-    ids = gather_list(ids[: len(ids) - pt], group)
-    ids_txt = gather_list(ids_txt[: len(ids_txt) - pt], group)
-    feat_t = local(feats_t, torch.cat).numpy()
-    input_ids = local(toks, np.concatenate)
-    attention_mask = local(masks, np.concatenate)
-    top_k = int(run_cfg.get("itm_rerank_num", 50))
-    both = bool(run_cfg.get("ret_bidirection_evaluation"))
-    val_log = {}
-    for st in subtasks:
-        fc = local(cond_feats[st], torch.cat).numpy()
-        score = clock("itc", np.matmul, feat_t, fc.T)
-        log = _metric_log(score, ids, ids_txt, "forward")
-        if both:
-            log.update(_metric_log(score, ids, ids_txt, "backward"))
-        val_log[f"ret_itc_{st}"] = log
-        cseq = local(cond_seqs[st], torch.cat)
-        refined = clock("itm_rerank", rerank_scores, model, cseq, input_ids,
-                        attention_mask, score, top_k, "forward", group=group)
-        log = _metric_log(refined, ids, ids_txt, "forward")
-        if both:
-            refined_b = clock("itm_rerank", rerank_scores, model, cseq,
-                              input_ids, attention_mask, score, top_k,
-                              "backward", group=group)
-            log.update(_metric_log(refined_b, ids, ids_txt, "backward"))
-        val_log[f"ret_itm_{st}"] = log
-    return val_log
+            fc = local(cond_feats[st], torch.cat).numpy()
+            with profiling.span("vast.eval.itc", timings):
+                score = np.matmul(feat_t, fc.T)
+            log = _metric_log(score, ids, ids_txt, "forward")
+            if both:
+                log.update(_metric_log(score, ids, ids_txt, "backward"))
+            val_log[f"ret_itc_{st}"] = log
+            cseq = local(cond_seqs[st], torch.cat)
+            refined = rerank_scores(model, cseq, input_ids, attention_mask,
+                                    score, top_k, "forward", group=group,
+                                    timings=timings)
+            log = _metric_log(refined, ids, ids_txt, "forward")
+            if both:
+                refined_b = rerank_scores(model, cseq, input_ids,
+                                          attention_mask, score, top_k,
+                                          "backward", group=group,
+                                          timings=timings)
+                log.update(_metric_log(refined_b, ids, ids_txt, "backward"))
+            val_log[f"ret_itm_{st}"] = log
+        return val_log
 
 
 _DIRECTION_NAMES = {"forward": "video", "backward": "txt"}
@@ -238,7 +225,8 @@ def _metric_log(score, ids, ids_txt, direction):
 @torch.inference_mode()
 def rerank_scores(model, cond_seqs, input_ids, attention_mask, itc_scores,
                   top_k, direction: str = "forward", texts_per_seg: int = 32,
-                  conds_per_call: int = 4, group=None):
+                  conds_per_call: int = 4, group=None,
+                  timings: dict | None = None):
     """ITM probabilities at the ITC top-k cells, 0 elsewhere.
 
     ``direction='forward'`` reranks each text's top-k candidates,
@@ -252,44 +240,52 @@ def rerank_scores(model, cond_seqs, input_ids, attention_mask, itc_scores,
     ranks' matrices, zero off their segments, are summed
     (vast_tpu evaluation_mm.py:327-337); the ranks are those of ``group``
     (None: the world).
+
+    The span ``vast.eval.itm_rerank`` (``timings["itm_rerank"]``, when
+    given) counts this rank's ``pairs`` scored, the ``rows`` of its calls
+    with each call's padding to its longest segment, and its ``calls``.
     """
-    n_text, n_cond = itc_scores.shape
-    if direction == "forward":
-        k = min(top_k, n_cond)
-        top = np.argpartition(-itc_scores, k - 1, axis=1)[:, :k]
-        pair_t = np.repeat(np.arange(n_text), k)
-        pair_c = top.reshape(-1)
-    else:
-        k = min(top_k, n_text)
-        top = np.argpartition(-itc_scores, k - 1, axis=0)[:k]
-        pair_c = np.tile(np.arange(n_cond), k)
-        pair_t = top.reshape(-1)
+    with profiling.span("vast.eval.itm_rerank", timings) as sp:
+        n_text, n_cond = itc_scores.shape
+        if direction == "forward":
+            k = min(top_k, n_cond)
+            top = np.argpartition(-itc_scores, k - 1, axis=1)[:, :k]
+            pair_t = np.repeat(np.arange(n_text), k)
+            pair_c = top.reshape(-1)
+        else:
+            k = min(top_k, n_text)
+            top = np.argpartition(-itc_scores, k - 1, axis=0)[:k]
+            pair_c = np.tile(np.arange(n_cond), k)
+            pair_t = top.reshape(-1)
 
-    by_cand: dict = {}
-    for t, c in zip(pair_t.tolist(), pair_c.tolist()):
-        by_cand.setdefault(c, []).append(t)
-    segs = [(c, ts[s:s + texts_per_seg]) for c, ts in by_cand.items()
-            for s in range(0, len(ts), texts_per_seg)]
-    segs = segs[parallel.group_rank(group)::parallel.group_size(group)]
+        by_cand: dict = {}
+        for t, c in zip(pair_t.tolist(), pair_c.tolist()):
+            by_cand.setdefault(c, []).append(t)
+        segs = [(c, ts[s:s + texts_per_seg]) for c, ts in by_cand.items()
+                for s in range(0, len(ts), texts_per_seg)]
+        segs = segs[parallel.group_rank(group)::parallel.group_size(group)]
 
-    device = cond_seqs.device
-    out = np.zeros_like(itc_scores)
-    for s0 in range(0, len(segs), conds_per_call):
-        call = segs[s0:s0 + conds_per_call]
-        t_max = max(len(ts) for _, ts in call)
-        tmat = np.zeros((len(call), t_max), np.int64)
-        for gi, (_, ts) in enumerate(call):
-            tmat[gi, : len(ts)] = ts                 # pad rows score text 0
-        cands = torch.tensor([c for c, _ in call], device=device)
-        flat = tmat.reshape(-1)
-        scores = model.compute_slice_scores_grouped(
-            cond_seqs[cands],
-            torch.from_numpy(input_ids[flat]).to(device),
-            torch.from_numpy(attention_mask[flat]).to(device))
-        scores = scores.float().cpu().numpy().reshape(len(call), t_max)
-        for gi, (c, ts) in enumerate(call):
-            out[ts, c] = scores[gi, : len(ts)]
-    return sum_across_hosts(out, group)
+        device = cond_seqs.device
+        out = np.zeros_like(itc_scores)
+        for s0 in range(0, len(segs), conds_per_call):
+            call = segs[s0:s0 + conds_per_call]
+            t_max = max(len(ts) for _, ts in call)
+            tmat = np.zeros((len(call), t_max), np.int64)
+            for gi, (_, ts) in enumerate(call):
+                tmat[gi, : len(ts)] = ts         # pad rows score text 0
+            cands = torch.tensor([c for c, _ in call], device=device)
+            flat = tmat.reshape(-1)
+            scores = model.compute_slice_scores_grouped(
+                cond_seqs[cands],
+                torch.from_numpy(input_ids[flat]).to(device),
+                torch.from_numpy(attention_mask[flat]).to(device))
+            scores = scores.float().cpu().numpy().reshape(len(call), t_max)
+            for gi, (c, ts) in enumerate(call):
+                out[ts, c] = scores[gi, : len(ts)]
+            sp.count("pairs", sum(len(ts) for _, ts in call))
+            sp.count("rows", len(flat))
+            sp.count("calls")
+        return sum_across_hosts(out, group)
 
 
 def compute_metric_ret(score_matrix, ids, ids_txt, direction="forward"):
@@ -357,14 +353,14 @@ def _gen_config(tokenizer, **kw):
         **kw)
 
 
-def _condition_batches(model, subtasks, loader, device, clock):
+def _condition_batches(model, subtasks, loader, device, timings):
     """``(batch, nv, {st: condition sequence})`` for each padded batch."""
     vt = _loader_transforms(loader)
     for batch, nv, _ in _full_batches(loader):
         db = _to_device(batch, device)
         db["vision_transforms"] = vt
-        out = clock("condition_features", model.condition_features, db,
-                    tuple(subtasks))
+        with profiling.span("vast.eval.condition_features", timings):
+            out = model.condition_features(db, tuple(subtasks))
         yield batch, nv, {st: out[f"condition_feats_{st}"]
                           for st in subtasks}
 
@@ -380,8 +376,10 @@ def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
     Bleu_1-4, METEOR, ROUGE_L and CIDEr against the dataset's ``annfile``
     where it has one. In ``captioner_mode``: ``generate_nums`` top-10
     samples a clip, flushed to ``gencap_rank{r}_idx{i}_{st}.json`` every
-    20,000 clips, and no metrics. ``timings``: seconds per stage
-    (``condition_features``, ``decode``). In a data-parallel run each
+    20,000 clips, and no metrics. The evaluation is the span
+    ``vast.eval``, its stages the spans ``vast.eval.condition_features``
+    and ``vast.eval.decode``; ``timings``: their synchronised seconds,
+    under ``condition_features`` and ``decode``. In a data-parallel run each
     rank decodes its shard; the captions are gathered (over ``mesh``'s
     data group), rank 0 writes the file and every rank scores them."""
     device = _check_device(model, device)
@@ -391,65 +389,65 @@ def evaluate_cap(model, tokenizer, subtasks, loader, run_cfg, global_step,
     gen_cfg = _gen_config(tokenizer, max_new_tokens=cfg.max_caption_len,
                           num_beams=1 if sample else cfg.beam_size,
                           do_sample=sample, top_k=10, length_penalty=0.6)
-    clock = _StageClock(timings, device)
-    out_dir = os.path.join(run_cfg.get("output_dir", "."),
-                           f"results_test_{dset_name}")
-    os.makedirs(out_dir, exist_ok=True)
-    # captioner_mode: {video_id: [captions]} files as the reference's
-    # (evaluation_mm.py:111-154); else [{'video_id', 'caption'}]
-    results = {st: ({} if sample else []) for st in subtasks}
-    gen_idx = 0
+    with profiling.span("vast.eval"):
+        out_dir = os.path.join(run_cfg.get("output_dir", "."),
+                               f"results_test_{dset_name}")
+        os.makedirs(out_dir, exist_ok=True)
+        # captioner_mode: {video_id: [captions]} files as the reference's
+        # (evaluation_mm.py:111-154); else [{'video_id', 'caption'}]
+        results = {st: ({} if sample else []) for st in subtasks}
+        gen_idx = 0
 
-    def flush_gencap(st):
-        nonlocal gen_idx
-        # one file a data rank: the ranks of a tp group decode the same
-        if mesh is None or parallel.group_rank(tp_group(mesh)) == 0:
-            path = os.path.join(
-                out_dir, f"gencap_rank{parallel.group_rank(group)}_idx"
-                f"{gen_idx}_{st}.json")
-            with open(path, "w") as f:
-                json.dump(results[st], f)
-        gen_idx += 1
-        results[st] = {}
+        def flush_gencap(st):
+            nonlocal gen_idx
+            # one file a data rank: the ranks of a tp group decode the same
+            if mesh is None or parallel.group_rank(tp_group(mesh)) == 0:
+                path = os.path.join(
+                    out_dir, f"gencap_rank{parallel.group_rank(group)}_idx"
+                    f"{gen_idx}_{st}.json")
+                with open(path, "w") as f:
+                    json.dump(results[st], f)
+            gen_idx += 1
+            results[st] = {}
 
-    gn = cfg.generate_nums if sample else 1
-    gen = layers.seeded(int(run_cfg.get("seed", 50)), device)
-    for batch, nv, conds in _condition_batches(model, subtasks, loader,
-                                               device, clock):
-        vids = list(batch["ids"])[:nv]
-        for st in subtasks:
-            cond = conds[st]
-            if gn > 1:
-                cond = cond.repeat_interleave(gn, dim=0)
-            toks = clock("decode", generate, model, cond, gen_cfg,
-                         generator=gen)
-            caps = tokenizer.batch_decode(toks.cpu().numpy())
-            if sample:
-                for i, vid in enumerate(vids):
-                    results[st][vid] = caps[i * gn:(i + 1) * gn]
-                if len(results[st]) > 20000:
+        gn = cfg.generate_nums if sample else 1
+        gen = layers.seeded(int(run_cfg.get("seed", 50)), device)
+        for batch, nv, conds in _condition_batches(model, subtasks, loader,
+                                                   device, timings):
+            vids = list(batch["ids"])[:nv]
+            for st in subtasks:
+                cond = conds[st]
+                if gn > 1:
+                    cond = cond.repeat_interleave(gn, dim=0)
+                with profiling.span("vast.eval.decode", timings):
+                    toks = generate(model, cond, gen_cfg, generator=gen)
+                caps = tokenizer.batch_decode(toks.cpu().numpy())
+                if sample:
+                    for i, vid in enumerate(vids):
+                        results[st][vid] = caps[i * gn:(i + 1) * gn]
+                    if len(results[st]) > 20000:
+                        flush_gencap(st)
+                else:
+                    results[st] += [{"video_id": vid, "caption": cap}
+                                    for vid, cap in zip(vids, caps)]
+        if sample:
+            for st in subtasks:
+                if results[st]:
                     flush_gencap(st)
-            else:
-                results[st] += [{"video_id": vid, "caption": cap}
-                                for vid, cap in zip(vids, caps)]
-    if sample:
-        for st in subtasks:
-            if results[st]:
-                flush_gencap(st)
-        return {}
+            return {}
 
-    pt = getattr(loader, "padded_tail", 0)
-    annfile = getattr(getattr(loader, "dataset", None), "annfile", None)
-    val_log = {}
-    for st in subtasks:
-        rows = gather_list(results[st][:len(results[st]) - pt], group)
-        if parallel.is_main():
-            with open(os.path.join(out_dir, f"step_{global_step}_{st}.json"),
-                      "w") as f:
-                json.dump(rows, f)
-        if annfile:
-            val_log[f"cap_{st}"] = compute_caption_metrics(rows, annfile)
-    return val_log
+        pt = getattr(loader, "padded_tail", 0)
+        annfile = getattr(getattr(loader, "dataset", None), "annfile", None)
+        val_log = {}
+        for st in subtasks:
+            rows = gather_list(results[st][:len(results[st]) - pt], group)
+            if parallel.is_main():
+                with open(os.path.join(
+                        out_dir, f"step_{global_step}_{st}.json"), "w") as f:
+                    json.dump(rows, f)
+            if annfile:
+                val_log[f"cap_{st}"] = compute_caption_metrics(rows, annfile)
+        return val_log
 
 
 @torch.inference_mode()
@@ -461,8 +459,8 @@ def evaluate_qa(model, tokenizer, subtasks, loader, run_cfg, global_step=0,
     (evaluation_mm.py:576-641 of ``vast_tpu``), written to
     ``predict_answers/step{N}_pred_{dset}_{st}.json`` under
     ``output_dir``; the accuracy is the exact match against
-    ``raw_answers`` (any element of a list). ``timings``: seconds per
-    stage (``condition_features``, ``decode``). In a data-parallel run
+    ``raw_answers`` (any element of a list). The spans and ``timings``
+    are ``evaluate_cap``'s. In a data-parallel run
     each rank decodes its shard; the answers and the ground truth are
     gathered (over ``mesh``'s data group), rank 0 writes the file and
     every rank scores them."""
@@ -470,37 +468,38 @@ def evaluate_qa(model, tokenizer, subtasks, loader, run_cfg, global_step=0,
     group = data_group(mesh)
     gen_cfg = _gen_config(tokenizer, max_new_tokens=10,
                           num_beams=model.cfg.beam_size, length_penalty=1.0)
-    clock = _StageClock(timings, device)
-    gt_rows, preds = [], {st: [] for st in subtasks}
-    for batch, nv, conds in _condition_batches(model, subtasks, loader,
-                                               device, clock):
-        gt_rows += list(batch["raw_answers"])[:nv]
-        q_ids = torch.from_numpy(np.asarray(batch["question_tokens"]))
-        q_mask = torch.from_numpy(np.asarray(
-            batch["question_attention_mask"]))
-        b = q_ids.shape[0]
-        prompt = torch.cat([q_ids, torch.full(
-            (b, 1), tokenizer.bos_token_id, dtype=q_ids.dtype)], dim=1)
-        pmask = torch.cat([q_mask, torch.ones((b, 1), dtype=q_mask.dtype)],
-                          dim=1)
-        prompt, pmask = prompt.to(device), pmask.to(device)
-        for st in subtasks:
-            toks = clock("decode", generate, model, conds[st], gen_cfg,
-                         prompt_ids=prompt, prompt_mask=pmask)
-            preds[st] += tokenizer.batch_decode(toks.cpu().numpy())[:nv]
+    with profiling.span("vast.eval"):
+        gt_rows, preds = [], {st: [] for st in subtasks}
+        for batch, nv, conds in _condition_batches(model, subtasks, loader,
+                                                   device, timings):
+            gt_rows += list(batch["raw_answers"])[:nv]
+            q_ids = torch.from_numpy(np.asarray(batch["question_tokens"]))
+            q_mask = torch.from_numpy(np.asarray(
+                batch["question_attention_mask"]))
+            b = q_ids.shape[0]
+            prompt = torch.cat([q_ids, torch.full(
+                (b, 1), tokenizer.bos_token_id, dtype=q_ids.dtype)], dim=1)
+            pmask = torch.cat([q_mask, torch.ones((b, 1), dtype=q_mask.dtype)],
+                              dim=1)
+            prompt, pmask = prompt.to(device), pmask.to(device)
+            for st in subtasks:
+                with profiling.span("vast.eval.decode", timings):
+                    toks = generate(model, conds[st], gen_cfg,
+                                    prompt_ids=prompt, prompt_mask=pmask)
+                preds[st] += tokenizer.batch_decode(toks.cpu().numpy())[:nv]
 
-    pt = getattr(loader, "padded_tail", 0)
-    gt_rows = gather_list(gt_rows[:len(gt_rows) - pt], group)
-    out_dir = os.path.join(run_cfg.get("output_dir", "."), "predict_answers")
-    os.makedirs(out_dir, exist_ok=True)
-    val_log = {}
-    for st in subtasks:
-        rows = gather_list(preds[st][:len(preds[st]) - pt], group)
-        if parallel.is_main():
-            with open(os.path.join(
-                    out_dir, f"step{global_step}_pred_{dset_name}_{st}.json"),
-                    "w") as f:
-                json.dump(rows, f)
-        acc = exact_match_accuracy(rows, gt_rows)
-        val_log[f"vqa_{st}"] = {"accuracy": round(acc * 100, 2)}
-    return val_log
+        pt = getattr(loader, "padded_tail", 0)
+        gt_rows = gather_list(gt_rows[:len(gt_rows) - pt], group)
+        out_dir = os.path.join(run_cfg.get("output_dir", "."),
+                               "predict_answers")
+        os.makedirs(out_dir, exist_ok=True)
+        val_log = {}
+        for st in subtasks:
+            rows = gather_list(preds[st][:len(preds[st]) - pt], group)
+            if parallel.is_main():
+                name = f"step{global_step}_pred_{dset_name}_{st}.json"
+                with open(os.path.join(out_dir, name), "w") as f:
+                    json.dump(rows, f)
+            acc = exact_match_accuracy(rows, gt_rows)
+            val_log[f"vqa_{st}"] = {"accuracy": round(acc * 100, 2)}
+        return val_log

@@ -46,9 +46,13 @@ same rows (pass the mesh to ``create_train_dataloaders`` and
 ``fsdp`` / ``tp`` flags change nothing there, as in ``vast_tpu``.
 
 ``timings``, where a caller passes a dict, receives seconds per stage:
-``train_loader_wait`` (blocked on the loader), ``train_step``
-(synchronized after each step) and the evaluation's stages
-(``evaluate_ret``, ``evaluate_cap``, ``evaluate_qa``).
+``train_loader_wait`` (blocked on the loader, the span
+``vast.train.loader_wait``), ``train_step`` (synchronized after each
+step) and the evaluation's stages (``evaluate_ret``, ``evaluate_cap``,
+``evaluate_qa``). ``profile_steps`` N records steps 3 to N + 2 under
+``torch.profiler`` (``profiling.py``): a Chrome trace under
+``<output_dir>/log/profile``, and beside it the summary of the spans
+recorded in that window.
 """
 
 from __future__ import annotations
@@ -215,7 +219,8 @@ def _device_batches(batches, device, timings=None):
     while True:
         t0 = time.perf_counter()
         try:
-            name, batch = next(it)
+            with profiling.span("vast.train.loader_wait"):
+                name, batch = next(it)
         except StopIteration:
             break
         if timings is not None:
@@ -293,7 +298,6 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
     seed = run_cfg.get("seed", 50)
     metrics_every = int(run_cfg.get("metrics_every", 10))
     global_step = start_step
-    timer = profiling.StepTimer()
     nan_strikes = 0
     profile_steps = int(run_cfg.get("profile_steps") or 0)
     profile_dir = os.path.join(run_cfg.output_dir, "log", "profile")
@@ -351,13 +355,12 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
             else:
                 nan_strikes = 0
         step_s.append(time.perf_counter() - t0)
-        timer.tick()
         if global_step % 50 == 0:
             LOGGER.info({m.name: None if m.val is None else round(m.val, 4)
                          for m in meters.values()})
-            if timer.ema_s:
-                LOGGER.info("step time ema %.3fs (%.2f steps/s)",
-                            timer.ema_s, 1.0 / timer.ema_s)
+            mean_s = sum(step_s) / len(step_s)
+            LOGGER.info("step time %.3fs, mean of the last %d (%.2f steps/s)",
+                        mean_s, len(step_s), 1.0 / mean_s)
 
         if (global_step + 1) % run_cfg.valid_steps == 0 or \
                 global_step >= num_steps:
@@ -388,8 +391,12 @@ def train(model: VASTModel, opts, tokenizer, train_loader, val_loaders,
     if prof is not None:
         # the run ended inside the profile window: keep what it recorded
         profiling.stop_trace(prof, profile_dir, device)
-    if timer.summary():
-        LOGGER.info("step timing: %s", timer.summary())
+    if step_s:
+        hist = sorted(step_s)
+        n = len(hist)
+        LOGGER.info("step timing: %s", {
+            "steps": n, "mean_s": sum(hist) / n, "p50_s": hist[n // 2],
+            "p90_s": hist[int(n * 0.9)], "max_s": hist[-1]})
     if ddp is not None:
         # DDP's own timing (its sampled steps: the first ten, then every
         # hundredth, each read at the next synchronised forward)

@@ -42,6 +42,7 @@ import torch
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
+from vast_tpu_torch import profiling
 from vast_tpu_torch.logger import LOGGER
 from vast_tpu_torch.parallel import collectives
 from vast_tpu_torch.parallel import mesh as pmesh
@@ -132,6 +133,9 @@ def make_train_step(model: nn.Module, opt: GroupedAdam, task: str,
     selects the on-device augmentation ('none' or 'crop_flip'). Metrics
     are the task's losses and ``total_loss`` (their sum), as 0-d tensors
     on the device. The gradients stay in ``.grad`` until the next step.
+    A step is the span ``vast.train.step``, with the children
+    ``vast.train.forward``, ``.backward`` and ``.optimizer``
+    (``profiling.py``).
 
     ``ddp``: ``model`` under ``data_parallel``; the forward runs through
     it and the metrics are the means over the ranks. Under gradient
@@ -153,29 +157,34 @@ def make_train_step(model: nn.Module, opt: GroupedAdam, task: str,
              else None if ddp is None else ddp.process_group)
 
     def step(state: TrainState, batch, generator: torch.Generator):
-        window_end = opt.mini_step == opt.accum - 1
-        if split and window_end:
-            opt.grads_from_window()
-        else:
-            model.zero_grad(set_to_none=True)
-        batch_in = dict(batch)
-        batch_in["vision_transforms"] = vision_transforms
-        local = ddp is not None and not window_end
-        with ddp.no_sync() if local else contextlib.nullcontext():
-            out = forward(batch_in, task, compute_loss=True,
-                          generator=generator)
-            total = sum(out.values())
-            total.backward()
-        if sharding is not None:
-            sharding.reduce_grads()
-        opt.step(window_sum=split and window_end)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in out.items()}
-        metrics["total_loss"] = total.detach()
-        if ddp is not None or sharding is not None:
-            mean = collectives.all_reduce_mean(
-                torch.stack([v.float() for v in metrics.values()]), group)
-            metrics = dict(zip(metrics, mean.unbind()))
-        return state, metrics
+        with profiling.span("vast.train.step"):
+            window_end = opt.mini_step == opt.accum - 1
+            if split and window_end:
+                opt.grads_from_window()
+            else:
+                model.zero_grad(set_to_none=True)
+            batch_in = dict(batch)
+            batch_in["vision_transforms"] = vision_transforms
+            local = ddp is not None and not window_end
+            with ddp.no_sync() if local else contextlib.nullcontext():
+                with profiling.span("vast.train.forward"):
+                    out = forward(batch_in, task, compute_loss=True,
+                                  generator=generator)
+                    total = sum(out.values())
+                with profiling.span("vast.train.backward"):
+                    total.backward()
+                    if sharding is not None:
+                        sharding.reduce_grads()
+            with profiling.span("vast.train.optimizer"):
+                opt.step(window_sum=split and window_end)
+            state.step += 1
+            metrics = {k: v.detach() for k, v in out.items()}
+            metrics["total_loss"] = total.detach()
+            if ddp is not None or sharding is not None:
+                mean = collectives.all_reduce_mean(
+                    torch.stack([v.float() for v in metrics.values()]),
+                    group)
+                metrics = dict(zip(metrics, mean.unbind()))
+            return state, metrics
 
     return step
