@@ -282,6 +282,23 @@ exits non-zero with no result line:
               giving the sharded evaluation's scores within the stated
               bf16 tolerance (R@k but across near-ties); rows 1-4 and 6
               (the 640 x 4438 rerank at 6 heads) exactly as counted.
+28. adam (after train_clip_ast) - the optimizer's multi-tensor kernel
+              (csrc/multi_tensor_adam.cu) at the parameter sets and run_cfg
+              of the benchmark's two configurations (1.25 B and 0.53 B fp32
+              parameters, fp32 moments, AdamW): one update with the launch
+              counter zeroed just before (one launch over every trainable
+              tensor), then the per-tensor loop on the CPU from the same
+              state (on the card the loop divides by a host scalar as a
+              product with its reciprocal): moments within 2 ulps,
+              parameters within 2 of (an ulp of the parameter + an ulp
+              of its step: the CPU's sqrt is not always correctly
+              rounded);
+              the update's time by CUDA events, the kernel's device time,
+              the loop's and the library's fused AdamW (a yardstick the
+              port never calls), against the bound of 28 bytes a
+              parameter. Every train phase (7, 10, 20) also counts one
+              launch of it a step, every tensor updated by it; ddp_step,
+              shard_step and shard_train one a step on every rank.
 
 Then the seconds of every phase (``{"phase_seconds": {...}}``), the
 ``{"kernels": [...]}`` line (each row's launches from its path's
@@ -291,7 +308,8 @@ for the 16-frame rerank, the towers' slice and train runs for their
 shapes, the pretraining run for its rerank, rank 0 of shard_train and
 of shard_towers for a tp rank's heads; 0 for the rows no path
 reaches; each row names its bf16 body and its launches on the other new
-paths) and, last, the ``{"ok": true,
+paths; the optimizer's kernel a row a configuration, its launches those
+of train and train_clip_ast) and, last, the ``{"ok": true,
 ...}`` line. Imports nothing of JAX or of ``vast_tpu``.
 """
 
@@ -2281,11 +2299,14 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step,
     from vast_tpu_torch.convert.from_jax import init_random_
     from vast_tpu_torch.models.vast import VASTConfig, VASTModel
     from vast_tpu_torch.ops import flash_attention as fa
+    from vast_tpu_torch.training import optimizer as optim_mod
     from vast_tpu_torch.training.optimizer import (build_optimizer,
                                                    global_norm)
     from vast_tpu_torch.training.step import (create_train_state,
                                               make_train_step)
 
+    # one launch of the optimizer's kernel a step, over every tensor
+    launches_per_step = {"multi_tensor_adam": 1} | launches_per_step
     t0 = time.perf_counter()
     cfg = VASTConfig(dtype=torch.bfloat16, param_dtype=torch.float32,
                      checkpointing=True, remat_policy="attn", **cfg_kw)
@@ -2348,8 +2369,9 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step,
     with TowerLaunches(fa, model) as by_tower:
         fa.flash_attention_bwd = tallied_bwd
         zero_launches(fa)
+        zero_launches(optim_mod)
         block()
-        launches = dict(fa.LAUNCHES)
+        launches = dict(fa.LAUNCHES) | optim_mod.LAUNCHES
         fa.flash_attention_bwd = bwd
     lse_by_tower = {t: c.get("flash_attention_fwd_lse", 0)
                     for t, c in by_tower.items()}
@@ -2362,6 +2384,9 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step,
     check(launches == want, f"{phase} launches {launches} != {want} (per "
           f"step {launches_per_step}: the forward is not re-run in the "
           f"'attn' recompute)")
+    check(opt.last_counts == {"tensors": len(opt.params), "launches": 1},
+          f"{phase}: the optimizer's kernel updated {opt.last_counts} of "
+          f"{len(opt.params)} tensors")
     for row in losses:
         for k, v in row.items():
             check(math.isfinite(v), f"{phase} {k} = {v}")
@@ -2430,7 +2455,243 @@ def phase_train_clip_ast(torch, np):
           and bwd_by_lq == {577: 24 * n, 257: 12 * n},
           f"lse forwards by tower {lse_by_tower} and backwards by query "
           f"length {bwd_by_lq} over {n} steps")
-    return lse_by_tower, bwd_by_lq
+    return lse_by_tower, bwd_by_lq, launches["multi_tensor_adam"]
+
+
+# the optimizer's kernel at the parameter sets of the benchmark's two
+# configurations (benchmark/configs), with their run_cfg: fp32 parameters
+# and moments, AdamW over six groups
+ADAM_CONFIGS = ("vast_evaclip01g_beats", "vast_clipl336_ast")
+ADAM_SOURCE = "vast_tpu_torch/csrc/multi_tensor_adam.cu"
+ADAM_ULPS = 2        # the kernel against the per-tensor loop, each element
+ADAM_FLOPS = 16      # fp32 operations an element of the AdamW update
+
+
+def ulps(torch, got, want):
+    """The largest distance between ``got`` and ``want`` (fp32 or bf16)
+    in units in the last place of their dtype, a device scalar."""
+    def ordered(x):
+        bits, mask = ((torch.int16, 0x7FFF) if x.dtype == torch.bfloat16
+                      else (torch.int32, 0x7FFFFFFF))
+        i = x.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, -(i & mask), i)
+
+    return (ordered(got) - ordered(want)).abs().max()
+
+
+def ulp(torch, x):
+    """The distance from each element of ``x`` to the next float of its
+    dtype away from zero."""
+    a = x.abs()
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
+def adam_model(torch, name):
+    """Benchmark configuration ``name``'s model on the card (fp32
+    parameters, its own init), ``GroupedAdam`` from the configuration's
+    run_cfg, and a seeded gradient for every parameter."""
+    from vast_tpu_torch.models.vast import VASTConfig, VASTModel
+    from vast_tpu_torch.training.optimizer import build_optimizer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "benchmark", "configs",
+                           f"{name}.json")) as f:
+        cfg = json.load(f)
+    m = {k: cfg[k] for k in ("vision_encoder_type", "audio_encoder_type",
+                             "vision_resolution", "audio_melbins",
+                             "audio_target_length", "contra_dim",
+                             "itm_ratio", "max_vision_sample_num",
+                             "max_caption_len", "beam_size")}
+    m |= {"vision_cfg": cfg["vision"], "audio_cfg": cfg["audio"],
+          "bert_cfg": cfg["bert"]}
+    model = VASTModel(VASTConfig.from_model_cfg(
+        m, dtype=torch.bfloat16, param_dtype=torch.float32), device="cuda")
+    opt, _ = build_optimizer(model, cfg["run_cfg"], {
+        "vision_encoder_type": cfg["vision_encoder_type"]}, 1000)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():
+        for p in opt.params.values():
+            p.grad = torch.randn(p.shape, device="cuda",
+                                 generator=gen) * 1e-3
+    return model, opt
+
+
+def fused_adamw(torch, opt):
+    """The library's fused AdamW over ``opt``'s tensors, one
+    ``torch._fused_adamw_`` call a group (its LR and weight decay): a
+    yardstick the port never calls. It updates mu as a lerp and decays
+    the weight before the step, so its values are not compared."""
+    from vast_tpu_torch.training.optimizer import EPS
+
+    groups = {}
+    for n, label in opt.labels.items():
+        if n in opt.params:
+            groups.setdefault(label, []).append(n)
+    step = torch.tensor(float(opt.count), device="cuda")
+    calls = []
+    for label, names in groups.items():
+        group = label.removesuffix("_nd")
+        calls.append((
+            [opt.params[n] for n in names],
+            [opt.params[n].grad for n in names],
+            [opt.mu[n] for n in names], [opt.nu[n] for n in names],
+            [step] * len(names),
+            dict(lr=opt.lr(group, opt.count), beta1=opt.b1, beta2=opt.b2,
+                 weight_decay=(0.0 if label.endswith("_nd")
+                               else opt.weight_decay),
+                 eps=EPS, amsgrad=False, maximize=False)))
+
+    @torch.no_grad()
+    def run():
+        for p, g, mu, nu, st, kw in calls:
+            torch._fused_adamw_(p, g, mu, nu, [], st, **kw)
+
+    return run
+
+
+def phase_adam(torch, device_name):
+    """The optimizer's kernel at both benchmark configurations' parameter
+    sets: after two warm-up updates (the build, the tables), one update
+    through the kernel with its launch counter zeroed just before (one
+    launch, every trainable tensor), then the per-tensor loop on the CPU
+    from the same state, tensor by tensor, element by element: moments
+    within ADAM_ULPS of the kernel's, parameters within ADAM_ULPS of an
+    ulp of the parameter plus an ulp of its step. Then
+    times: the kernel's update by CUDA events (reps back to back, so the
+    host's pass over the gradients hides behind the device's work where
+    the device is slower) and the host's ms of a call; the kernel's device
+    ms (profiler); the loop's; the library's fused AdamW over the same
+    tensors; the bound, 28 bytes a parameter with fp32 moments."""
+    from vast_tpu_torch.training import optimizer as optim_mod
+
+    rows = {}
+    for name in ADAM_CONFIGS:
+        model, opt = adam_model(torch, name)
+        params = opt.params
+        for _ in range(2):
+            opt.step()
+        snap = {n: (p.detach().clone(), opt.mu[n].clone(),
+                    opt.nu[n].clone()) for n, p in params.items()}
+        zero_launches(optim_mod)
+        opt.step()
+        launches = optim_mod.LAUNCHES["multi_tensor_adam"]
+        counts = dict(opt.last_counts)
+        check(launches == 1 and counts == {"tensors": len(params),
+                                           "launches": 1},
+              f"adam {name}: {launches} launches, counts {counts} for "
+              f"{len(params)} tensors")
+        k = opt.count
+        c1, c2 = 1.0 - opt.b1 ** k, 1.0 - opt.b2 ** k
+        worst = dict.fromkeys(("param", "mu", "nu", "param_and_step"), 0)
+        abs_err = 0.0
+        with torch.no_grad():
+            for n, p in params.items():
+                card = (p, opt.mu[n], opt.nu[n])
+                got = [t.cpu() for t in card]
+                # the loop on the CPU: on the card it divides by a host
+                # scalar as a product with its reciprocal, an ulp off
+                cpu = [t.cpu() for t in snap.pop(n)]
+                before = cpu[0].clone()
+                opt.params[n], opt.mu[n], opt.nu[n] = cpu
+                try:
+                    opt._update_plain(n, p.grad.cpu(), None, k, c1, c2)
+                finally:
+                    opt.params[n], opt.mu[n], opt.nu[n] = card
+                for key, a, b in zip(worst, got, cpu):
+                    worst[key] = max(worst[key], ulps(torch, a, b).item())
+                diff = (got[0] - cpu[0]).abs()
+                abs_err = max(abs_err, diff.max().item())
+                # the CPU's sqrt is not always correctly rounded (up to
+                # 0.56 ulp), so its step may be an ulp off, which is many
+                # ulps of a parameter near zero: the parameter's error in
+                # units of (an ulp of it + an ulp of its step)
+                worst["param_and_step"] = max(
+                    worst["param_and_step"],
+                    (diff / (ulp(torch, cpu[0])
+                             + ulp(torch, cpu[0] - before))).max().item())
+        check(max(worst["mu"], worst["nu"], worst["param_and_step"])
+              <= ADAM_ULPS, f"adam {name}: kernel against the loop, ulps "
+              f"{worst}")
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step()
+            host.append((time.perf_counter() - t0) * 1e3)
+        kernel_ms = time_ms(torch, opt.step, reps=5, rounds=5, warmup=2)
+        dev = mean_device_ms([e for e in profiled_kernels(torch, opt.step, 5)
+                              if "multi_tensor_adam" in e.key])
+
+        @torch.no_grad()
+        def plain():
+            opt.count += 1
+            k = opt.count
+            c1, c2 = 1.0 - opt.b1 ** k, 1.0 - opt.b2 ** k
+            for n, p in params.items():
+                opt._update_plain(n, p.grad, None, k, c1, c2)
+
+        plain_ms = time_ms(torch, plain, reps=1, rounds=3, warmup=1)
+        library_note = ("torch._fused_adamw_, a call a group; mu as a "
+                        "lerp, the weight decayed before the step")
+        try:
+            library = fused_adamw(torch, opt)
+            library_ms = time_ms(torch, library, reps=5, rounds=5, warmup=2)
+            library_dev = call_device_ms(torch, library, 5)
+        except (AttributeError, RuntimeError, TypeError) as e:
+            library_ms = library_dev = None
+            library_note = f"not measured: {type(e).__name__}: {e}"
+        n_params = sum(p.numel() for p in params.values())
+        moment_bytes = (next(iter(opt.mu.values())).element_size()
+                        + next(iter(opt.nu.values())).element_size())
+        nbytes = n_params * (3 * 4 + 2 * moment_bytes)
+        flops = n_params * ADAM_FLOPS
+        bound_ms, bound_by = bound(torch, device_name, nbytes, flops,
+                                   torch.float32)
+        row = {"phase": "adam", "at": name, "params": n_params,
+               "tensors": len(params), "chunks": opt._fused.n_chunks,
+               "moments": str(next(iter(opt.mu.values())).dtype),
+               "launches": launches, "counts": counts, "max_ulps": worst,
+               "max_abs_err": abs_err, "kernel_ms": kernel_ms,
+               "host_ms": statistics.median(host), "device_ms": dev,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_device_ms": library_dev,
+               "library_note": library_note, "bytes": nbytes,
+               "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": None if dev is None else bound_ms / dev}
+        emit(row)
+        rows[name] = row
+        del model, opt, params
+        torch.cuda.empty_cache()
+    return rows
+
+
+def adam_counts(opt):
+    """The optimizer kernel's launches since they were zeroed, the
+    tensors its last update gave the kernel and the trainable tensors."""
+    from vast_tpu_torch.training import optimizer as optim_mod
+
+    return {"kernel_launches": optim_mod.LAUNCHES["multi_tensor_adam"],
+            "tensors": opt.last_counts["tensors"],
+            "trainable": len(opt.params)}
+
+
+def adam_rows(rows, launches_at):
+    """The ``kernels`` entries of the optimizer's kernel: phase adam's
+    ``rows`` by configuration, each with its launches on its path's
+    counted run (``launches_at``: configuration -> (phase, launches))."""
+    line = []
+    for at, r in rows.items():
+        path, launches = launches_at[at]
+        line.append({
+            "name": "multi_tensor_adam", "at": at, "route": "cuda",
+            "source": ADAM_SOURCE, "replaces": None, "replaces_also": [],
+            "path": path, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "body": "multi_tensor_adam_kernel", "device_ms": r["device_ms"],
+            "device_ms_by_kernel": None, "launches_by_path": {}})
+    return line
 
 
 CLI_WORDS = ("a man woman dog cat is run walk play ball park red blue green "
@@ -3680,6 +3941,7 @@ def ddp_step_run(torch, np, rank, world, dev, ref_path, save):
     else rank 0 returns their errors against it."""
     from vast_tpu_torch.ops import flash_attention as fa
     from vast_tpu_torch.parallel import collectives
+    from vast_tpu_torch.training import optimizer as optim_mod
     from vast_tpu_torch.training.step import (create_train_state,
                                               data_parallel, make_train_step)
 
@@ -3691,6 +3953,7 @@ def ddp_step_run(torch, np, rank, world, dev, ref_path, save):
     batch = ddp_rows(torch, np, rank, world, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     zero_launches(fa)
+    zero_launches(optim_mod)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     _, metrics = step(create_train_state(model, opt), batch,
@@ -3701,6 +3964,7 @@ def ddp_step_run(torch, np, rank, world, dev, ref_path, save):
            "step_s": seconds,
            "grad_allreduce_s": clock.seconds,
            "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+           "adam": adam_counts(opt),
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
            "metrics": {k: v.item() for k, v in metrics.items()}}
     named = dict(model.named_parameters())
@@ -3874,6 +4138,9 @@ def phase_ddp_step(torch, np, tmp):
                   f"ddp_step {name} rank {r['rank']}: launches "
                   f"{r['launches']} != {want}")
             check(r["ranks_agree"], f"ddp_step {name}: ranks' gradients")
+            check(r["adam"]["kernel_launches"] == 1 and r["adam"]["tensors"]
+                  == r["adam"]["trainable"], f"ddp_step {name} rank "
+                  f"{r['rank']}: the optimizer's kernel {r['adam']}")
             check(all(math.isfinite(v) for v in r["metrics"].values()),
                   f"ddp_step {name}: metrics {r['metrics']}")
     emit({"phase": "ddp_step", "task": "ret%tvas", "global_batch": BATCH,
@@ -4179,6 +4446,7 @@ def shard_step_run(torch, np, rank, world, dev, ref_path):
     from vast_tpu_torch import parallel
     from vast_tpu_torch.ops import flash_attention as fa
     from vast_tpu_torch.parallel import collectives
+    from vast_tpu_torch.training import optimizer as optim_mod
     from vast_tpu_torch.training.pipeline import shard_bytes
     from vast_tpu_torch.training.step import (create_train_state,
                                               make_train_step, shard_state)
@@ -4195,6 +4463,7 @@ def shard_step_run(torch, np, rank, world, dev, ref_path):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_launches(fa)
+    zero_launches(optim_mod)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     state, metrics = step(state, batch, torch.Generator().manual_seed(SEED))
@@ -4203,6 +4472,7 @@ def shard_step_run(torch, np, rank, world, dev, ref_path):
     out = {"rank": rank, "world": world, "device": str(dev),
            "data_rank": [drank, dsize], "step_s": seconds,
            "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+           "adam": adam_counts(state.opt),
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
            "metrics": {k: v.item() for k, v in metrics.items()},
            "heads": heads_by_stage(model), "bytes": shard_bytes(state),
@@ -4254,6 +4524,9 @@ def phase_shard_step(torch, np, tmp):
                   f"{r['rank']}: launches {r['launches']} != {want}")
             check(r["heads"] == SHARD_HEADS, f"shard_step {name} rank "
                   f"{r['rank']}: heads {r['heads']}")
+            check(r["adam"]["kernel_launches"] == 1 and r["adam"]["tensors"]
+                  == r["adam"]["trainable"], f"shard_step {name} rank "
+                  f"{r['rank']}: the optimizer's kernel {r['adam']}")
             check(r["ranks_agree"], f"shard_step {name}: the ranks' whole "
                   f"parameters")
             for key in ("param_bytes", "moment_bytes"):
@@ -4690,6 +4963,7 @@ def shard_train_run(torch, np, rank, world, dev, cfg_path, reduced,
     rank, over the same mesh."""
     from vast_tpu_torch import parallel, run
     from vast_tpu_torch.ops import flash_attention as fa
+    from vast_tpu_torch.training import optimizer as optim_mod
     from vast_tpu_torch.training import pipeline
     from vast_tpu_torch.training.optimizer import build_optimizer
     from vast_tpu_torch.training.step import create_train_state
@@ -4711,6 +4985,7 @@ def shard_train_run(torch, np, rank, world, dev, cfg_path, reduced,
     # one evaluation and one save, after the last step
     opts.run_cfg.valid_steps = SHARD_STEPS + 2
     zero_launches(fa)
+    zero_launches(optim_mod)
     torch.cuda.reset_peak_memory_stats(dev)
     timings, sharded_scores, tested_scores = {}, [], []
     t0 = time.perf_counter()
@@ -4724,6 +4999,7 @@ def shard_train_run(torch, np, rank, world, dev, cfg_path, reduced,
            "timings": timings, "heads": heads_by_stage(model),
            "sharded": state.sharding is not None,
            "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+           "adam": adam_counts(state.opt),
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
            "bytes": pipeline.shard_bytes(state),
            "logged": {k: dict(v) for k, v in logged.items()}}
@@ -4861,6 +5137,10 @@ def phase_shard_train(torch, np, root):
               f"heads {r['heads']}")
         check(r["launches"] == want, f"shard_train rank {r['rank']}: "
               f"launches {r['launches']} != {want}")
+        check(r["adam"]["kernel_launches"] == SHARD_STEPS
+              and r["adam"]["tensors"] == r["adam"]["trainable"],
+              f"shard_train rank {r['rank']}: the optimizer's kernel "
+              f"{r['adam']} over {SHARD_STEPS} steps")
         check(r["test_launches"] == evaluation, f"shard_train rank "
               f"{r['rank']}: testing launches {r['test_launches']}")
         check(r["logged"] == r0["logged"], "the ranks' evaluations")
@@ -4907,7 +5187,7 @@ def phase_shard_train(torch, np, root):
           "wall_s": wall,
           "ranks": {r["rank"]: {k: r[k] for k in (
               "train_s", "timings", "max_memory_allocated", "bytes",
-              "launches")} for r in ranks},
+              "launches", "adam")} for r in ranks},
           "launches_per_rank": {"train": want, "testing": evaluation},
           "r_at_k": {"sharded": {name[len(key) + 1:]: hist[str(SHARD_STEPS)]
                                  for name, hist in r0["logged"].items()},
@@ -5077,9 +5357,10 @@ def main():
     timed("tiny_clip_ast", phase_tiny_clip_ast, torch, np)
     _, ca_by_stage = timed("slice_clip_ast", phase_slice_clip_ast, torch, np)
     torch.cuda.empty_cache()
-    ca_lse_by_tower, ca_bwd_by_lq = timed("train_clip_ast",
-                                          phase_train_clip_ast, torch, np)
+    ca_lse_by_tower, ca_bwd_by_lq, ca_adam = timed(
+        "train_clip_ast", phase_train_clip_ast, torch, np)
     torch.cuda.empty_cache()
+    adam = timed("adam", phase_adam, torch, device_name)
     towers = timed("slice_towers", phase_slice_towers, torch, np)
     train_towers = timed("train_towers", phase_train_towers, torch, np)
     torch.cuda.empty_cache()
@@ -5231,9 +5512,14 @@ def main():
             "shard_towers (rank 0 of 4, fp32)"] = sum(
                 shard_towers[m]["launches"][row[0]]
                 for m in ("videoswin_beats", "swin_beats"))
+    # the optimizer's kernel: a launch a step of each train phase's counted
+    # block (its own configuration's parameter set)
     emit({"kernels": kernels_line(
         [rows[(i, torch.bfloat16)] for i in range(len(KERNELS))],
-        launches_at, by_path)})
+        launches_at, by_path) + adam_rows(adam, {
+            "vast_evaclip01g_beats": (
+                "train", train_launches["multi_tensor_adam"]),
+            "vast_clipl336_ast": ("train_clip_ast", ca_adam)})})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -170,6 +170,37 @@ def test_train_step_phases(model):
     assert children[-1]["end_ns"] <= root["end_ns"]
 
 
+def test_optimizer_span_counts_the_kernels_tensors_and_launches(model):
+    """The optimizer's span counts what ``opt.last_counts`` says of each
+    update: on the CPU no tensor of the kernel and no launch; summed over
+    steps by ``summary``."""
+    batch = dict(raw_batch(np.random.RandomState(3)),
+                 itm_neg_cond_idx=np.array([[2, 0, 1]], np.int32),
+                 itm_neg_text_idx=np.array([[1, 2, 0]], np.int32))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    opt, _ = build_optimizer(model, {"learning_rate": 1e-4}, {}, 10)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, "ret%tva")
+    with profiling.recording():
+        step(state, batch, torch.Generator().manual_seed(0))
+    counts = _by_name(profiling.spans())["vast.train.optimizer"]["counts"]
+    assert counts == {"tensors": 0, "launches": 0}
+    plain_step = opt.step
+
+    def step_as_on_the_card(**kw):
+        applied = plain_step(**kw)
+        opt.last_counts = {"tensors": len(opt.params), "launches": 1}
+        return applied
+
+    opt.step = step_as_on_the_card
+    with profiling.recording():
+        for _ in range(2):
+            step(state, batch, torch.Generator().manual_seed(0))
+    row = profiling.summary()["vast.train.optimizer"]
+    assert row["count"] == 3
+    assert row["counts"] == {"tensors": 2 * len(opt.params), "launches": 2}
+
+
 class _GroupedScores:
     """A model whose grouped ITM call scores 0 and keeps each call's
     text rows."""

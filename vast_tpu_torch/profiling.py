@@ -4,9 +4,10 @@ A span (:func:`span`) marks one piece of the program's work:
 
 * ``vast.train.step``, the root of one ``make_train_step`` step, and its
   children ``vast.train.forward`` (forward and losses), ``.backward``
-  (with the sharded gradients' reduction) and ``.optimizer``
-  (``training/step.py``); ``vast.train.loader_wait``, the train loop
-  blocked on its loader (``training/pipeline.py``);
+  (with the sharded gradients' reduction) and ``.optimizer``, which
+  counts the ``tensors`` its kernel updated and the kernel's
+  ``launches`` (``training/step.py``); ``vast.train.loader_wait``, the
+  train loop blocked on its loader (``training/pipeline.py``);
 * ``vast.eval``, the root of one ``evaluate_ret``, ``evaluate_cap`` or
   ``evaluate_qa``, and its stages ``vast.eval.condition_features``,
   ``.text_features``, ``.itc``, ``.itm_rerank`` (which counts the

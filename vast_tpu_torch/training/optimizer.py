@@ -47,16 +47,40 @@ of the same parts; the clipping norm is that of the whole gradient
 ``vast_tpu``'s ``clip_by_global_norm`` sees the whole tree), and
 ``state_dict`` / ``load_state_dict`` keep the reference names and whole
 shapes, gathered on save and split again on load.
+
+On CUDA one launch of a hand-written kernel (``csrc/multi_tensor_adam.cu``,
+built at the first CUDA step) updates every tensor, with the arithmetic
+above element by element in fp32; it takes contiguous fp32 parameters on
+one card with fp32 or bf16 moments, and the optimizer refuses any other
+CUDA tensor. The per-tensor loop (``GroupedAdam._update_plain``) updates
+CPU tensors and is the plain version the kernel is held to. The kernel's
+tables of parameter and moment pointers are built at the first CUDA step
+and again after ``reshard``, ``load_state_dict`` or a parameter's storage
+moving; a step writes only its gradient pointers, into one pinned buffer
+sent by one copy, and a clipping norm stays on the device. ``LAUNCHES``
+counts the kernel's launches; ``GroupedAdam.last_counts`` holds the last
+update's ``tensors`` (updated by the kernel) and ``launches``, which
+``training/step.py`` counts on the span ``vast.train.optimizer``.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 from torch import nn
 
 from vast_tpu_torch.training.sched import get_lr_ratio
 
 EPS = 1e-6
+# elements a block of the kernel updates (csrc/multi_tensor_adam.cu kChunk)
+CHUNK = 65536
+# the kernel's group index of each label
+GROUPS = ("basic", "basic_nd", "new", "new_nd", "clip", "clip_nd")
+# the kernel's launches; tests read them
+LAUNCHES = {"multi_tensor_adam": 0}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _moment_dtype(name):
@@ -147,6 +171,9 @@ class GroupedAdam:
         self.acc = ({n: torch.zeros_like(p) for n, p in self.params.items()}
                     if self.accum > 1 else None)
         self.sharding = None
+        self._fused = None      # the kernel's tables, built at a step
+        # the last update's tensors updated by the kernel and its launches
+        self.last_counts = {"tensors": 0, "launches": 0}
 
     def _tensors(self):
         return ("mu", "nu") + (("acc",) if self.acc is not None else ())
@@ -156,6 +183,7 @@ class GroupedAdam:
         """The parameters were split (``shard_state``): keep this rank's
         part of each moment and of the running mean."""
         self.sharding = sharding
+        self._fused = None
         for key in self._tensors():
             mine = getattr(self, key)
             for n in mine:
@@ -188,6 +216,7 @@ class GroupedAdam:
                 if self.sharding is not None:
                     src = self.sharding.split(n, src)
                 t.copy_(src)
+        self._fused = None
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
 
@@ -218,18 +247,22 @@ class GroupedAdam:
         parameters were updated (every ``accum``-th call).
         ``window_sum``: ``.grad`` holds the sum of the whole window's
         gradients (:meth:`grads_from_window`), whose mean is applied."""
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in self.params.items()}
+        self.last_counts = {"tensors": 0, "launches": 0}
+        # None: the loss did not reach the parameter, a zero gradient
+        grads = {n: p.grad for n, p in self.params.items()}
         if window_sum:
             if self.acc is None or self.mini_step != self.accum - 1:
                 raise RuntimeError("window_sum belongs to the last "
                                    "micro-batch of an accumulation window")
             self.mini_step = 0
-            grads = {n: g / self.accum for n, g in grads.items()}
+            grads = {n: None if g is None else g / self.accum
+                     for n, g in grads.items()}
         elif self.acc is not None:
             k = self.mini_step
             for n, g in grads.items():
-                self.acc[n].add_((g - self.acc[n]) / (k + 1))
+                a = self.acc[n]
+                a.add_(((torch.zeros_like(a) if g is None else g) - a)
+                       / (k + 1))
             if k < self.accum - 1:
                 self.mini_step += 1
                 return False
@@ -237,26 +270,67 @@ class GroupedAdam:
             grads = {n: a.clone() for n, a in self.acc.items()}
             for a in self.acc.values():
                 a.zero_()
+        norm = None
         if self.max_norm is not None and self.max_norm > 0:
-            norm = (global_norm(grads.values()) if self.sharding is None
+            norm = (global_norm(g for g in grads.values() if g is not None)
+                    if self.sharding is None
                     else self.sharding.global_norm(grads))
-            if not bool(norm < self.max_norm):
-                for g in grads.values():
-                    g.copy_(g / norm.to(g.dtype) * self.max_norm)
         self.count += 1
         k = self.count
         c1, c2 = 1.0 - self.b1 ** k, 1.0 - self.b2 ** k
-        for n, p in self.params.items():
-            label = self.labels[n]
-            group = label.removesuffix("_nd")
-            wd = 0.0 if label.endswith("_nd") else self.weight_decay
-            u = (self._adamax(n, grads[n].float(), c1)
-                 if self.optim == "adamax"
-                 else self._adam(n, grads[n].float(), c1, c2))
-            if wd:
-                u = u + wd * p.float()
-            p.add_((u * -self.lr(group, k)).to(p.dtype))
+        for n in self._fused_step(grads, norm, k, c1, c2):
+            self._update_plain(n, grads[n], norm, k, c1, c2)
         return True
+
+    def _fused_step(self, grads: dict, norm, k: int, c1: float,
+                    c2: float) -> list:
+        """The kernel's launch over the CUDA tensors; returns the names of
+        the CPU ones, left to the per-tensor loop."""
+        fused = self._fused
+        if fused is None:
+            fused = self._fused = _FusedUpdate(self)
+        if not fused.names:
+            return fused.plain
+        values = self.kernel_scalars(k, c1, c2, norm is not None)
+        scalars = (ctypes.c_float * len(values))(*values)
+        if not fused.launch(grads, norm, scalars):
+            # a parameter's storage moved since the tables were built
+            self._fused = None
+            return self._fused_step(grads, norm, k, c1, c2)
+        self.last_counts = {"tensors": len(fused.names), "launches": 1}
+        return fused.plain
+
+    def kernel_scalars(self, k: int, c1: float, c2: float,
+                       clipping: bool) -> list:
+        """The kernel's scalars of the ``k``-th update, in its order:
+        1 - b1, b1 in mu's dtype, b1, 1 - b2, b2, eps, c1, c2, max_norm,
+        then -lr and the weight decay of each of ``GROUPS``."""
+        groups = [(label.removesuffix("_nd"), label.endswith("_nd"))
+                  for label in GROUPS]
+        b1_mu = torch.tensor(self.b1, dtype=self.mu_dtype
+                             or torch.float32).item()
+        return [1.0 - self.b1, b1_mu, self.b1, 1.0 - self.b2, self.b2, EPS,
+                c1, c2, float(self.max_norm) if clipping else 0.0,
+                *(-self.lr(group, k) for group, _ in groups),
+                *(0.0 if nd else self.weight_decay for _, nd in groups)]
+
+    def _update_plain(self, n, g, norm, k, c1, c2):
+        """The update of one tensor in plain tensor ops: CPU tensors, and
+        the version the kernel is held to."""
+        p = self.params[n]
+        g = torch.zeros_like(p) if g is None else g
+        if norm is not None:
+            # optax.clip_by_global_norm, with no host wait
+            g = torch.where(norm < self.max_norm, g,
+                            g / norm.to(g.dtype) * self.max_norm)
+        label = self.labels[n]
+        group = label.removesuffix("_nd")
+        wd = 0.0 if label.endswith("_nd") else self.weight_decay
+        u = (self._adamax(n, g.float(), c1) if self.optim == "adamax"
+             else self._adam(n, g.float(), c1, c2))
+        if wd:
+            u = u + wd * p.float()
+        p.add_((u * -self.lr(group, k)).to(p.dtype))
 
     def _adam(self, n, g, c1, c2):
         b1, b2 = self.b1, self.b2
@@ -274,7 +348,6 @@ class GroupedAdam:
         mu.copy_(m)
         return (m / c1) / (torch.sqrt(nu.float() / c2) + EPS)
 
-
     def _adamax(self, n, g, c1):
         # optax.scale_by_adamax: mu as Adam's, nu = max(b2 nu, |g| + eps),
         # the update mu / c1 / nu (no bias correction of nu)
@@ -284,9 +357,138 @@ class GroupedAdam:
         return (mu.float() / c1) / nu.float()
 
 
+class _FusedUpdate:
+    """The kernel's tables over the CUDA tensors of ``opt``: ``names``
+    lists them in table order, ``plain`` the CPU ones, which the
+    per-tensor loop updates. The tables hold the parameters' and moments'
+    pointers, so they are built again after a reshard or a load; a step
+    writes only its gradient pointers (:meth:`launch`)."""
+
+    def __init__(self, opt: GroupedAdam):
+        self.names = [n for n, p in opt.params.items() if p.is_cuda]
+        taken = set(self.names)
+        self.plain = [n for n in opt.params if n not in taken]
+        self.params = [opt.params[n] for n in self.names]
+        self.param_ptrs = [p.data_ptr() for p in self.params]
+        if not self.names:
+            return
+        check_kernel_takes(opt, self.names)
+        device = self.params[0].device
+        tensors, chunks = tables(opt, self.names)
+        self.n_chunks = len(chunks)
+        self.tensors = torch.from_numpy(tensors).to(device)
+        self.chunks = torch.from_numpy(chunks).to(device)
+        # this step's gradient pointers, written on the host, one copy
+        self.host = torch.zeros(len(self.names), dtype=torch.int64,
+                                pin_memory=True)
+        self.host_ptrs = self.host.numpy()
+        self.grads = torch.zeros(len(self.names), dtype=torch.int64,
+                                 device=device)
+        self.copied = torch.cuda.Event()  # that copy's end
+        self.mode = (2 if opt.optim == "adamax"
+                     else 1 if opt.nu_dtype is not None else 0)
+        first = self.names[0]
+        self.dtypes = (_DTYPE_CODES[opt.mu[first].dtype],
+                       _DTYPE_CODES[opt.nu[first].dtype])
+
+    def launch(self, grads: dict, norm, scalars) -> bool:
+        """One launch over the tables with ``grads`` (name -> tensor or
+        None) and ``norm`` (a device scalar, or None without clipping);
+        False, launching nothing, where a parameter's storage moved since
+        the tables were built."""
+        ptrs = []
+        for n, p, ptr in zip(self.names, self.params, self.param_ptrs):
+            if p.data_ptr() != ptr:
+                return False
+            g = grads[n]
+            if g is None:
+                ptrs.append(0)
+                continue
+            if g.dtype is not torch.float32 or not g.is_contiguous():
+                raise ValueError(f"{n}: the optimizer's kernel takes "
+                                 f"contiguous float32 gradients")
+            ptrs.append(g.data_ptr())
+        self.copied.synchronize()   # the host buffer's last copy is done
+        self.host_ptrs[:] = ptrs
+        device = self.grads.device
+        if norm is not None:
+            norm = norm.to(device, torch.float32)
+        with torch.cuda.device(device):
+            self.grads.copy_(self.host, non_blocking=True)
+            self.copied.record()
+            err = _kernel()(
+                _ptr(self.tensors), _ptr(self.chunks), _ptr(self.grads),
+                self.n_chunks, self.mode, *self.dtypes, scalars, _ptr(norm),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err:
+            raise RuntimeError(f"multi_tensor_adam kernel launch failed: "
+                               f"CUDA error {err}")
+        LAUNCHES["multi_tensor_adam"] += 1
+        return True
+
+
+def check_kernel_takes(opt: GroupedAdam, names) -> None:
+    """Raise unless the kernel can update every tensor of ``names``: one
+    card; contiguous fp32 parameters; contiguous moments, fp32 or bf16,
+    one dtype each (the parameters' dtype fixes it)."""
+    devices = {opt.params[n].device for n in names}
+    if len(devices) > 1:
+        raise ValueError(f"the optimizer's CUDA parameters lie on "
+                         f"{sorted(map(str, devices))}; its kernel "
+                         f"updates those of one card")
+    for n in names:
+        p, mu, nu = opt.params[n], opt.mu[n], opt.nu[n]
+        if (p.dtype != torch.float32 or mu.dtype not in _DTYPE_CODES
+                or nu.dtype not in _DTYPE_CODES):
+            raise ValueError(
+                f"{n}: the optimizer's kernel updates float32 parameters "
+                f"with float32 or bfloat16 moments, not {p.dtype} with "
+                f"{mu.dtype} and {nu.dtype} (adam_mu_dtype, adam_nu_dtype)")
+        if not (p.is_contiguous() and mu.is_contiguous()
+                and nu.is_contiguous()):
+            raise ValueError(f"{n}: the optimizer's kernel updates "
+                             f"contiguous parameters and moments")
+
+
+def tables(opt: GroupedAdam, names) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's tables over ``opt``'s tensors ``names``, int64: a row
+    per tensor (parameter, mu and nu pointers, elements, index in
+    ``GROUPS`` of its label) and per chunk of ``CHUNK`` elements (the
+    tensor's row, its first element)."""
+    params = [opt.params[n] for n in names]
+    tensors = np.array([(p.data_ptr(), opt.mu[n].data_ptr(),
+                         opt.nu[n].data_ptr(), p.numel(),
+                         GROUPS.index(opt.labels[n]))
+                        for n, p in zip(names, params)],
+                       np.int64).reshape(-1, 5)
+    chunks = np.array([(t, s) for t, p in enumerate(params)
+                       for s in range(0, p.numel(), CHUNK)],
+                      np.int64).reshape(-1, 2)
+    return tensors, chunks
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _kernel():
+    from vast_tpu_torch.build import load
+
+    fn = load("multi_tensor_adam").vast_multi_tensor_adam
+    if fn.argtypes is None:
+        fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_float),
+                       ctypes.c_void_p, ctypes.c_void_p)
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of all ``tensors``, in fp32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    """sqrt of the sum of squares of all ``tensors``, in fp32 (0 for
+    none)."""
+    return torch.sqrt(sum((t.float().square().sum() for t in tensors),
+                          torch.zeros(())))
 
 
 def build_optimizer(model: nn.Module, run_cfg, model_cfg,

@@ -135,7 +135,8 @@ def make_train_step(model: nn.Module, opt: GroupedAdam, task: str,
     on the device. The gradients stay in ``.grad`` until the next step.
     A step is the span ``vast.train.step``, with the children
     ``vast.train.forward``, ``.backward`` and ``.optimizer``
-    (``profiling.py``).
+    (``profiling.py``), which counts the optimizer's ``tensors`` updated
+    by its kernel and the kernel's ``launches``.
 
     ``ddp``: ``model`` under ``data_parallel``; the forward runs through
     it and the metrics are the means over the ranks. Under gradient
@@ -175,8 +176,10 @@ def make_train_step(model: nn.Module, opt: GroupedAdam, task: str,
                     total.backward()
                     if sharding is not None:
                         sharding.reduce_grads()
-            with profiling.span("vast.train.optimizer"):
+            with profiling.span("vast.train.optimizer") as sp:
                 opt.step(window_sum=split and window_end)
+                for key, n in opt.last_counts.items():
+                    sp.count(key, n)
             state.step += 1
             metrics = {k: v.detach() for k, v in out.items()}
             metrics["total_loss"] = total.detach()
