@@ -18,6 +18,12 @@ windows clamp otherwise raises. A window of 8 x 7 x 7 = 392 tokens at
 head width 32 takes whatever route ``ops.attention``'s rule gives it
 (392^2 is over 128^2: the head-major kernel, with the bias and mask).
 
+Each stage's forward is a span (``vast.videoswin.stage<S>``,
+``profiling.py``) that counts its ``windows`` (clips times windows a
+clip) and its ``shifted`` blocks, and, from ``ops.attention``, the
+``bias_bytes`` its attention calls materialise: the fp32 sum of the
+bias table and the region mask of each shifted block.
+
 Module and parameter names are the reference torch ones (``patch_embed.
 proj`` a Conv3d, ``layers.{s}.blocks.{b}.attn.relative_position_bias_
 table``, ...), so the state dict is what ``vast_ckpt.convert_videoswin``
@@ -39,6 +45,7 @@ from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.models.swin import Mlp, PatchMerging, SwinStage, \
     WindowAttention
+from vast_tpu_torch.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,9 +204,16 @@ class VideoSwinTransformer(nn.Module):
         h = w = image_size // ph
         dim = c.embed_dim
         stages = []
+        # per stage: its span's name, windows a clip and shifted blocks
+        self.stage_spans = []
         for si, (depth, heads) in enumerate(zip(c.depths, c.num_heads)):
             blocks = [VideoSwinBlock(c, dim, heads, (t, h, w), bi % 2 == 1,
                                      device) for bi in range(depth)]
+            win, shift = _window_and_shift(c, (t, h, w), True)
+            self.stage_spans.append((
+                f"vast.videoswin.stage{si}",
+                (t // win[0]) * (h // win[1]) * (w // win[2]),
+                depth // 2 if any(shift) else 0))
             down = None
             if si < len(c.depths) - 1:
                 down = PatchMerging(dim, c.ln_eps, **fk)
@@ -218,12 +232,16 @@ class VideoSwinTransformer(nn.Module):
         b, _, t, h, w = x.shape
         x = self.patch_embed.norm(x.flatten(2).transpose(1, 2))
         policy = c.remat_policy if c.remat else "none"
-        for stage in self.layers:
-            for blk in stage.blocks:
-                x = remat_call(policy, blk, x, (t, h, w))
-            if stage.downsample is not None:
-                x = stage.downsample(x.view(b, t, h, w, -1)).reshape(
-                    b, t * (h // 2) * (w // 2), -1)
-                h, w = h // 2, w // 2
+        for (name, windows, shifted), stage in zip(self.stage_spans,
+                                                   self.layers):
+            with span(name) as sp:
+                sp.count("windows", b * windows)
+                sp.count("shifted", shifted)
+                for blk in stage.blocks:
+                    x = remat_call(policy, blk, x, (t, h, w))
+                if stage.downsample is not None:
+                    x = stage.downsample(x.view(b, t, h, w, -1)).reshape(
+                        b, t * (h // 2) * (w // 2), -1)
+                    h, w = h // 2, w // 2
         x = self.norm(x)
         return x.view(b, t, h * w, x.shape[-1])

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from vast_tpu_torch import profiling
 from vast_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -50,13 +51,17 @@ def reference_attention(q, k, v, bias=None):
 
 def _prepare_bias(bias, mask):
     """Additive fp32 bias from a float bias and/or a bool mask (True =
-    attend), broadcastable to (B, H, Lq, Lk)."""
+    attend), broadcastable to (B, H, Lq, Lk). Where a bias is given and
+    a new tensor is made of it (a cast, or its sum with the mask), the
+    open span counts that tensor's ``bias_bytes``."""
     add_bias = None if bias is None else bias.float()
     if mask is not None:
         mb = torch.where(mask.bool(), 0.0, NEG_INF).float()
         while mb.dim() < 4:
             mb = mb[:, None]
         add_bias = mb if add_bias is None else add_bias + mb
+    if bias is not None and add_bias is not bias:
+        profiling.count("bias_bytes", add_bias.nbytes)
     return add_bias
 
 

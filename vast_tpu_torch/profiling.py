@@ -14,6 +14,11 @@ A span (:func:`span`) marks one piece of the program's work:
   ``pairs`` it scored, the ``rows`` of its grouped calls, padding
   included, and the ``calls``) and ``.decode``
   (``evaluation/evaluation_mm.py``);
+* ``vast.videoswin.stage<S>``, one stage of the VideoSwin tower's
+  forward (``models/videoswin.py``), which counts its ``windows`` (clips
+  times windows a clip), its ``shifted`` blocks and the ``bias_bytes``
+  of the additive biases its attention calls materialise beyond the
+  bias they are given (``ops/attention.py``, through :func:`count`);
 * ``vast.gc.gen<N>``, one collection of Python's garbage collector.
 
 A recorded span holds its name, its id, its parent's id and its root's
@@ -164,6 +169,17 @@ class _Span:
                 "end_ns": self.end_ns,
                 "host_s": (self.end_ns - self.start_ns) / 1e9,
                 "device_s": self.device_s, "counts": dict(self.counts)}
+
+
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` to ``key`` of this thread's innermost open span, where
+    spans are recorded and one is open; else nothing (one flag check):
+    the counter of code that runs inside a span it does not hold."""
+    if not (_REC.depth or _profiler._is_profiler_enabled):
+        return
+    stack = _REC.stack()
+    if stack:
+        stack[-1].count(key, n)
 
 
 def _synchronize() -> None:
