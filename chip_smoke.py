@@ -135,6 +135,24 @@ exits non-zero with no result line:
               profiler's device time per launch of the dQ kernel and of
               the dK/dV kernel apart, SDPA's backward alone, and the
               largest difference between the bodies' gradients.
+14b. window_kernels - the window attention's kernels
+              (ops/window_attention.py, "Window attention for Hopper" in
+              the kernel source) at the four stages of the cell
+              videoswin_ret_train (8 clips of 16 frames at 224 px, a 16 x
+              56 x 56 token grid: 1,024 / 256 / 64 / 16 windows of 392
+              tokens at D 32, 4 to 32 heads, the shifted blocks' region
+              labels), bf16: the forward with its lse and the backward
+              (dQ, dK/dV, the table's partial sums and their reduction),
+              each output checked against the plain version (the kernel
+              rows' bf16 limits; the table's gradient within 2^-16 of its
+              sums of |terms|), CUDA-event times, the profiler's device
+              time by kernel, the least time by
+              benchmark/counts/window_attention.window_work, the plain
+              version's time, the general op on the materialised
+              table-plus-mask sum (the route before these kernels) and
+              SDPA on it (bf16) as the library yardstick. The rows'
+              launches are those train_towers and slice_towers count by
+              stage on VideoSwin's own path.
 15. cli_ret_tvas - the port's CLI (``vast_tpu_torch.run.main``, in
               process) on the released retrieval-msrvtt.json (ret%tvas:
               EVA01-g 40 layers, BEATs 12, BERT-base; random seeded
@@ -195,14 +213,17 @@ exits non-zero with no result line:
               EVA02-bigE/14 (64 layers, width 1792, 4.4 B parameters; the
               token-major kernel at D 112), Swin-B and Swin-L (49-token
               windows: the plain route) and VideoSwin (the whole clip;
-              392-token windows at D 32: the head-major kernel with the
-              relative bias and the shift mask): clips/s (two runs after a
-              warm-up), peak memory and exact launches by stage.
+              392-token windows at D 32: the window kernels with the
+              relative bias and the shift's region labels): clips/s (two
+              runs after a warm-up), peak memory and exact launches by
+              stage (VideoSwin's window forwards by its stages' heads).
 20. train_towers - phase 7's train program for EVA02-L/14 and for
               VideoSwin with BEATs: a warm-up step and two blocks of five,
               LayerNorm gains + 1 after the seeded init; exact launches a
               step (24 head-major lse forwards and backwards, VideoSwin's
-              with the bias's ds; BEATs' 12 and 12), the loss falling from
+              through the window kernels, the table's gradient summed
+              there, 2 / 2 / 18 / 2 by stage; BEATs' 12 and 12), the loss
+              falling from
               the first block to the last, one profiled step.
 21. cli_pretrain (last, over cli_ret_tvas' clips) - the port's CLI on a
               copy of the released pretrain_vast.json (EVA01-g, BEATs,
@@ -454,7 +475,8 @@ KERNELS = [
     # views of token-major projections (B/16's training on no path);
     # VideoSwin's first-stage windows, 8 clips x 64 windows of 8 x 7 x 7
     # tokens, 4 heads of 32, with the relative bias and shift mask as one
-    # learned fp32 bias (its ds in training)
+    # learned fp32 bias (its ds in training): no path since the window
+    # kernels (phase window_kernels) serve these blocks
     dict(turns=False, name="tmajor_attention_fwd", at="bige", path="slice_towers",
          replaces=f"{PALLAS}:762", layout="tmajor", b=BATCH * FRAMES,
          lq=257, lk=257, h=16, d=112, scale=1.0, bias=False),
@@ -469,7 +491,7 @@ KERNELS = [
          replaces=f"{PALLAS}:87", layout="hmajor", views="token_major",
          b=BATCH * FRAMES, lq=197, lk=197, h=12, d=64, scale=0.125,
          bias=False),
-    dict(turns=False, name="flash_attention_fwd", at="videoswin", path="slice_towers",
+    dict(turns=False, name="flash_attention_fwd", at="videoswin", path=None,
          replaces=f"{PALLAS}:87", layout="hmajor", views="packed",
          b=BATCH * 64, lq=392, lk=392, h=4, d=32, scale=32 ** -0.5,
          bias=True),
@@ -481,7 +503,7 @@ KERNELS = [
          replaces=f"{PALLAS}:52", layout="hmajor", views="token_major",
          lse=True, b=BATCH * FRAMES, lq=197, lk=197, h=12, d=64,
          scale=0.125, bias=False),
-    dict(turns=False, name="flash_attention_fwd_lse", at="videoswin", path="train_towers",
+    dict(turns=False, name="flash_attention_fwd_lse", at="videoswin", path=None,
          replaces=f"{PALLAS}:52", layout="hmajor", views="packed", lse=True,
          b=BATCH * 64, lq=392, lk=392, h=4, d=32, scale=32 ** -0.5,
          bias=True),
@@ -494,7 +516,7 @@ KERNELS = [
          b=BATCH * FRAMES, lq=197, lk=197, h=12, d=64, scale=0.125,
          bias=False),
     dict(turns=False, name="flash_attention_bwd_dbias", at="videoswin",
-         path="train_towers", replaces=f"{PALLAS}:321", layout="hmajor_bwd",
+         path=None, replaces=f"{PALLAS}:321", layout="hmajor_bwd",
          views="packed", b=BATCH * 64, lq=392, lk=392, h=4, d=32,
          scale=32 ** -0.5, bias=True),
     # pretraining's MSR-VTT validation (phase cli_pretrain): 16 texts of
@@ -2106,6 +2128,38 @@ class TowerLaunches:
         del self.model.forward_audio_encoder
 
 
+class WindowLaunches:
+    """Counts the window kernels' launches by head count while active
+    (``ops.window_attention``'s forward launch and backward are wrapped in
+    their module): {"fwd": {heads: launches}, "bwd": {heads: launches}}.
+    Video Swin-B's four stages have 4, 8, 16 and 32 heads, so the heads
+    name the stage."""
+
+    def __init__(self):
+        from vast_tpu_torch.ops import window_attention as wa
+
+        self.wa, self.saved = wa, None
+        self.counts = {"fwd": {}, "bwd": {}}
+
+    def _wrap(self, kind, fn):
+        def run(q, *args, **kwargs):
+            out = fn(q, *args, **kwargs)
+            tally = self.counts[kind]
+            tally[q.shape[1]] = tally.get(q.shape[1], 0) + 1
+            return out
+        return run
+
+    def __enter__(self):
+        wa = self.wa
+        self.saved = wa._window_fwd_launch, wa.window_attention_bwd
+        wa._window_fwd_launch = self._wrap("fwd", self.saved[0])
+        wa.window_attention_bwd = self._wrap("bwd", self.saved[1])
+        return self.counts
+
+    def __exit__(self, *exc):
+        self.wa._window_fwd_launch, self.wa.window_attention_bwd = self.saved
+
+
 def run_slice(torch, np, phase, cfg, top_k, resolution, cond_tokens,
               runs=RUNS, stages=True):
     """``evaluate_ret`` over 16 synthetic clips, bf16 random weights: the
@@ -2113,7 +2167,8 @@ def run_slice(torch, np, phase, cfg, top_k, resolution, cond_tokens,
     (a separate run, where ``stages``) and output checks. Returns the
     emitted row's fields, the launches of the counted run and those by
     stage (vision, audio, rerank: a dict each of the keys launched
-    there), and the model."""
+    there), the window kernels' launches by head count (WindowLaunches)
+    and the model."""
     from vast_tpu_torch.convert.from_jax import init_random_
     from vast_tpu_torch.evaluation.evaluation_mm import evaluate_ret
     from vast_tpu_torch.models.vast import VASTModel
@@ -2136,7 +2191,8 @@ def run_slice(torch, np, phase, cfg, top_k, resolution, cond_tokens,
 
     timed_run()                 # first-call costs at every shape of the run
     torch.cuda.reset_peak_memory_stats()
-    with TowerLaunches(fa, model) as by_stage:
+    with TowerLaunches(fa, model) as by_stage, \
+            WindowLaunches() as windows:
         zero_launches(fa)
         log, wall = timed_run()
         launches = dict(fa.LAUNCHES)
@@ -2175,14 +2231,15 @@ def run_slice(torch, np, phase, cfg, top_k, resolution, cond_tokens,
            "clips_per_s_runs": [N_CLIPS / w for w in walls], "wall_s": walls,
            "stage_s": timings, "setup_s": setup_s,
            "max_memory_allocated": peak_mem, "launches": launches,
-           "launches_by_stage": by_stage, "metrics": log}
-    return row, launches, by_stage, model, batches, run_cfg
+           "launches_by_stage": by_stage,
+           "window_launches_by_heads": windows, "metrics": log}
+    return row, launches, by_stage, windows, model, batches, run_cfg
 
 
 def phase_slice(torch, np):
     from vast_tpu_torch.models.vast import VASTConfig
 
-    row, launches, _, model, batches, run_cfg = run_slice(
+    row, launches, _, _, model, batches, run_cfg = run_slice(
         torch, np, "slice", VASTConfig(dtype=torch.bfloat16), TOP_K, 224,
         COND_TOKENS)
     n_batches = len(batches)
@@ -2216,7 +2273,7 @@ def phase_slice_clip_ast(torch, np):
     token-major."""
     from vast_tpu_torch.models.vast import VASTConfig
 
-    row, launches, by_stage, model, batches, _ = run_slice(
+    row, launches, by_stage, _, model, batches, _ = run_slice(
         torch, np, "slice_clip_ast", VASTConfig(dtype=torch.bfloat16, **CA),
         CA_TOP_K, 336, CA_COND_TOKENS)
     # every head-major forward through the Hopper body
@@ -2288,7 +2345,8 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step,
     step, ``blocks`` timed blocks of five unsynchronised steps, exact
     launch counts per step over the first block, then one profiled step.
     In that block the head-major lse forward's launches are also counted
-    by tower and the backward's by query length. ``gain_offset`` is added
+    by tower, the backward's by query length and the window kernels' by
+    head count (WindowLaunches). ``gain_offset`` is added
     to every LayerNorm gain after the seeded init (near 0 from N(0,
     0.02), every feature near one point and no loss moves);
     ``warmup_ratio`` of the 1000-step schedule (0: the learning rate at
@@ -2366,7 +2424,8 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step,
         walls.append(time.perf_counter() - t1)
 
     walls, dispatch, metrics = [], [], []
-    with TowerLaunches(fa, model) as by_tower:
+    with TowerLaunches(fa, model) as by_tower, \
+            WindowLaunches() as windows:
         fa.flash_attention_bwd = tallied_bwd
         zero_launches(fa)
         zero_launches(optim_mod)
@@ -2417,20 +2476,23 @@ def run_train(torch, np, phase, cfg_kw, resolution, launches_per_step,
               k: v // TRAIN_STEPS for k, v in lse_by_tower.items()},
           "flash_attention_bwd_by_lq_per_step": {
               str(k): v // TRAIN_STEPS for k, v in bwd_by_lq.items()},
+          "window_launches_by_heads_per_step": {
+              kind: {str(h): v // TRAIN_STEPS for h, v in c.items()}
+              for kind, c in windows.items()},
           "warmup_ratio": warmup_ratio,
           "losses": losses, "fixed_batch_loss": [loss_before, loss_after],
           "loss_falls": falls,
           "layernorm_gain_offset": gain_offset,
           "grad_global_norm": grad_norm, "groups_moved": moved})
     profile_run(torch, phase + "_profile", lambda: step(state, batch, gen))
-    return launches, lse_by_tower, bwd_by_lq, falls
+    return launches, lse_by_tower, bwd_by_lq, windows, falls
 
 
 def phase_train(torch, np):
     """The flagship train step (bench.py:367-400): 40 EVA and 12 BEATs
     attention forwards and backwards per step, every one through the
     Hopper bodies, every backward given its forward's lse."""
-    launches, _, _, _ = run_train(
+    launches, _, _, _, _ = run_train(
         torch, np, "train", {}, 224,
         {"tmajor_attention_fwd": 40, "tmajor_attention_fwd_bias": 12,
          "tmajor_attention_bwd": 40, "tmajor_attention_bwd_bias": 12,
@@ -2446,7 +2508,7 @@ def phase_train_clip_ast(torch, np):
     """The CLIP-L/14-336 + AST train step: 24 CLIP and 12 AST lse forwards
     and backwards per step, all through the Hopper bodies (BERT's attention
     takes the plain route)."""
-    launches, lse_by_tower, bwd_by_lq, _ = run_train(
+    launches, lse_by_tower, bwd_by_lq, _, _ = run_train(
         torch, np, "train_clip_ast", CA, 336,
         {"flash_attention_fwd_lse": 36, "flash_attention_fwd_sm90": 36,
          "flash_attention_bwd": 36, "flash_attention_bwd_sm90": 24 + 12})
@@ -3679,14 +3741,16 @@ def phase_cli_pretrain(torch, np, root):
 # evaluation of two batches: EVA02 through the head-major kernel (rope
 # comes between the projection and the attention), bigE the token-major
 # one at D 112, Swin's 49-token windows the plain route, VideoSwin's
-# 392-token windows the head-major kernel with their bias (24 blocks)
+# 392-token windows the window kernels (24 blocks; counted as head-major
+# forwards too, and with no _sm90 count of the general op's)
 TOWERS = {
     "evaclip02_base": (197, {"flash_attention_fwd": 2 * 12}),
     "evaclip02_large": (257, {"flash_attention_fwd": 2 * 24}),
     "evaclip02_bige": (257, {"tmajor_attention_fwd": 2 * 64}),
     "swin_base_22k_224": (49, {}),
     "swin_large_22k_224": (49, {}),
-    "videoswin": (49, {"flash_attention_fwd": 2 * 24}),
+    "videoswin": (49, {"flash_attention_fwd": 2 * 24,
+                       "window_attention_fwd": 2 * 24}),
 }
 
 
@@ -3696,19 +3760,22 @@ def phase_slice_towers(torch, np):
     runs after a warm-up), peak memory, and exact launches by stage:
     the vision tower's as TOWERS says, all on the Hopper bodies; BEATs'
     24 token-major forwards with their bias; the rerank's head-major
-    forwards (12 per call whose folded query leaves the plain route).
-    Returns each tower's launches by stage."""
+    forwards (12 per call whose folded query leaves the plain route);
+    VideoSwin's window forwards by stage (head count). Returns each
+    tower's launches by stage and VideoSwin's window launches by heads."""
     from vast_tpu_torch.models.vast import VASTConfig
 
-    counts = {}
+    counts, window_counts = {}, {}
     for vtype, (tokens, vision) in TOWERS.items():
         cfg = VASTConfig(dtype=torch.bfloat16, vision_encoder_type=vtype)
-        row, _, by_stage, model, batches, _ = run_slice(
+        row, _, by_stage, windows, model, batches, _ = run_slice(
             torch, np, "slice_towers", cfg, TOP_K, 224,
             FRAMES * tokens + 256, runs=2, stages=False)
         want_vision = dict(vision)
-        for k, n in vision.items():
-            want_vision[k.split("_attention")[0] + "_attention_fwd_sm90"] = n
+        if "window_attention_fwd" not in vision:
+            for k, n in vision.items():
+                want_vision[k.split("_attention")[0] +
+                            "_attention_fwd_sm90"] = n
         want_audio = {"tmajor_attention_fwd_bias": 24,
                       "tmajor_attention_fwd_sm90": 24}
         rerank = by_stage["rerank"]
@@ -3722,19 +3789,34 @@ def phase_slice_towers(torch, np):
               f"{vtype} launches by stage {by_stage}: want vision "
               f"{want_vision}, audio {want_audio}, the rerank's in 12s "
               f"on the Hopper body")
+        want_windows = {"fwd": {}, "bwd": {}}
+        if "window_attention_fwd" in vision:
+            want_windows["fwd"] = {h: 2 * depth
+                                   for _, h, depth in WINDOW_STAGES}
+        check(windows == want_windows,
+              f"{vtype} window launches by heads {windows}: want "
+              f"{want_windows} (two batches, each stage's blocks)")
         row |= {"tower": vtype,
                 "params": sum(p.numel() for p in model.parameters())}
         emit(row)
         counts[vtype] = by_stage
+        window_counts[vtype] = windows
         del model, batches, row
         torch.cuda.empty_cache()
-    return counts
+    return counts, window_counts["videoswin"]
+
+
+# Video Swin-B's stages in the cell videoswin_ret_train (8 clips of 16
+# frames at 224 px): token grid, heads, blocks a step (half shifted)
+WINDOW_STAGES = (((16, 56, 56), 4, 2), ((16, 28, 28), 8, 2),
+                 ((16, 14, 14), 16, 18), ((16, 7, 7), 32, 2))
+WINDOW_CLIPS = 8
 
 
 # a step of the towers' train program: BEATs' 12 token-major forwards
 # (bias) and backwards given the lse, and the vision tower's 24
-# head-major lse forwards and backwards (EVA02-L; VideoSwin's with the
-# learned bias's ds), all on the Hopper bodies
+# head-major lse forwards and backwards (EVA02-L's on the Hopper bodies;
+# VideoSwin's on the window kernels, the table's gradient summed there)
 BEATS_STEP = {"tmajor_attention_fwd_bias": 12, "tmajor_attention_bwd_bias": 12,
               "tmajor_attention_fwd_sm90": 12,
               "tmajor_attention_bwd_sm90": 12,
@@ -3744,8 +3826,8 @@ TRAIN_TOWERS = {
         "flash_attention_fwd_lse": 24, "flash_attention_fwd_sm90": 24,
         "flash_attention_bwd": 24, "flash_attention_bwd_sm90": 24},
     "videoswin": BEATS_STEP | {
-        "flash_attention_fwd_lse": 24, "flash_attention_fwd_sm90": 24,
-        "flash_attention_bwd_dbias": 24, "flash_attention_bwd_sm90": 24},
+        "flash_attention_fwd_lse": 24, "window_attention_fwd": 24,
+        "flash_attention_bwd_dbias": 24, "window_attention_bwd": 24},
 }
 
 
@@ -3757,10 +3839,12 @@ def phase_train_towers(torch, np):
     seeded init, no warm-up of the learning rate (under the default 10%
     of 1000 steps the 11 steps run at 1e-6 to 1.1e-5 and move nothing
     past the noise); the batch's deterministic loss must fall.
-    Returns each tower's launches over its first block."""
-    out = {}
+    VideoSwin's window forwards and backwards a step by stage (head
+    count) as WINDOW_STAGES says. Returns each tower's launches over its
+    first block and VideoSwin's window launches by heads there."""
+    out, windows_at = {}, {}
     for vtype, per_step in TRAIN_TOWERS.items():
-        launches, lse_by_tower, bwd_by_lq, falls = run_train(
+        launches, lse_by_tower, bwd_by_lq, windows, falls = run_train(
             torch, np, f"train_towers_{vtype}",
             {"vision_encoder_type": vtype}, 224, per_step, blocks=2,
             gain_offset=1.0, warmup_ratio=0.0)
@@ -3768,9 +3852,15 @@ def phase_train_towers(torch, np):
         check(falls and lse_by_tower == {"vision": 24 * n, "audio": 0},
               f"{vtype}: loss falls {falls}; lse forwards by tower "
               f"{lse_by_tower} over {n} steps")
-        out[vtype] = launches
+        by_heads = {h: depth * n for _, h, depth in WINDOW_STAGES}
+        want = ({"fwd": by_heads, "bwd": by_heads}
+                if "window_attention_fwd" in per_step
+                else {"fwd": {}, "bwd": {}})
+        check(windows == want, f"{vtype}: window launches by heads "
+              f"{windows} over {n} steps, want {want}")
+        out[vtype], windows_at[vtype] = launches, windows
         torch.cuda.empty_cache()
-    return out
+    return out, windows_at["videoswin"]
 
 
 # the data-parallel phases: ddp_step holds two ranks' train step against
@@ -5287,6 +5377,189 @@ def body_of(spec):
     return body[spec["name"]] if isinstance(body, dict) else body
 
 
+def window_stage(torch, grid, heads, gen):
+    """q, k, v (packed views), the table (N(0, 0.02)), the shifted
+    windows' region labels, the cotangent and the plain version's
+    table-plus-mask sum of one stage's window blocks."""
+    from vast_tpu_torch.models import videoswin
+    from vast_tpu_torch.ops import window_attention as wa
+
+    win = tuple(min(a, b) for a, b in zip((8, 7, 7), grid))
+    shift = tuple(0 if w >= g else w // 2 for w, g in zip(win, grid))
+    n_win = math.prod(g // w for g, w in zip(grid, win))
+    n, d, w = math.prod(win), 32, WINDOW_CLIPS * n_win
+    q, k, v = (t.transpose(1, 2) for t in torch.randn(
+        w, n, 3, heads, d, device="cuda", generator=gen).to(
+            torch.bfloat16).unbind(2))
+    table = 0.02 * torch.randn(heads, n, n, device="cuda", generator=gen)
+    labels = wa.region_labels(torch.from_numpy(videoswin.shift_mask_3d(
+        *grid, win, shift))).to("cuda")
+    do = torch.randn(w, n, heads, d, device="cuda", generator=gen).to(
+        torch.bfloat16).transpose(1, 2)
+    return q, k, v, table, labels, do, wa._window_bias_plain(table, labels, w)
+
+
+def window_errors(torch, fa, kind, got, want, case, label):
+    """Each output of the window kernels against the plain version, held
+    to the bf16 rules of the kernel rows (``check``: raises past one):
+    the forward's output to one ulp of max |out| plus 2^-8 x max |v| and
+    an rms of 2^-6, its lse to fp32 rounding (1e-5 x max |lse|); dq, dk
+    and dv to 1.1 x 2^-8 of their sums of |terms| (``grad_errors``); the
+    table's gradient, the windows' fp32 ds summed in another order than
+    the plain sum's (chunks of windows, then the chunks), to 2^-16 of its
+    sum of |terms|. Returns {output: its error, tolerance and why}."""
+    q, k, v, full, o, lse, do, scale = case
+    if kind == "fwd":
+        (out, lse_k), (ref, ref_lse) = got, want
+        ref = ref.float()
+        diff = out.float() - ref
+        err = diff.abs().max().item()
+        tol = ref.abs().max().item() * 2 ** -7 + \
+            v.float().abs().max().item() * 2 ** -8
+        rms_rel = (diff.square().mean().sqrt()
+                   / ref.square().mean().sqrt()).item()
+        lse_err = (lse_k - ref_lse).abs().max().item()
+        lse_tol = 1e-5 * max(ref_lse.abs().max().item(), 1.0)
+        check(math.isfinite(err) and err <= tol,
+              f"{label}: max abs err {err} > {tol}")
+        check(math.isfinite(rms_rel) and rms_rel <= 2 ** -6,
+              f"{label}: rms error / rms(ref) {rms_rel} > {2 ** -6}")
+        check(math.isfinite(lse_err) and lse_err <= lse_tol,
+              f"{label}: lse max abs err {lse_err} > {lse_tol}")
+        return {"o": {"max_abs_err": err, "tolerance": tol,
+                      "tolerance_reason": "one bf16 ulp of max |out| "
+                                          "(2^-7) plus bf16 rounding of p "
+                                          "(2^-8 x max |v|)",
+                      "rms_rel_err": rms_rel, "rms_tolerance": 2 ** -6},
+                "lse": {"max_abs_err": lse_err, "tolerance": lse_tol,
+                        "tolerance_reason": "fp32 rounding of the scores: "
+                                            "1e-5 x max |lse|"}}
+    names = ("dq", "dk", "dv")
+    terms = fa._flash_attention_bwd_abs_terms(q, k, v, full, o, lse, do,
+                                              scale=scale)
+    dtable_terms = terms.pop("dbias").sum(dim=0)
+    errors = grad_errors(torch, {n: g.float() for n, g in zip(names, got)},
+                         {n: w.float() for n, w in zip(names, want)},
+                         terms, torch.bfloat16, label)
+    del terms
+    err = (got[3] - want[3]).abs().max().item()
+    tol = 2 ** -16 * (want[3].abs() + dtable_terms).max().item()
+    check(math.isfinite(err) and err <= tol,
+          f"{label} dtable: max abs err {err} > {tol}")
+    errors["dtable"] = {"max_abs_err": err, "tolerance": tol,
+                        "tolerance_reason": "fp32 sums of the windows' ds in "
+                                            "another order: 2^-16 of the sum "
+                                            "of |terms|"}
+    return errors
+
+
+def phase_window_kernels(torch, device_name):
+    """The window attention's forward (with its lse) and backward at each
+    of WINDOW_STAGES, shifted, bf16 (phase 14b), each output checked
+    against the plain version (``window_errors``): returns its
+    ``kernels`` entries, without the launches (``window_line``)."""
+    import torch.nn.functional as F
+
+    from benchmark.counts.window_attention import window_work
+    from vast_tpu_torch.ops import flash_attention as fa
+    from vast_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    line = []
+    for si, (grid, h, _) in enumerate(WINDOW_STAGES):
+        q, k, v, table, labels, do, full = window_stage(torch, grid, h, gen)
+        w, _, n, d = q.shape
+        scale = d ** -0.5
+        o, lse = fa._flash_attention_plain(q, k, v, full, scale=scale,
+                                           return_lse=True)
+        mask16 = full.to(torch.bfloat16)     # SDPA's mask in q's type
+        calls = {
+            "fwd": (lambda: wa.WINDOW_OP(q, k, v, table, labels, scale,
+                                         True),
+                    lambda: fa._flash_attention_plain(
+                        q, k, v, full, scale=scale, return_lse=True),
+                    lambda: fa.flash_attention(q, k, v, full, scale=scale,
+                                               return_lse=True)),
+            "bwd": (lambda: wa.window_attention_bwd(
+                        q, k, v, table, labels, o, lse, do, scale=scale),
+                    lambda: fa._flash_attention_bwd_plain(
+                        q, k, v, full, o, lse, do, scale=scale,
+                        return_dbias=True),
+                    lambda: fa.flash_attention_bwd(
+                        q, k, v, full, o, lse, do, scale=scale,
+                        return_dbias=True)[3].sum(dim=0))}
+        for kind, (run, plain, general) in calls.items():
+            label = f"window_attention_{kind} videoswin_stage{si}"
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            if kind == "bwd":
+                want = (*want[:3], want[3].sum(dim=0))
+            errors = window_errors(torch, fa, kind, got, want,
+                                   (q, k, v, full, o, lse, do, scale), label)
+            del got, want
+            nbytes_, flops = window_work(f"window_{kind}", w, h, n, d,
+                                         labels.shape[0], True)
+            bound_ms, bound_by = bound(torch, device_name, nbytes_, flops,
+                                       torch.bfloat16)
+            kernels = profiled_kernels(torch, run, calls=5)
+            by_kernel = {}
+            for e in kernels:        # the kernel's name, namespace and
+                name = e.key.split("namespace)::", 1)[-1]  # template cut
+                name = name.split("<")[0].split("(")[0]
+                by_kernel[name] = by_kernel.get(name, 0.0) + \
+                    e.self_device_time_total / 5 / 1e3
+            if kind == "fwd":
+                library_ms = time_ms(torch, lambda: (
+                    F.scaled_dot_product_attention(q, k, v, attn_mask=mask16,
+                                                   scale=scale)))
+            else:
+                library_ms, _ = sdpa_backward_ms(torch, q, k, v, full, do,
+                                                 scale)
+            row = {"phase": "window_kernels",
+                   "name": f"window_attention_{kind}",
+                   "at": f"videoswin_stage{si}", "route": "cuda",
+                   "source": SOURCE, "replaces": None, "replaces_also": [],
+                   "shape": {"windows": w, "heads": h, "n": n, "d": d,
+                             "masks": labels.shape[0]},
+                   "errors": errors,
+                   "max_abs_err": max(e["max_abs_err"]
+                                      for e in errors.values()),
+                   "ms": time_ms(torch, run),
+                   "device_ms": sum(by_kernel.values()) if by_kernel
+                   else None,
+                   "device_ms_by_kernel": by_kernel or None,
+                   "plain_ms": time_ms(torch, plain, **LIGHT_TIMING),
+                   "general_ms": time_ms(torch, general, **LIGHT_TIMING),
+                   "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "body": f"window_attention_{kind}_sm90"}
+            emit(row)
+            line.append(row)
+        del q, k, v, table, labels, do, full, mask16, o, lse
+        torch.cuda.empty_cache()
+    return line
+
+
+def window_line(rows, train_windows, slice_windows):
+    """The ``kernels`` entries of the window rows (phase_window_kernels,
+    at the cell's shapes) with their launches as the main path counted
+    them by stage (head count; WindowLaunches): the forward's and the
+    backward's over train_towers' counted block (five steps on 8 clips of
+    ``FRAMES`` frames: each stage's heads, fewer windows than the cell's
+    16 frames give), and the forward's in slice_towers' counted
+    evaluation."""
+    line = []
+    for r in rows:
+        kind = r["name"].rsplit("_", 1)[1]
+        heads = r["shape"]["heads"]
+        line.append(r | {
+            "path": "train_towers",
+            "launches": train_windows[kind].get(heads, 0),
+            "launches_by_path": {"slice_towers": slice_windows[kind].get(
+                heads, 0)} if kind == "fwd" else {}})
+    return line
+
+
 def kernels_line(bf16_rows, launches_at, by_path=None):
     """The ``kernels`` entries: each row of KERNELS with its bf16
     measurements (``bf16_rows``, in KERNELS' order), its launches on its
@@ -5340,6 +5613,8 @@ def main():
     timed("hmajor_turns", phase_hmajor_turns, torch)
     timed("tmajor_turns", phase_tmajor_turns, torch, device_name)
     timed("bwd_turns", phase_bwd_turns, torch)
+    window_rows = timed("window_kernels", phase_window_kernels, torch,
+                        device_name)
     probe_rows, probe_launches = timed("tmajor_variants",
                                        phase_tmajor_variants, torch,
                                        device_name)
@@ -5361,8 +5636,10 @@ def main():
         "train_clip_ast", phase_train_clip_ast, torch, np)
     torch.cuda.empty_cache()
     adam = timed("adam", phase_adam, torch, device_name)
-    towers = timed("slice_towers", phase_slice_towers, torch, np)
-    train_towers = timed("train_towers", phase_train_towers, torch, np)
+    towers, slice_windows = timed("slice_towers", phase_slice_towers,
+                                  torch, np)
+    train_towers, train_windows = timed("train_towers", phase_train_towers,
+                                        torch, np)
     torch.cuda.empty_cache()
     ddp_tmp = tempfile.mkdtemp(prefix="vast_ddp_step_")
     try:
@@ -5417,16 +5694,10 @@ def main():
             towers["evaclip02_large"]["vision"]["flash_attention_fwd"],
         ("flash_attention_fwd", "eva02_b"):
             towers["evaclip02_base"]["vision"]["flash_attention_fwd"],
-        ("flash_attention_fwd", "videoswin"):
-            towers["videoswin"]["vision"]["flash_attention_fwd"],
         ("flash_attention_fwd_lse", "eva02_l"):
             train_towers["evaclip02_large"]["flash_attention_fwd_lse"],
-        ("flash_attention_fwd_lse", "videoswin"):
-            train_towers["videoswin"]["flash_attention_fwd_lse"],
         ("flash_attention_bwd", "eva02_l"):
             train_towers["evaclip02_large"]["flash_attention_bwd"],
-        ("flash_attention_bwd_dbias", "videoswin"):
-            train_towers["videoswin"]["flash_attention_bwd_dbias"],
         ("flash_attention_fwd", "pretrain_rerank"):
             pretrain["rerank"],
         # rank 0 of 4's run of shard_train (each rank on its tp heads)
@@ -5516,7 +5787,8 @@ def main():
     # block (its own configuration's parameter set)
     emit({"kernels": kernels_line(
         [rows[(i, torch.bfloat16)] for i in range(len(KERNELS))],
-        launches_at, by_path) + adam_rows(adam, {
+        launches_at, by_path) + window_line(
+            window_rows, train_windows, slice_windows) + adam_rows(adam, {
             "vast_evaclip01g_beats": (
                 "train", train_launches["multi_tensor_adam"]),
             "vast_clipl336_ast": ("train_clip_ast", ca_adam)})})

@@ -1181,3 +1181,199 @@ def test_tiny_beam_decode_matches_the_cpu(cuda, monkeypatch):
     tokens = out["tokens"]
     assert len({tuple(r) for r in tokens["greedy"]}) > 1
     assert tokens["beam3_lp0.6"] != tokens["greedy"]
+
+
+# Video Swin-B's window attention at the four stages of its 16 x 56 x 56
+# token grid ((8, 7, 7) windows of 392 tokens at D 32; 128, 32, 8 and 2
+# windows a clip, 4 to 32 heads), with fewer clips than a batch's 8:
+# name: (grid, heads, clips, shifted)
+WINDOW_CASES = {
+    "stage0_shifted": ((16, 56, 56), 4, 1, True),
+    "stage0": ((16, 56, 56), 4, 1, False),
+    "stage1_shifted": ((16, 28, 28), 8, 2, True),
+    "stage1": ((16, 28, 28), 8, 2, False),
+    "stage2_shifted": ((16, 14, 14), 16, 2, True),
+    "stage2": ((16, 14, 14), 16, 2, False),
+    "stage3_shifted": ((16, 7, 7), 32, 2, True),
+    "stage3": ((16, 7, 7), 32, 2, False),
+}
+
+
+def window_case(case, cuda, seed=13):
+    """q, k, v (packed views), the fp32 table, the labels (or None), the
+    upstream gradient and the plain version's table-plus-mask sum, output
+    and lse of a WINDOW_CASES case."""
+    from vast_tpu_torch.models import videoswin
+    from vast_tpu_torch.ops import window_attention as wa
+
+    grid, h, clips, shifted = WINDOW_CASES[case]
+    win = tuple(min(a, b) for a, b in zip((8, 7, 7), grid))
+    shift = tuple(0 if w >= g else w // 2 for w, g in zip(win, grid))
+    n_win = (grid[0] // win[0]) * (grid[1] // win[1]) * (grid[2] // win[2])
+    n, d, w = 392, 32, clips * n_win
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (t.transpose(1, 2) for t in torch.randn(
+        w, n, 3, h, d, device=cuda, generator=gen).to(
+            torch.bfloat16).unbind(2))
+    table = torch.randn(h, n, n, device=cuda, generator=gen)
+    labels = None
+    if shifted:
+        labels = wa.region_labels(torch.from_numpy(videoswin.shift_mask_3d(
+            *grid, win, shift))).to(cuda)
+    do = torch.randn(w, n, h, d, device=cuda, generator=gen).to(
+        torch.bfloat16).transpose(1, 2)
+    full = wa._window_bias_plain(table, labels, w)
+    o, lse = fa._flash_attention_plain(q, k, v, full, scale=d ** -0.5,
+                                       return_lse=True)
+    return q, k, v, table, labels, do, full, o, lse
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_forward_matches_plain(cuda, case):
+    """The window forward kernel (the op on bf16 CUDA operands: one
+    flash_attention_fwd_lse and one window_attention_fwd launch) against
+    the plain version on the table-plus-mask sum: the output within the
+    Hopper forward's bf16 rule, the lse within fp32 rounding; without a
+    gradient, no lse and a flash_attention_fwd launch."""
+    from vast_tpu_torch.ops import window_attention as wa
+
+    q, k, v, table, labels, _, _, ref, ref_lse = window_case(case, cuda)
+    d = q.shape[-1]
+    for need_lse in (True, False):
+        key = "flash_attention_fwd_lse" if need_lse else "flash_attention_fwd"
+        before = dict(fa.LAUNCHES)
+        out, lse = wa.WINDOW_OP(q, k, v, table, labels, d ** -0.5, need_lse)
+        torch.cuda.synchronize()
+        launched = {n: fa.LAUNCHES[n] - before[n] for n in before}
+        assert launched == {n: int(n in (key, "window_attention_fwd"))
+                            for n in before}
+        assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        diff = out.float() - ref.float()
+        err = diff.abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        v_max = v.float().abs().max().item()
+        assert err <= ref_max * 2 ** -7 + v_max * 2 ** -8, (err, ref_max)
+        rms = (diff.square().mean() / ref.float().square().mean()).sqrt()
+        assert rms.item() <= 2 ** -6, rms.item()
+        if need_lse:
+            lerr = (lse - ref_lse).abs().max().item()
+            assert lerr <= 1e-5 * max(ref_lse.abs().max().item(), 1.0), lerr
+        else:
+            assert lse.numel() == 0
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_backward_matches_plain(cuda, case):
+    """The window backward kernels (one flash_attention_bwd_dbias and one
+    window_attention_bwd launch a call) against the plain version: dq, dk
+    and dv within the Hopper backward's bf16 rule; the table's gradient,
+    the windows' fp32 ds summed in another order than the plain sum's
+    (chunks of windows, then the chunks), within 2^-16 of its sum of
+    |terms|; every output repeats bit for bit (no atomics)."""
+    from vast_tpu_torch.ops import window_attention as wa
+
+    q, k, v, table, labels, do, full, o, lse = window_case(case, cuda)
+    scale = q.shape[-1] ** -0.5
+    before = dict(fa.LAUNCHES)
+    got = wa.window_attention_bwd(q, k, v, table, labels, o, lse, do,
+                                  scale=scale)
+    torch.cuda.synchronize()
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in before}
+    assert launched == {n: int(n in ("flash_attention_bwd_dbias",
+                                     "window_attention_bwd"))
+                        for n in before}
+    again = wa.window_attention_bwd(q, k, v, table, labels, o, lse, do,
+                                    scale=scale)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    want = fa._flash_attention_bwd_plain(q, k, v, full, o, lse, do,
+                                         scale=scale, return_dbias=True)
+    want = (*want[:3], want[3].sum(dim=0))
+    terms = fa._flash_attention_bwd_abs_terms(q, k, v, full, o, lse, do,
+                                              scale=scale)
+    terms["dbias"] = terms["dbias"].sum(dim=0)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        g, w = g.float(), w.float()
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        diff = g - w
+        err = diff.abs().max().item()
+        span = (w.abs() + terms[name]).max().item()
+        if name == "dbias":
+            assert err <= 2 ** -16 * span, (name, err, span)
+            continue
+        assert err <= 1.1 * 2 ** -8 * span, (name, err, span)
+        rms = (diff.square().mean()
+               / w.square().mean().clamp_min(1e-30)).sqrt().item()
+        assert rms <= 2 ** -6, (name, rms)
+
+
+def test_window_attention_grad_allocates_no_window_sized_tensor(cuda):
+    """Through the public function at the first stage's shape (one clip,
+    shifted), a forward and backward recorded by autograd launch the
+    window kernels once each and allocate less than one fp32 (W, H, n, n)
+    tensor beyond their inputs; the table gets its gradient."""
+    from vast_tpu_torch.ops import window_attention as wa
+
+    q, k, v, table, labels, do, _, _, _ = window_case("stage0_shifted",
+                                                      cuda)
+    w, h, n, d = q.shape
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    table = table.detach().requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(fa.LAUNCHES)
+    out = wa.window_attention(q, k, v, table, labels, scale=d ** -0.5)
+    out.backward(do)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert fa.LAUNCHES["window_attention_fwd"] == \
+        before["window_attention_fwd"] + 1
+    assert fa.LAUNCHES["window_attention_bwd"] == \
+        before["window_attention_bwd"] + 1
+    assert peak < w * h * n * n * 4, (peak, w * h * n * n * 4)
+    assert table.grad is not None and bool(torch.isfinite(table.grad).all())
+
+
+def test_window_entries_refuse_what_the_kernels_do_not_take(cuda):
+    """Called on fp32 operands or at D 72 (above one 64-column box), the
+    window forward entry refuses with cudaErrorInvalidValue and launches
+    nothing. The public function sends fp32 to the general op, raises at
+    D 72 in bf16 before any launch, and launches the window kernels on
+    copies of bf16 views the copy engine cannot read (a base 2 bytes off
+    16), with the packed views' output bit for bit."""
+    from vast_tpu_torch.ops import window_attention as wa
+
+    q, k, v, table, labels, _, _, _, _ = window_case("stage3_shifted", cuda)
+    f32 = (q.float(), k.float(), v.float())
+    d72 = tuple(torch.cat([t, t, t[..., :8]], -1) for t in (q, k, v))
+    for qq, kk, vv in (f32, d72):
+        before = dict(fa.LAUNCHES)
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            wa._window_fwd_launch(qq, kk, vv, table, labels, 0.2, True)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == before
+    before = dict(fa.LAUNCHES)
+    wa.window_attention(*f32, table, labels, scale=0.2)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["window_attention_fwd"] == \
+        before["window_attention_fwd"]
+    assert fa.LAUNCHES["flash_attention_fwd"] == \
+        before["flash_attention_fwd"] + 1
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="window kernels take"):
+        wa.window_attention(*d72, table, labels, scale=0.2)
+    assert fa.LAUNCHES == before
+    packed = wa.window_attention(q, k, v, table, labels, scale=0.2)
+    off = []
+    for t in (q, k, v):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        off.append(flat[1:].view(t.shape).copy_(t))
+    assert not fa._sm90_ok(q.shape[-1], off[0])
+    before = dict(fa.LAUNCHES)
+    copied = wa.window_attention(*off, table, labels, scale=0.2)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["window_attention_fwd"] == \
+        before["window_attention_fwd"] + 1
+    assert torch.equal(copied, packed)

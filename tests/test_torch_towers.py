@@ -44,6 +44,7 @@ from vast_tpu_torch.models.bert import BertConfig
 from vast_tpu_torch.models.vast import VASTConfig, VASTModel
 from vast_tpu_torch.ops import attention
 from vast_tpu_torch.ops import flash_attention as fa
+from vast_tpu_torch.ops import window_attention
 from vast_tpu_torch.training.optimizer import param_labels
 
 TINY_EVA02 = j_eva.EvaVitConfig(
@@ -171,13 +172,14 @@ def test_tower_forward_and_gradient_match(tower, monkeypatch):
     every parameter and to the pixels, against jax.grad."""
     name, jm, params, pm, px = tower
     routes = []
-    for fn in ("flash_attention", "self_attention_tmajor"):
-        real = getattr(fa, fn)
+    for target, fn in ((attention, "flash_attention"),
+                       (eva_vit, "self_attention_tmajor"),
+                       (window_attention, "WINDOW_OP")):
+        real = getattr(target, fn)
 
         def spy(*a, _real=real, _fn=fn, **k):
             routes.append(_fn)
             return _real(*a, **k)
-        target = attention if fn == "flash_attention" else eva_vit
         monkeypatch.setattr(target, fn, spy)
     with torch.no_grad():
         shape = pm(torch.from_numpy(px)).shape
@@ -198,10 +200,11 @@ def test_tower_forward_and_gradient_match(tower, monkeypatch):
     assert _assert_grads(pm.named_parameters(), wgrads) == len(wgrads)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_x), rtol=0,
                                atol=GRAD_TOL * np.abs(np.asarray(g_x)).max())
-    # the route each tower's attention takes in the port
+    # the route each tower's attention takes in the port (Video Swin's
+    # 392-token windows: the window op)
     want_route = {"eva02": "flash_attention",
                   "postnorm_layer_scale": "self_attention_tmajor",
-                  "videoswin": "flash_attention"}.get(name)
+                  "videoswin": "WINDOW_OP"}.get(name)
     if want_route is None:                              # Swin: plain
         assert routes == []
     else:

@@ -177,11 +177,11 @@ def test_shift_mask_temporal_regions(frames, temporal):
 
 
 def test_stage_spans_count_windows_and_materialised_bias():
-    """The tower's stage spans, recorded: each stage's clips x windows,
-    its shifted blocks and the bytes of the fp32 table-plus-mask sums its
-    shifted blocks hand the kernel (2 clips; stage 0: 8 windows a clip
-    of 392 tokens, 2 heads; stage 1: 2 windows, 4 heads). Off, nothing
-    is recorded."""
+    """The tower's stage spans, recorded: each stage's clips x windows
+    and its shifted blocks (2 clips; stage 0: 8 windows a clip of 392
+    tokens, 2 heads; stage 1: 2 windows, 4 heads), and no ``bias_bytes``:
+    the window attention materialises no table-plus-mask sum. Off,
+    nothing is recorded."""
     from vast_tpu_torch import profiling
 
     prog = tower()
@@ -194,9 +194,6 @@ def test_stage_spans_count_windows_and_materialised_bias():
         prog(x)
     got = {s["name"]: s["counts"] for s in profiling.spans()}
     profiling.clear()
-    n = 392
     assert got == {
-        "vast.videoswin.stage0": {"windows": 16, "shifted": 1,
-                                  "bias_bytes": 16 * 2 * n * n * 4},
-        "vast.videoswin.stage1": {"windows": 4, "shifted": 1,
-                                  "bias_bytes": 4 * 4 * n * n * 4}}
+        "vast.videoswin.stage0": {"windows": 16, "shifted": 1},
+        "vast.videoswin.stage1": {"windows": 4, "shifted": 1}}

@@ -86,11 +86,12 @@
 #include <initializer_list>
 #include <type_traits>
 
-// The C entry points (at the end) fall into five parts by the bodies
+// The C entry points (at the end) fall into six parts by the bodies
 // they reach: 0 the mma.sync / CUDA-core forward (run), 1 the Hopper
 // forward (run_sm90), 2 the layout probe's strips (the copy engine's ring
 // and the resident strip), 3 the mma.sync / CUDA-core backward (run_bwd),
-// 4 the Hopper backward (run_bwd_sm90). vast_tpu_torch/build.py compiles
+// 4 the Hopper backward (run_bwd_sm90), 5 the window attention ("Window
+// attention for Hopper", the last section). vast_tpu_torch/build.py compiles
 // each part apart (-DVAST_PART=k), all at once, and links them into one
 // library; a part defines only its entries and the dispatchers that
 // instantiate their kernels. Without VAST_PART one compile defines all.
@@ -4385,5 +4386,1223 @@ extern "C" int vast_flash_attention_bwd_sm90(
       hmajor_bwd_params(q, k, v, o, dout, bias, dq, dk, dv, dbias, lse,
                         delta, B, H, Lq, Lk, D, kend, strides, scale),
       dtype, kF32, static_cast<cudaStream_t>(stream));
+}
+#endif
+
+// ---------------------------------------------------------------------
+// Window attention for Hopper: Swin's and Video Swin's window blocks
+// ---------------------------------------------------------------------
+//
+// Replaces no TPU kernel. vast_tpu's window blocks (models/swin.py:113-123,
+// models/videoswin.py:114-122) tile the region mask over every window of
+// the batch, add it to the (1, H, n, n) bias table and hand the general
+// flash_attention that (B nW, H, n, n) fp32 sum; the port did the same
+// until these kernels, and its backward wrote ds at that size for autograd
+// to sum over the windows: at Video Swin-B's 16 x 56 x 56 grid, 9.8 GB of
+// bias and 19.5 GB of ds written (and read back) a training step, most of
+// the tower's attention time. Here the table and the region labels are
+// read per window, and ds is summed into the table's gradient inside the
+// kernels: no tensor of the windows' scores' size exists, forward or
+// backward.
+//
+// Contract (vast_window_attention_fwd_sm90 / _bwd_sm90 below). q, k, v (W,
+// H, n, D) bf16 through (window, head, row) element strides (the views of
+// the packed qkv), W = clips x n_win windows, each clip's n_win windows in
+// order. Per (window w, head h): s = (q . k^T) * scale + table[h] in fp32,
+// and -inf where the query's and the key's region labels (labels[w %
+// n_win], a shifted block's mask as an equivalence: two tokens attend
+// where their labels are equal) differ, as the -1e30 of the sum did;
+// softmax in fp32, p . v accumulated in fp32, the output in bf16, and on
+// request the lse. The backward: dq, dk, dv, and dtable = the sum over the
+// W windows of ds = p (do . v^T - delta), (H, n, n) fp32, each window's ds
+// in fp32 (as the general backward wrote it).
+//
+// What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at n 392, D 32
+// the work is n / 2 = 196 FLOP a byte of q, k, v and o, under the ridge
+// (~295), so the floor is bytes (benchmark/counts/window_attention.py):
+// each of q, k, v and o once, the table (H, n, n) and the labels once;
+// the first stage's forward (1,024 windows x 4 heads) 0.13 ms, its
+// backward 0.25 ms; 3.1 ms over the 24 blocks of a training step. At D 32
+// the exp2 of a score (16 a clock an SM) takes as long as its 128 tensor
+// operations, and the bias and label reads and the mask compare add to
+// the per-score work the tensor cores do not do.
+// What the design does about it:
+// * the forward, dQ and dK/dV kernels are the general Hopper bodies'
+//   (attention_fwd_sm90_kernel, attention_bwd_dq/dkv_sm90_kernel: wgmma
+//   fed by the copy engine, a producer thread, two consumer warpgroups of
+//   64 rows, persistent blocks), with the products over D at KD = D / 16
+//   k-steps (2 at D 32, not 4); the scores' bias comes from the (H, n, n)
+//   table through the copy engine, each stage holding the table's tile of
+//   its rows and keys beside k and v (fp32, 128-byte swizzle, read by the
+//   consumers without bank conflicts: scalar loads of the table, as the
+//   general bodies read a broadcast bias, left every tile waiting on L2 and
+//   ran 3.2 ms at the first stage's forward against 0.13 ms); the work
+//   runs head by head, the windows of one head adjacent, so that the tiles
+//   the copy engine brings are L2 hits; the mask is the window's n labels;
+//   a warpgroup that owns no row of a work tile issues no product (the
+//   fourth 128-row tile of 392 holds 8 rows); the forward's 8-key tail
+//   (392 = 3 x 128 + 8) runs as wgmma N 16 first, as the general
+//   forward's;
+// * ds is not written by them. window_attention_bwd_dtable_sm90_kernel
+//   recomputes it by (head, 64-row tile, 64-key tile, chunk of windows):
+//   each consumer warpgroup holds its tile's bias in registers and sums
+//   ds over its chunk's windows in registers (two products, q . k^T and
+//   do . v^T, a window), so the table is read once per chunk and nothing
+//   of the windows' size is written; each warpgroup has its own ring of
+//   stages and its own producer thread. The chunks are sized in the
+//   wrapper so that every stage fills the SMs four times over (the first
+//   stage's 4 heads x 49 tiles in 6 chunks, the last's 32 x 49 in one);
+// * window_attention_bwd_dtable_reduce_kernel adds the chunks' partial
+//   sums in chunk order: deterministic, no atomics (skipped for one
+//   chunk, whose sums are the gradient).
+// Measured on the H100 at the first stage (8 clips, shifted; PERF.md's
+// kernel table): the forward 1.11 ms, the backward 3.32 (dQ 1.15, dK/dV
+// 1.25, the table's partial sums 0.91), against 3.43 and 13.2 of the
+// general op on the materialised sum. Found with builds that switched
+// parts off: a branch a pair in the backward kernels (pairs past n or
+// across regions skipped) cost them 1.5 ms of 5.0, so p is formed for
+// every pair and kept by a select; the table's tiles take 0.56 ms of the
+// forward's 1.29 (0.73 without them), but next to nothing of dQ and
+// dK/dV (3.62 ms without them against 3.67, in a build that still
+// branched), which wait on their serial chain of products and
+// exponentials. Tried and slower: (a) items of (head, 64-row slab,
+// chunk of windows) whose slab of the table stays in shared memory for
+// the chunk, each consumer warpgroup on windows of its own (then forward
+// 1.39 ms, backward 5.51 against 1.33 and 5.04): k and v read 7 times a
+// window, not 4, and each window's q fetched behind its warpgroup's last
+// tile; (b) pairs of blocks (clusters of two) on two windows that share
+// each stage's table tile through the copy engine's multicast, half the
+// table's bytes from L2 (forward 1.56 ms, dQ 2.02, dK/dV 2.23: the pair
+// runs in lockstep). Later levers, not here: two windows a work tile in
+// one block sharing its table tile, ds summed in the dQ kernel rather
+// than recomputed, N 32 products of p . v and dq at D 32.
+
+// Part 5 (VAST_PART): the window entries and everything they alone use
+#if VAST_PART_ON(5)
+namespace {
+
+// the window op's operands, and the rows of WinParams::st
+enum WinOperand { wQ, wK, wV, wO, wDO, wDQ, wDK, wDV, kWinOperands };
+
+struct WinParams {
+  const void* in[5];      // q, k, v, o, do (the forward reads q, k, v)
+  void* out;              // the forward's output (strides st[wO])
+  void* grad[3];          // dq, dk, dv
+  long long st[kWinOperands][3];  // element strides (window, head, row)
+  const float* table;     // (H, n, n) fp32, contiguous
+  const int* labels;      // (n_win, n) region labels; null: no mask
+  float* lse;             // (W, H, n) fp32: the forward's; null: not written
+  float* delta;           // (W, H, n) fp32 scratch of the backward
+  float* partial;         // (chunks, H, n, n) fp32: ds summed by chunk
+  float* dtable;          // (H, n, n) fp32; null: not computed
+  int W, H, n, D, n_win, per_chunk, chunks;
+  float scale;
+};
+
+// window w's labels (null without a mask) and a row's label (-1 past n)
+__device__ __forceinline__ const int* win_labels(const WinParams& p, int w) {
+  return p.labels ? p.labels + (long long)(w % p.n_win) * p.n : nullptr;
+}
+
+__device__ __forceinline__ int win_label(const int* lab, int row, int n) {
+  return lab && row < n ? __ldg(lab + row) : -1;
+}
+
+// the labels of tokens c and c + 1 (c even; n a multiple of 4, so both lie
+// in the window or neither), -1 each past n or without a mask
+__device__ __forceinline__ int2 win_label_pair(const int* lab, int c, int n) {
+  return lab && c < n ? __ldg(reinterpret_cast<const int2*>(lab + c))
+                      : make_int2(-1, -1);
+}
+
+// A tile of the table in shared memory, as the copy engine lays it: boxes
+// of 32 keys (128 bytes of fp32) by `rows` rows in 128-byte swizzle (zeros
+// past n). The bias of (row r, key c), and of keys c and c + 1 (c even).
+constexpr int kWinBiasKeys = 32;
+
+__device__ __forceinline__ const float* win_bias_ptr(const unsigned char* tile,
+                                                     int rows, int r, int c) {
+  return reinterpret_cast<const float*>(
+      tile + ((c >> 5) * rows + r) * kSm90RowBytes +
+      ((((c & 31) >> 2) ^ (r & 7)) << 4) + 4 * (c & 3));
+}
+
+__device__ __forceinline__ float2 win_bias_pair(const unsigned char* tile,
+                                                int rows, int r, int c) {
+  return *reinterpret_cast<const float2*>(win_bias_ptr(tile, rows, r, c));
+}
+
+// The table's boxes of 32 keys that hold keys of the window from key k0 on
+// (of at most `most`): the copy engine brings no box that lies past n
+__device__ __forceinline__ int win_boxes(int n, int k0, int most) {
+  return min(most, (n - k0 + kWinBiasKeys - 1) / kWinBiasKeys);
+}
+
+// The forward's shared memory: q, then each stage's k, v and table tile
+// (the work tile's 128 rows by the key tile's 128 keys), then the
+// barriers (full and empty per stage, then q's full and empty)
+struct WinFwdSmem {
+  static constexpr int kStages = 2;
+  static constexpr unsigned kQBytes = kSm90BlockQ * kSm90RowBytes;
+  static constexpr unsigned kKvBytes = kSm90BlockK * kSm90RowBytes;
+  static constexpr unsigned kBiasBytes = kSm90BlockQ * kSm90BlockK * 4;
+  static constexpr unsigned kStageBytes = 2 * kKvBytes + kBiasBytes;
+  static constexpr unsigned kBarOffset = kQBytes + kStages * kStageBytes;
+  static constexpr size_t kBytes = kBarOffset + (2 * kStages + 2) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
+
+// dQ's: BwdDqSmem<64>'s with the table tile (128 rows by 64 keys) after
+// each stage's k and v
+struct WinDqSmem {
+  static constexpr unsigned kOwnedBytes = kBwdSm90Owned * kSm90RowBytes;
+  static constexpr unsigned kTileBytes = kBwdSm90Inner * kSm90RowBytes;
+  static constexpr unsigned kBiasBytes = kBwdSm90Owned * kBwdSm90Inner * 4;
+  static constexpr unsigned kStageBytes = 2 * kTileBytes + kBiasBytes;
+  static constexpr unsigned kBarOffset =
+      3 * kOwnedBytes + kBwdSm90Stages * kStageBytes;
+  static constexpr size_t kBytes =
+      kBarOffset + (2 * kBwdSm90Stages + 2) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
+
+// dK/dV's: BwdDkvSmem<64>'s with the table tile (64 rows by 128 keys)
+// after each stage's q, do, lse and delta
+struct WinDkvSmem {
+  static constexpr unsigned kOwnedBytes = kBwdSm90Owned * kSm90RowBytes;
+  static constexpr unsigned kTileBytes = kBwdSm90Inner * kSm90RowBytes;
+  static constexpr unsigned kStatBytes = kStatBox * 4;
+  static constexpr unsigned kStatStride = 512;
+  static constexpr unsigned kBiasOffset = 2 * kTileBytes + 1024;
+  static constexpr unsigned kBiasBytes = kBwdSm90Inner * kBwdSm90Owned * 4;
+  static constexpr unsigned kStageBytes = kBiasOffset + kBiasBytes;
+  static constexpr unsigned kBarOffset =
+      2 * kOwnedBytes + kBwdSm90Stages * kStageBytes;
+  static constexpr size_t kBytes =
+      kBarOffset + (2 * kBwdSm90Stages + 2) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
+
+// One forward consumer warpgroup: sm90_consumer's at DP 64 (one 64-column
+// box), the scores' bias from table[h] and the mask from window w's labels
+template <int KD>
+__device__ __forceinline__ void win_fwd_consumer(
+    const WinParams& p, const unsigned char* qs, const unsigned char* kv,
+    uint64_t* full, uint64_t* empty, uint64_t* qfull, uint64_t* qempty,
+    int wg, int q0, int h, int w, int n_tiles, int ring, unsigned qphase) {
+  using S = WinFwdSmem;
+  constexpr int kSteps = kSm90BlockK / 16;      // 16-key steps of p . v
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = p.n, D = p.D;
+  const int rl = 64 * wg + 16 * warp + g;       // the row in the work tile
+  const int row0 = q0 + rl, row1 = row0 + 8;
+  const bool active = q0 + 64 * wg < n;         // the warpgroup owns a row
+  const float scale2 = p.scale * kLog2e;
+  const int* lab = win_labels(p, w);
+  const int lr[2] = {win_label(lab, row0, n), win_label(lab, row1, n)};
+  mbar_wait_or_trap(qfull, qphase);
+
+  float o[32], s[64];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  uint32_t pa[kSteps][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  const unsigned char* qw = qs + 64 * wg * kSm90RowBytes;
+
+  auto scores = [&](auto& sc, int st) {
+    const unsigned char* ks = kv + st * S::kStageBytes;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const uint64_t da = wgmma_desc(qw + kk * 32, 16, 1024);
+      const uint64_t db = wgmma_desc(ks + kk * 32, 16, 1024);
+      if constexpr (sizeof(sc) == 64 * sizeof(float))
+        wgmma_m64n128k16_ss(sc, da, db, kk > 0);
+      else
+        wgmma_m64n16k16_ss(sc, da, db, kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto values = [&](const auto& pk, int st) {
+    constexpr int steps = sizeof(pk) / sizeof(pk[0]);
+    const unsigned char* vs = kv + st * S::kStageBytes + S::kKvBytes;
+#pragma unroll
+    for (int kk = 0; kk < steps; ++kk)
+      wgmma_m64n64k16_rs(
+          o, pk[kk],
+          wgmma_desc(vs + 16 * kk * kSm90RowBytes,
+                     kSm90BlockK * kSm90RowBytes, 1024),
+          1);
+    wgmma_commit();
+  };
+  // the scores of the tile from k0 (stage st) into log2 units: times the
+  // scale, plus the table's bias from the stage, -inf where the labels
+  // differ
+  auto to_log2 = [&](auto& sc, int k0, int st) {
+    constexpr int nj = sizeof(sc) / sizeof(float) / 4;
+    const unsigned char* bt = kv + st * S::kStageBytes + 2 * S::kKvBytes;
+#pragma unroll
+    for (int j = 0; j < nj; ++j) {
+      const int2 lk = win_label_pair(lab, k0 + 8 * j + 2 * t, n);
+      const float2 b[2] = {win_bias_pair(bt, kSm90BlockQ, rl, 8 * j + 2 * t),
+                           win_bias_pair(bt, kSm90BlockQ, rl + 8,
+                                         8 * j + 2 * t)};
+      // keys past n: the copy engine's zeros, masked by the softmax;
+      // rows past n are not stored
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const float x = fmaf((i & 1) ? b[r].y : b[r].x, kLog2e,
+                             sc[4 * j + i] * scale2);
+        sc[4 * j + i] = ((i & 1) ? lk.y : lk.x) == lr[r] ? x : -INFINITY;
+      }
+    }
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+  };
+  // key tile kt as the i-th of the work tile's, its stage the ring's next
+  auto wide_tile = [&](int kt, int i) {
+    const int st = (ring + i) % S::kStages;
+    mbar_wait_or_trap(full + st, ((ring + i) / S::kStages) & 1);
+    if (active) {
+      __syncwarp();
+      wgmma_fence();
+      scores(s, st);
+      wgmma_wait<0>();
+      fence_regs(s);
+    }
+    if (i == n_tiles - 1) mbar_arrive(qempty);    // the next q may come
+    if (active) {
+      const int k0 = kt * kSm90BlockK;
+      to_log2(s, k0, st);
+      sm90_softmax<16>(s, m, l, alpha, n, k0, t, 1.f);
+      rescale();
+      pack_p<16>(s, pa);
+      wgmma_fence();
+      values(pa, st);
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    mbar_arrive(empty + st);                      // stage st may be refilled
+  };
+  auto tail_tile = [&](int kt, int i) {
+    const int st = (ring + i) % S::kStages;
+    float s16[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s16[j] = 0.f;
+    mbar_wait_or_trap(full + st, ((ring + i) / S::kStages) & 1);
+    if (active) {
+      __syncwarp();
+      wgmma_fence();
+      scores(s16, st);
+      wgmma_wait<0>();
+      fence_regs(s16);
+    }
+    if (i == n_tiles - 1) mbar_arrive(qempty);
+    if (active) {
+      const int k0 = kt * kSm90BlockK;
+      to_log2(s16, k0, st);
+      sm90_softmax<2>(s16, m, l, alpha, n, k0, t, 1.f);
+      rescale();
+      uint32_t pa16[1][4];
+      pack_p<2>(s16, pa16);
+      wgmma_fence();
+      values(pa16, st);
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    mbar_arrive(empty + st);
+  };
+
+  const bool tail16 = sm90_tail16(n, n_tiles);
+  if (tail16) tail_tile(n_tiles - 1, 0);
+  for (int kt = 0; kt < n_tiles - tail16; ++kt) wide_tile(kt, kt + tail16);
+  if (!active) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  const float inv0 = l[0] > 0.f ? 1.f / l[0] : 0.f;
+  const float inv1 = l[1] > 0.f ? 1.f / l[1] : 0.f;
+  if (p.lse && t == 0) {
+    float* lse_wh = p.lse + ((long long)w * p.H + h) * n;
+    if (row0 < n) lse_wh[row0] = row_lse(m[0] * kLn2, l[0]);
+    if (row1 < n) lse_wh[row1] = row_lse(m[1] * kLn2, l[1]);
+  }
+  auto* og = plane<__nv_bfloat16>(p.out, p.st[wO][0], p.st[wO][1], w, h);
+  const long long o_rs = p.st[wO][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int d = 8 * j + 2 * t;                  // D is even: d + 1 < D too
+    if (d >= D) continue;
+    if (row0 < n)
+      *reinterpret_cast<__nv_bfloat162*>(og + row0 * o_rs + d) =
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    if (row1 < n)
+      *reinterpret_cast<__nv_bfloat162*>(og + row1 * o_rs + d) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+}
+
+// (query or key tile, window, head) of work tile u: the tiles of a window
+// adjacent, then the windows of one head in order. The tile of u is
+// rotated by its window, so that a block, whose work tiles lie gridDim.x
+// apart, does not take the last (8 of 392 rows) tile of every window
+// when gridDim.x is a multiple of the tiles (132 of 4). With win_boxes
+// this took 10% off the forward and 7% off dQ with dK/dV at the first
+// stage.
+struct WinWork {
+  int r0, w, h;
+};
+
+__device__ __forceinline__ WinWork win_work(int u, int n_tiles, int rows,
+                                            int W) {
+  const int wh = u / n_tiles;
+  return WinWork{(u % n_tiles + wh) % n_tiles * rows, wh % W, wh / W};
+}
+
+// Persistent, as attention_fwd_sm90_kernel: a block per SM takes work
+// tiles u = blockIdx.x, + gridDim.x, ...; the producer's first thread
+// brings each work tile's 128 query rows, then per key tile its k, v and
+// the table's tile of those rows and keys (through tmap).
+template <int KD>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+window_attention_fwd_sm90_kernel(const WinParams p,
+                                 const __grid_constant__ CUtensorMap qmap,
+                                 const __grid_constant__ CUtensorMap kmap,
+                                 const __grid_constant__ CUtensorMap vmap,
+                                 const __grid_constant__ CUtensorMap tmap,
+                                 const Sm90Slot sq, const Sm90Slot sk,
+                                 const Sm90Slot sv, int n_qtiles,
+                                 int n_work) {
+  using S = WinFwdSmem;
+  extern __shared__ __align__(1024) unsigned char win_smem[];
+  unsigned char* qs = align_1024(win_smem);
+  unsigned char* kv = qs + S::kQBytes;
+  auto* full = reinterpret_cast<uint64_t*>(qs + S::kBarOffset);
+  uint64_t* empty = full + S::kStages;
+  uint64_t* qfull = empty + S::kStages;
+  uint64_t* qempty = qfull + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128 * kSm90Consumers);
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 128 * kSm90Consumers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_tiles = (p.n + kSm90BlockK - 1) / kSm90BlockK;
+  const int wg = threadIdx.x / 128;
+  if (wg == kSm90Consumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ProducerRegs));
+    if (threadIdx.x != 128 * kSm90Consumers) return;
+    const bool tail16 = sm90_tail16(p.n, n_tiles);
+    int ring = 0;
+    for (int u = blockIdx.x, c = 0; u < n_work; u += gridDim.x, ++c) {
+      const WinWork wk = win_work(u, n_qtiles, kSm90BlockQ, p.W);
+      if (c > 0) mbar_wait_or_trap(qempty, (c - 1) & 1);
+      mbar_arrive_expect_tx(qfull, S::kQBytes);
+      tma_load_at(qs, &qmap, qfull, sq, 0, wk.w, wk.h, wk.r0);
+      for (int i = 0; i < n_tiles; ++i, ++ring) {
+        const int k0 = kSm90BlockK * sm90_key_tile(i, n_tiles, tail16);
+        const int st = ring % S::kStages;
+        mbar_wait_or_trap(empty + st, ((ring / S::kStages) & 1) ^ 1);
+        const int boxes = win_boxes(p.n, k0, kSm90BlockK / kWinBiasKeys);
+        mbar_arrive_expect_tx(
+            full + st, 2 * S::kKvBytes + boxes * kSm90BlockQ * kSm90RowBytes);
+        unsigned char* ks = kv + st * S::kStageBytes;
+        tma_load_at(ks, &kmap, full + st, sk, 0, wk.w, wk.h, k0);
+        tma_load_at(ks + S::kKvBytes, &vmap, full + st, sv, 0, wk.w, wk.h,
+                    k0);
+        for (int c = 0; c < boxes; ++c)
+          tma_load_4d(ks + 2 * S::kKvBytes + c * kSm90BlockQ * kSm90RowBytes,
+                      &tmap, full + st, k0 + c * kWinBiasKeys, wk.r0, wk.h,
+                      0);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ConsumerRegs));
+    for (int u = blockIdx.x, c = 0; u < n_work; u += gridDim.x, ++c) {
+      const WinWork wk = win_work(u, n_qtiles, kSm90BlockQ, p.W);
+      win_fwd_consumer<KD>(p, qs, kv, full, empty, qfull, qempty, wg, wk.r0,
+                           wk.h, wk.w, n_tiles, c * n_tiles, c & 1);
+    }
+  }
+}
+
+// One dQ consumer warpgroup: bwd_dq_consumer's at DP 64 given the lse, the
+// bias from table[h] and the mask from window w's labels, no ds written
+template <int KD>
+__device__ __forceinline__ void win_dq_consumer(
+    const WinParams& p, const unsigned char* qs, const unsigned char* dos,
+    const unsigned char* os, const unsigned char* ring, uint64_t* full,
+    uint64_t* empty, uint64_t* ofull, uint64_t* oempty, int wg, int q0,
+    int h, int w, int n_k, int ring0, unsigned ophase) {
+  using S = WinDqSmem;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * wg + 16 * warp + g;
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  const int n = p.n;
+  const bool active = q0 + 64 * wg < n;
+  const float scale2 = p.scale * kLog2e;
+  const long long stat0 = ((long long)w * p.H + h) * n;
+  const int* lab = win_labels(p, w);
+  const int lr[2] = {win_label(lab, row0, n), win_label(lab, row1, n)};
+  const unsigned char* qw = qs + 64 * wg * kSm90RowBytes;
+  const unsigned char* dow = dos + 64 * wg * kSm90RowBytes;
+  mbar_wait_or_trap(ofull, ophase);
+
+  // delta of rows r0 and r0 + 8 from do and o in shared memory, as
+  // bwd_dq_consumer sums it
+  float delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int off = (r0 + 8 * r) * kSm90RowBytes +
+                      ((t + g + 4 * i) & 7) * 16;
+      acc += dot_bf16x8(*reinterpret_cast<const uint4*>(dos + off),
+                        *reinterpret_cast<const uint4*>(os + off));
+    }
+    acc += __shfl_xor_sync(kFull, acc, 1);
+    acc += __shfl_xor_sync(kFull, acc, 2);
+    delta[r] = acc;
+  }
+  if (t == 0) {
+    if (row0 < n) p.delta[stat0 + row0] = delta[0];
+    if (row1 < n) p.delta[stat0 + row1] = delta[1];
+  }
+  const float lse2[2] = {row0 < n ? p.lse[stat0 + row0] * kLog2e : INFINITY,
+                         row1 < n ? p.lse[stat0 + row1] * kLog2e : INFINITY};
+
+  float s[32], dp[32], dq[1][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[0][i] = 0.f;
+  for (int it = 0; it < n_k; ++it) {
+    const int ri = ring0 + it, st = ri % kBwdSm90Stages;
+    mbar_wait_or_trap(full + st, (ri / kBwdSm90Stages) & 1);
+    const unsigned char* ks = ring + st * S::kStageBytes;
+    if (active) {
+      __syncwarp();
+      wgmma_fence();
+      bwd_sm90_abt<KD>(s, qw, kBwdSm90Owned, ks);
+      bwd_sm90_abt<KD>(dp, dow, kBwdSm90Owned, ks + S::kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (it == n_k - 1) mbar_arrive(oempty);    // the next q, do, o may come
+      const int k0 = it * kBwdSm90Inner;
+      const unsigned char* bt = ks + 2 * S::kTileBytes;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = k0 + 8 * j + 2 * t;
+        const int2 lk = win_label_pair(lab, key, n);
+        const float2 b[2] = {
+            win_bias_pair(bt, kBwdSm90Owned, r0, 8 * j + 2 * t),
+            win_bias_pair(bt, kBwdSm90Owned, r0 + 8, 8 * j + 2 * t)};
+        // p is formed for every pair and kept where the pair counts:
+        // a select, not a branch
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const bool keep = key + (i & 1) < n && (r ? row1 : row0) < n &&
+                            ((i & 1) ? lk.y : lk.x) == lr[r];
+          const float pr = ex2(fmaf((i & 1) ? b[r].y : b[r].x, kLog2e,
+                                    fmaf(s[4 * j + i], scale2, -lse2[r])));
+          s[4 * j + i] = (keep ? pr : 0.f) * (dp[4 * j + i] - delta[r]);
+        }
+      }
+      uint32_t da[4][4];
+      bwd_sm90_pack(s, da);
+      wgmma_fence();
+      bwd_sm90_xy<1>(dq, da, ks);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq[0]);
+    } else if (it == n_k - 1) {
+      mbar_arrive(oempty);
+    }
+    mbar_arrive(empty + st);                     // stage st may be refilled
+  }
+  if (active)
+    bwd_sm90_store<1>(
+        plane<__nv_bfloat16>(p.grad[0], p.st[wDQ][0], p.st[wDQ][1], w, h),
+        p.st[wDQ][2], dq, row0, n, p.D, p.scale, t);
+}
+
+// One dK/dV consumer warpgroup: bwd_dkv_consumer's at DP 64, the bias
+// from table[h] and the mask from window w's labels
+template <int KD>
+__device__ __forceinline__ void win_dkv_consumer(
+    const WinParams& p, const unsigned char* ks, const unsigned char* vs,
+    const unsigned char* ring, uint64_t* full, uint64_t* empty,
+    uint64_t* ofull, uint64_t* oempty, int wg, int k0, int h, int w,
+    int n_q, int ring0, unsigned ophase) {
+  using S = WinDkvSmem;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kl = 64 * wg + 16 * warp + g;       // the key in the work tile
+  const int key0 = k0 + kl, key1 = key0 + 8;
+  const int n = p.n;
+  const long long stat0 = ((long long)w * p.H + h) * n;
+  const bool active = k0 + 64 * wg < n;
+  const float scale2 = p.scale * kLog2e;
+  const int* lab = win_labels(p, w);
+  const int lk[2] = {win_label(lab, key0, n), win_label(lab, key1, n)};
+  const unsigned char* kw = ks + 64 * wg * kSm90RowBytes;
+  const unsigned char* vw = vs + 64 * wg * kSm90RowBytes;
+  float dk[1][32], dv[1][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[0][i] = dv[0][i] = 0.f;
+  mbar_wait_or_trap(ofull, ophase);
+  for (int it = 0; it < n_q; ++it) {
+    const int ri = ring0 + it, st = ri % kBwdSm90Stages;
+    mbar_wait_or_trap(full + st, (ri / kBwdSm90Stages) & 1);
+    const unsigned char* qt = ring + st * S::kStageBytes;
+    const unsigned char* dot = qt + S::kTileBytes;
+    // the tile's lse and delta, (stat0 + q0) % 4 values into their boxes
+    const int q0 = it * kBwdSm90Inner, at = (int)((stat0 + q0) & 3);
+    const float* lse_s =
+        reinterpret_cast<const float*>(qt + 2 * S::kTileBytes) + at;
+    const float* delta_s = reinterpret_cast<const float*>(
+        qt + 2 * S::kTileBytes + S::kStatStride) + at;
+    const unsigned char* bt = qt + S::kBiasOffset;
+    if (active) {
+      float sT[32], dpT[32];
+      __syncwarp();
+      wgmma_fence();
+      bwd_sm90_abt<KD>(sT, kw, kBwdSm90Owned, qt);
+      bwd_sm90_abt<KD>(dpT, vw, kBwdSm90Owned, dot);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sT);
+      fence_regs(dpT);
+      if (it == n_q - 1) mbar_arrive(oempty);    // the next k, v may come
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float lse[2] = {lse_s[c] * kLog2e, lse_s[c + 1] * kLog2e};
+        const float dl[2] = {delta_s[c], delta_s[c + 1]};
+        const int2 lq = win_label_pair(lab, q0 + c, n);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool keep = (i < 2 ? key0 : key1) < n && q0 + c + (i & 1) < n &&
+                            ((i & 1) ? lq.y : lq.x) == lk[i >> 1];
+          const float x = ex2(fmaf(*win_bias_ptr(bt, kBwdSm90Inner,
+                                                 c + (i & 1),
+                                                 kl + 8 * (i >> 1)),
+                                   kLog2e,
+                                   fmaf(sT[4 * j + i], scale2, -lse[i & 1])));
+          const float pr = keep ? x : 0.f;
+          dpT[4 * j + i] = pr * (dpT[4 * j + i] - dl[i & 1]);
+          sT[4 * j + i] = pr;
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+      bwd_sm90_pack(sT, pa);
+      bwd_sm90_pack(dpT, da);
+      wgmma_fence();
+      bwd_sm90_xy<1>(dv, pa, dot);
+      bwd_sm90_xy<1>(dk, da, qt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk[0]);
+      fence_regs(dv[0]);
+    } else if (it == n_q - 1) {
+      mbar_arrive(oempty);
+    }
+    mbar_arrive(empty + st);                     // stage st may be refilled
+  }
+  if (active) {
+    bwd_sm90_store<1>(
+        plane<__nv_bfloat16>(p.grad[1], p.st[wDK][0], p.st[wDK][1], w, h),
+        p.st[wDK][2], dk, key0, n, p.D, p.scale, t);
+    bwd_sm90_store<1>(
+        plane<__nv_bfloat16>(p.grad[2], p.st[wDV][0], p.st[wDV][1], w, h),
+        p.st[wDV][2], dv, key0, n, p.D, 1.f, t);
+  }
+}
+
+// Persistent, as attention_bwd_dq_sm90_kernel given the lse: a work tile's
+// q, do and o, then its key tiles' k, v and table tile (through tmap)
+template <int KD>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+window_attention_bwd_dq_sm90_kernel(const WinParams p,
+                                    const __grid_constant__ BwdMaps m,
+                                    const __grid_constant__ CUtensorMap tmap,
+                                    int n_qtiles, int n_work) {
+  using S = WinDqSmem;
+  extern __shared__ __align__(1024) unsigned char win_smem[];
+  unsigned char* qs = align_1024(win_smem);
+  unsigned char* dos = qs + S::kOwnedBytes;
+  unsigned char* os = dos + S::kOwnedBytes;
+  unsigned char* ring = os + S::kOwnedBytes;
+  auto* full = reinterpret_cast<uint64_t*>(qs + S::kBarOffset);
+  uint64_t* empty = full + kBwdSm90Stages;
+  uint64_t* ofull = empty + kBwdSm90Stages;
+  uint64_t* oempty = ofull + 1;
+  bwd_sm90_init(full);
+  const int n_k = (p.n + kBwdSm90Inner - 1) / kBwdSm90Inner;
+  const int wg = threadIdx.x / 128;
+  if (wg == kSm90Consumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ProducerRegs));
+    if (threadIdx.x != 128 * kSm90Consumers) return;
+    int ri = 0;
+    for (int u = blockIdx.x, c = 0; u < n_work; u += gridDim.x, ++c) {
+      const WinWork wk = win_work(u, n_qtiles, kBwdSm90Owned, p.W);
+      if (c > 0) mbar_wait_or_trap(oempty, (c - 1) & 1);
+      mbar_arrive_expect_tx(ofull, 3 * S::kOwnedBytes);
+      tma_load_at(qs, &m.own[0], ofull, m.own_slot[0], 0, wk.w, wk.h, wk.r0);
+      tma_load_at(dos, &m.own[1], ofull, m.own_slot[1], 0, wk.w, wk.h,
+                  wk.r0);
+      tma_load_at(os, &m.own[2], ofull, m.own_slot[2], 0, wk.w, wk.h, wk.r0);
+      for (int it = 0; it < n_k; ++it, ++ri) {
+        const int st = ri % kBwdSm90Stages;
+        mbar_wait_or_trap(empty + st, ((ri / kBwdSm90Stages) & 1) ^ 1);
+        const int boxes = win_boxes(p.n, it * kBwdSm90Inner,
+                                    kBwdSm90Inner / kWinBiasKeys);
+        mbar_arrive_expect_tx(
+            full + st,
+            2 * S::kTileBytes + boxes * kBwdSm90Owned * kSm90RowBytes);
+        unsigned char* ks = ring + st * S::kStageBytes;
+        tma_load_at(ks, &m.str[0], full + st, m.str_slot[0], 0, wk.w, wk.h,
+                    it * kBwdSm90Inner);
+        tma_load_at(ks + S::kTileBytes, &m.str[1], full + st, m.str_slot[1],
+                    0, wk.w, wk.h, it * kBwdSm90Inner);
+        for (int c2 = 0; c2 < boxes; ++c2)
+          tma_load_4d(ks + 2 * S::kTileBytes +
+                          c2 * kBwdSm90Owned * kSm90RowBytes,
+                      &tmap, full + st, it * kBwdSm90Inner + c2 * kWinBiasKeys,
+                      wk.r0, wk.h, 0);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ConsumerRegs));
+    for (int u = blockIdx.x, c = 0; u < n_work; u += gridDim.x, ++c) {
+      const WinWork wk = win_work(u, n_qtiles, kBwdSm90Owned, p.W);
+      win_dq_consumer<KD>(p, qs, dos, os, ring, full, empty, ofull, oempty,
+                          wg, wk.r0, wk.h, wk.w, n_k, c * n_k, c & 1);
+    }
+  }
+}
+
+// Persistent, as attention_bwd_dkv_sm90_kernel: a work tile's k and v,
+// then its query tiles' q, do, lse, delta and table tile (through tmap)
+template <int KD>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+window_attention_bwd_dkv_sm90_kernel(const WinParams p,
+                                     const __grid_constant__ BwdMaps m,
+                                     const __grid_constant__ CUtensorMap tmap,
+                                     int n_ktiles, int n_work) {
+  using S = WinDkvSmem;
+  extern __shared__ __align__(1024) unsigned char win_smem[];
+  unsigned char* ks = align_1024(win_smem);
+  unsigned char* vs = ks + S::kOwnedBytes;
+  unsigned char* ring = vs + S::kOwnedBytes;
+  auto* full = reinterpret_cast<uint64_t*>(ks + S::kBarOffset);
+  uint64_t* empty = full + kBwdSm90Stages;
+  uint64_t* ofull = empty + kBwdSm90Stages;
+  uint64_t* oempty = ofull + 1;
+  bwd_sm90_init(full);
+  const int n_q = (p.n + kBwdSm90Inner - 1) / kBwdSm90Inner;
+  const int wg = threadIdx.x / 128;
+  if (wg == kSm90Consumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ProducerRegs));
+    if (threadIdx.x != 128 * kSm90Consumers) return;
+    int ri = 0;
+    for (int u = blockIdx.x, c = 0; u < n_work; u += gridDim.x, ++c) {
+      const WinWork wk = win_work(u, n_ktiles, kBwdSm90Owned, p.W);
+      if (c > 0) mbar_wait_or_trap(oempty, (c - 1) & 1);
+      mbar_arrive_expect_tx(ofull, 2 * S::kOwnedBytes);
+      tma_load_at(ks, &m.own[0], ofull, m.own_slot[0], 0, wk.w, wk.h, wk.r0);
+      tma_load_at(vs, &m.own[1], ofull, m.own_slot[1], 0, wk.w, wk.h, wk.r0);
+      const long long stat0 = ((long long)wk.w * p.H + wk.h) * p.n;
+      for (int it = 0; it < n_q; ++it, ++ri) {
+        const int st = ri % kBwdSm90Stages;
+        mbar_wait_or_trap(empty + st, ((ri / kBwdSm90Stages) & 1) ^ 1);
+        const int boxes =
+            win_boxes(p.n, wk.r0, kBwdSm90Owned / kWinBiasKeys);
+        mbar_arrive_expect_tx(full + st,
+                              2 * S::kTileBytes + 2 * S::kStatBytes +
+                                  boxes * kBwdSm90Inner * kSm90RowBytes);
+        unsigned char* qt = ring + st * S::kStageBytes;
+        tma_load_at(qt, &m.str[0], full + st, m.str_slot[0], 0, wk.w, wk.h,
+                    it * kBwdSm90Inner);
+        tma_load_at(qt + S::kTileBytes, &m.str[1], full + st, m.str_slot[1],
+                    0, wk.w, wk.h, it * kBwdSm90Inner);
+        unsigned char* stat = qt + 2 * S::kTileBytes;
+        const int at = (int)((stat0 + it * kBwdSm90Inner) & ~3LL);
+        tma_load_1d(stat, &m.stat[0], full + st, at);
+        tma_load_1d(stat + S::kStatStride, &m.stat[1], full + st, at);
+        for (int c2 = 0; c2 < boxes; ++c2)
+          tma_load_4d(qt + S::kBiasOffset +
+                          c2 * kBwdSm90Inner * kSm90RowBytes,
+                      &tmap, full + st, wk.r0 + c2 * kWinBiasKeys,
+                      it * kBwdSm90Inner, wk.h, 0);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ConsumerRegs));
+    for (int u = blockIdx.x, c = 0; u < n_work; u += gridDim.x, ++c) {
+      const WinWork wk = win_work(u, n_ktiles, kBwdSm90Owned, p.W);
+      win_dkv_consumer<KD>(p, ks, vs, ring, full, empty, ofull, oempty, wg,
+                           wk.r0, wk.h, wk.w, n_q, c * n_q, c & 1);
+    }
+  }
+}
+
+// The dtable kernel's shared memory: per consumer warpgroup a ring of
+// stages, each one window's q and do (the item's 64 rows), k and v (its 64
+// keys), each a 64-column box of 64 rows, and the rows' lse and delta boxes
+// (kStatBox fp32 each, delta 512 bytes after lse); then the barriers (per
+// warpgroup, full and empty per stage).
+struct WinDtSmem {
+  static constexpr int kStages = 3;
+  static constexpr unsigned kTileBytes = kBwdSm90Inner * kSm90RowBytes;
+  static constexpr unsigned kStatBytes = kStatBox * 4;
+  static constexpr unsigned kStatStride = 512;
+  static constexpr unsigned kStageBytes = 4 * kTileBytes + 1024;
+  static constexpr unsigned kRingBytes = kStages * kStageBytes;
+  static constexpr unsigned kBarOffset = kSm90Consumers * kRingBytes;
+  static constexpr size_t kBytes =
+      kBarOffset + kSm90Consumers * 2 * kStages * 8 + 1024;
+  static_assert(kStatStride + kStatBytes <= 1024, "lse and delta in a pad");
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
+
+// (key tile, row tile, head, chunk) of dtable work item u, key tiles
+// fastest
+struct WinDtItem {
+  int k0, r0, h, chunk;
+};
+
+__device__ __forceinline__ WinDtItem win_dt_item(int u, int n_tiles, int H) {
+  return WinDtItem{u % n_tiles * kBwdSm90Inner,
+                   u / n_tiles % n_tiles * kBwdSm90Inner,
+                   u / (n_tiles * n_tiles) % H, u / (n_tiles * n_tiles * H)};
+}
+
+// The table's gradient by chunk of windows: each consumer warpgroup is a
+// worker of its own (work items 2 blockIdx.x + wg, + 2 gridDim.x, ...), fed
+// by its own producer thread (the first thread of warp wg of the last
+// warpgroup) through its own ring. An item (64 rows x 64 keys of head h)
+// holds its bias in registers, then over its chunk's windows forms s = q .
+// k^T and dp = do . v^T from shared memory, p = exp2(s scale log2e + bias
+// log2e - lse log2e) masked by the window's labels and ds = p (dp - delta),
+// and sums ds in registers; the sums go to partial[chunk][h] once.
+template <int KD>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+window_attention_bwd_dtable_sm90_kernel(const WinParams p,
+                                        const __grid_constant__ BwdMaps m,
+                                        int n_tiles, int n_items) {
+  using S = WinDtSmem;
+  extern __shared__ __align__(1024) unsigned char win_smem[];
+  unsigned char* base = align_1024(win_smem);
+  auto* bars = reinterpret_cast<uint64_t*>(base + S::kBarOffset);
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < kSm90Consumers; ++c)
+      for (int s = 0; s < S::kStages; ++s) {
+        mbar_init(bars + 2 * S::kStages * c + s, 1);
+        mbar_init(bars + 2 * S::kStages * c + S::kStages + s, 128);
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128, workers = kSm90Consumers * gridDim.x;
+  const int n = p.n;
+  if (wg == kSm90Consumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kSm90ProducerRegs));
+    const int c = (threadIdx.x - 128 * kSm90Consumers) / 32;
+    if (c >= kSm90Consumers || (threadIdx.x & 31)) return;
+    unsigned char* ring = base + c * S::kRingBytes;
+    uint64_t* full = bars + 2 * S::kStages * c;
+    uint64_t* empty = full + S::kStages;
+    int ri = 0;
+    for (int u = kSm90Consumers * blockIdx.x + c; u < n_items; u += workers) {
+      const WinDtItem it = win_dt_item(u, n_tiles, p.H);
+      const int w0 = it.chunk * p.per_chunk;
+      const int w1 = min(p.W, w0 + p.per_chunk);
+      for (int w = w0; w < w1; ++w, ++ri) {
+        const int st = ri % S::kStages;
+        mbar_wait_or_trap(empty + st, ((ri / S::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + st,
+                              4 * S::kTileBytes + 2 * S::kStatBytes);
+        unsigned char* at = ring + st * S::kStageBytes;
+        tma_load_at(at, &m.str[0], full + st, m.str_slot[0], 0, w, it.h,
+                    it.r0);
+        tma_load_at(at + S::kTileBytes, &m.str[1], full + st, m.str_slot[1],
+                    0, w, it.h, it.r0);
+        tma_load_at(at + 2 * S::kTileBytes, &m.own[0], full + st,
+                    m.own_slot[0], 0, w, it.h, it.k0);
+        tma_load_at(at + 3 * S::kTileBytes, &m.own[1], full + st,
+                    m.own_slot[1], 0, w, it.h, it.k0);
+        const long long stat0 = ((long long)w * p.H + it.h) * n;
+        const int sa = (int)((stat0 + it.r0) & ~3LL);
+        tma_load_1d(at + 4 * S::kTileBytes, &m.stat[0], full + st, sa);
+        tma_load_1d(at + 4 * S::kTileBytes + S::kStatStride, &m.stat[1],
+                    full + st, sa);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kSm90ConsumerRegs));
+  const unsigned char* ring = base + wg * S::kRingBytes;
+  uint64_t* full = bars + 2 * S::kStages * wg;
+  uint64_t* empty = full + S::kStages;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+  int ri = 0;
+  for (int u = kSm90Consumers * blockIdx.x + wg; u < n_items; u += workers) {
+    const WinDtItem it = win_dt_item(u, n_tiles, p.H);
+    const int w0 = it.chunk * p.per_chunk;
+    const int w1 = min(p.W, w0 + p.per_chunk);
+    const int rr = 16 * warp + g;              // the thread's first row
+    const int row0 = it.r0 + rr, row1 = row0 + 8;
+    const float* tab = p.table + (long long)it.h * n * n;
+    // the item's bias, 0 outside the table
+    float bias[32], acc[32];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = it.k0 + 8 * j + 2 * t + (i & 1);
+        const int row = i < 2 ? row0 : row1;
+        bias[4 * j + i] = key < n && row < n
+                              ? __ldg(tab + (long long)row * n + key)
+                              : 0.f;
+        acc[4 * j + i] = 0.f;
+      }
+    for (int w = w0; w < w1; ++w, ++ri) {
+      const int st = ri % S::kStages;
+      mbar_wait_or_trap(full + st, (ri / S::kStages) & 1);
+      const unsigned char* at = ring + st * S::kStageBytes;
+      float s[32], dp[32];
+      __syncwarp();
+      wgmma_fence();
+      bwd_sm90_abt<KD>(s, at, kBwdSm90Inner, at + 2 * S::kTileBytes);
+      bwd_sm90_abt<KD>(dp, at + S::kTileBytes, kBwdSm90Inner,
+                       at + 3 * S::kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      const long long stat0 = ((long long)w * p.H + it.h) * n;
+      const int sa = (int)((stat0 + it.r0) & 3);
+      const float* lse_s =
+          reinterpret_cast<const float*>(at + 4 * S::kTileBytes) + sa;
+      const float* delta_s = reinterpret_cast<const float*>(
+          at + 4 * S::kTileBytes + S::kStatStride) + sa;
+      const float lse2[2] = {lse_s[rr] * kLog2e, lse_s[rr + 8] * kLog2e};
+      const float dl[2] = {delta_s[rr], delta_s[rr + 8]};
+      const int* lab = win_labels(p, w);
+      const int lr[2] = {win_label(lab, row0, n), win_label(lab, row1, n)};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = it.k0 + 8 * j + 2 * t;
+        const int2 lk = win_label_pair(lab, key, n);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const bool keep = key + (i & 1) < n && (r ? row1 : row0) < n &&
+                            ((i & 1) ? lk.y : lk.x) == lr[r];
+          const float pr = ex2(fmaf(bias[4 * j + i], kLog2e,
+                                    fmaf(s[4 * j + i], scale2, -lse2[r])));
+          acc[4 * j + i] += (keep ? pr : 0.f) * (dp[4 * j + i] - dl[r]);
+        }
+      }
+      mbar_arrive(empty + st);                   // stage st may be refilled
+    }
+    float* out = p.partial + ((long long)it.chunk * p.H + it.h) * n * n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = it.k0 + 8 * j + 2 * t + (i & 1);
+        const int row = i < 2 ? row0 : row1;
+        if (key < n && row < n) out[(long long)row * n + key] = acc[4 * j + i];
+      }
+  }
+}
+
+// dtable = the chunks' partial sums added in chunk order
+__global__ void window_attention_bwd_dtable_reduce_kernel(
+    const float* partial, float* dtable, long long count, int chunks) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < count; e += (long long)gridDim.x * blockDim.x) {
+    float s = partial[e];
+    for (int c = 1; c < chunks; ++c) s += partial[c * count + e];
+    dtable[e] = s;
+  }
+}
+
+// The copy engine reads q, k, v (and o, do) and the 1-D maps lse and
+// delta; the epilogues write bf16 pairs: bf16, D a multiple of 8 from 8 to
+// 64 (one 64-column box), every stride of the read operands a positive
+// multiple of 8 elements and their bases 16-byte aligned, the written
+// ones' strides even and bases 4-byte aligned, the lse and delta 16-byte
+// aligned, a table 16-byte aligned whose rows the copy engine reads (n a
+// multiple of 4), the labels 8-byte aligned (read in pairs), W a
+// multiple of n_win, and W x H x n below 2^31.
+bool window_takes(const WinParams& p, int dtype, bool bwd) {
+  if (dtype != kBf16 || p.D < 8 || p.D > kSm90Box || p.D % 8 || p.n < 1 ||
+      p.n % 4 || p.W < 1 || p.H < 1 || p.n_win < 1 || p.W % p.n_win ||
+      !p.table || reinterpret_cast<uintptr_t>(p.table) % 16 ||
+      reinterpret_cast<uintptr_t>(p.labels) % 8 ||
+      (long long)p.W * p.H * p.n >= INT_MAX)
+    return false;
+  for (int o = wQ; o <= (bwd ? wDO : wV); ++o) {
+    if (reinterpret_cast<uintptr_t>(p.in[o]) % 16) return false;
+    for (int j = 0; j < 3; ++j)
+      if (p.st[o][j] <= 0 || p.st[o][j] % 8) return false;
+  }
+  const int first = bwd ? wDQ : wO, last = bwd ? wDV : wO;
+  for (int o = first; o <= last; ++o) {
+    const void* base = bwd ? p.grad[o - wDQ] : p.out;
+    if (reinterpret_cast<uintptr_t>(base) % 4) return false;
+    for (int j = 0; j < 3; ++j)
+      if (p.st[o][j] % 2) return false;
+  }
+  if (bwd && (!p.lse || !p.delta ||
+              reinterpret_cast<uintptr_t>(p.lse) % 16 ||
+              reinterpret_cast<uintptr_t>(p.delta) % 16))
+    return false;
+  return !p.lse || reinterpret_cast<uintptr_t>(p.lse) % 4 == 0;
+}
+
+// The copy engine's map of the (H, n, n) fp32 table: dimensions key, row,
+// head (and a unit one), boxes of 32 keys by box_rows rows in 128-byte
+// swizzle (zeros past n)
+cudaError_t encode_table_map(CUtensorMap* map, const float* table, int H,
+                             int n, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t N = n;
+  const cuuint64_t dims[4] = {N, N, (cuuint64_t)H, 1};
+  const cuuint64_t strides[3] = {N * 4, N * N * 4, H * N * N * 4};
+  const cuuint32_t box[4] = {kWinBiasKeys, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(table),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int KD>
+cudaError_t launch_window_fwd(const WinParams& p, cudaStream_t stream) {
+  CUtensorMap maps[3], tmap;
+  Sm90Slot slots[3];
+  for (int o = wQ; o <= wV; ++o) {
+    const cudaError_t err =
+        encode_hmajor_map(&maps[o], &slots[o], p.in[o], p.st[o], p.W, p.H,
+                          p.n, p.D, o == wQ ? kSm90BlockQ : kSm90BlockK);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = encode_table_map(&tmap, p.table, p.H, p.n, kSm90BlockQ);
+  if (err != cudaSuccess) return err;
+  auto kern = window_attention_fwd_sm90_kernel<KD>;
+  const size_t smem = WinFwdSmem::kBytes;
+  err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const int n_qtiles = (p.n + kSm90BlockQ - 1) / kSm90BlockQ;
+  const long long n_work = (long long)n_qtiles * p.W * p.H;
+  int blocks;
+  if ((err = persistent_blocks(n_work, &blocks)) != cudaSuccess) return err;
+  kern<<<blocks, kSm90Threads, smem, stream>>>(
+      p, maps[wQ], maps[wK], maps[wV], tmap, slots[wQ], slots[wK],
+      slots[wV], n_qtiles, (int)n_work);
+  return cudaGetLastError();
+}
+
+// dQ (and delta), then dK/dV, then, where the table's gradient is asked,
+// its partial sums by chunk and their reduction; returns the first error
+template <int KD>
+cudaError_t launch_window_bwd(const WinParams& p, cudaStream_t stream) {
+  BwdMaps mq, mk, mt;
+  CUtensorMap tq, tk;
+  cudaError_t err = cudaSuccess;
+  const int own_q[3] = {wQ, wDO, wO}, kv[2] = {wK, wV}, qdo[2] = {wQ, wDO};
+  auto map = [&](CUtensorMap* at, Sm90Slot* slot, int o, int rows) {
+    if (err == cudaSuccess)
+      err = encode_hmajor_map(at, slot, p.in[o], p.st[o], p.W, p.H, p.n, p.D,
+                              rows);
+  };
+  for (int i = 0; i < 3; ++i)
+    map(&mq.own[i], &mq.own_slot[i], own_q[i], kBwdSm90Owned);
+  for (int i = 0; i < 2; ++i) {
+    map(&mq.str[i], &mq.str_slot[i], kv[i], kBwdSm90Inner);
+    map(&mk.own[i], &mk.own_slot[i], kv[i], kBwdSm90Owned);
+    map(&mk.str[i], &mk.str_slot[i], qdo[i], kBwdSm90Inner);
+    map(&mt.own[i], &mt.own_slot[i], kv[i], kBwdSm90Inner);
+    map(&mt.str[i], &mt.str_slot[i], qdo[i], kBwdSm90Inner);
+  }
+  const long long n_stat = (long long)p.W * p.H * p.n;
+  if (err == cudaSuccess) err = encode_stat_map(&mk.stat[0], p.lse, n_stat);
+  if (err == cudaSuccess) err = encode_stat_map(&mk.stat[1], p.delta, n_stat);
+  if (err == cudaSuccess)
+    err = encode_table_map(&tq, p.table, p.H, p.n, kBwdSm90Owned);
+  if (err == cudaSuccess)
+    err = encode_table_map(&tk, p.table, p.H, p.n, kBwdSm90Inner);
+  if (err != cudaSuccess) return err;
+  mt.stat[0] = mk.stat[0];
+  mt.stat[1] = mk.stat[1];
+
+  auto dq_kern = window_attention_bwd_dq_sm90_kernel<KD>;
+  auto dkv_kern = window_attention_bwd_dkv_sm90_kernel<KD>;
+  auto dt_kern = window_attention_bwd_dtable_sm90_kernel<KD>;
+  if ((err = allow_smem(dq_kern, WinDqSmem::kBytes)) != cudaSuccess ||
+      (err = allow_smem(dkv_kern, WinDkvSmem::kBytes)) != cudaSuccess ||
+      (err = allow_smem(dt_kern, WinDtSmem::kBytes)) != cudaSuccess)
+    return err;
+  const int n_owned = (p.n + kBwdSm90Owned - 1) / kBwdSm90Owned;
+  const long long n_work = (long long)n_owned * p.W * p.H;
+  int blocks;
+  if ((err = persistent_blocks(n_work, &blocks)) != cudaSuccess) return err;
+  dq_kern<<<blocks, kSm90Threads, WinDqSmem::kBytes, stream>>>(
+      p, mq, tq, n_owned, (int)n_work);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dkv_kern<<<blocks, kSm90Threads, WinDkvSmem::kBytes, stream>>>(
+      p, mk, tk, n_owned, (int)n_work);
+  if ((err = cudaGetLastError()) != cudaSuccess || !p.dtable) return err;
+
+  const int n_tiles = (p.n + kBwdSm90Inner - 1) / kBwdSm90Inner;
+  const long long n_items = (long long)p.chunks * p.H * n_tiles * n_tiles;
+  if ((err = persistent_blocks((n_items + kSm90Consumers - 1) /
+                                   kSm90Consumers,
+                               &blocks)) != cudaSuccess)
+    return err;
+  dt_kern<<<blocks, kSm90Threads, WinDtSmem::kBytes, stream>>>(
+      p, mt, n_tiles, (int)n_items);
+  if ((err = cudaGetLastError()) != cudaSuccess || p.chunks == 1) return err;
+  const long long count = (long long)p.H * p.n * p.n;
+  const long long red_blocks = (count + 255) / 256;
+  window_attention_bwd_dtable_reduce_kernel<<<
+      (int)(red_blocks < 4096 ? red_blocks : 4096), 256, 0, stream>>>(
+      p.partial, p.dtable, count, p.chunks);
+  return cudaGetLastError();
+}
+
+// The WinParams of the window entries (their arguments, described there)
+WinParams window_params(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* table,
+                        const int* labels, void* out, void* dq, void* dk,
+                        void* dv, float* lse, float* delta, float* partial,
+                        float* dtable, int W, int H, int n, int D, int n_win,
+                        int per_chunk, int chunks, const long long* strides,
+                        float scale) {
+  WinParams p = {};
+  p.in[wQ] = q;
+  p.in[wK] = k;
+  p.in[wV] = v;
+  p.in[wO] = o;
+  p.in[wDO] = dout;
+  p.out = out;
+  p.grad[0] = dq;
+  p.grad[1] = dk;
+  p.grad[2] = dv;
+  memcpy(p.st, strides, sizeof(p.st));
+  p.table = table;
+  p.labels = labels;
+  p.lse = lse;
+  p.delta = delta;
+  p.partial = partial;
+  p.dtable = dtable;
+  p.W = W;
+  p.H = H;
+  p.n = n;
+  p.D = D;
+  p.n_win = n_win;
+  p.per_chunk = per_chunk;
+  p.chunks = chunks;
+  p.scale = scale;
+  return p;
+}
+
+}  // namespace
+#endif
+
+// Window attention's forward (ops/window_attention.py window_attention):
+// q, k, v and out (W, H, n, D) bf16, each through its (window, head, row)
+// element strides in ``strides`` (24 values: q, k, v, out, then 12 unread),
+// the last axis contiguous; table (H, n, n) fp32 contiguous; labels (n_win,
+// n) int32 contiguous, each clip's windows' region labels (null: no mask);
+// lse (W, H, n) fp32 contiguous, or null: not written. Returns
+// cudaErrorInvalidValue, and launches nothing, for operands the kernel
+// does not take (window_takes); cudaErrorNotSupported where the driver has
+// no tensor maps.
+#if VAST_PART_ON(5)
+extern "C" int vast_window_attention_fwd_sm90(
+    const void* q, const void* k, const void* v, const float* table,
+    const int* labels, void* out, float* lse, int dtype, int W, int H, int n,
+    int D, int n_win, const long long* strides, float scale, void* stream) {
+  const WinParams p = window_params(q, k, v, nullptr, nullptr, table, labels,
+                                    out, nullptr, nullptr, nullptr, lse,
+                                    nullptr, nullptr, nullptr, W, H, n, D,
+                                    n_win, 1, 1, strides, scale);
+  if (!window_takes(p, dtype, false)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(D <= 32 ? launch_window_fwd<2>(p, s)
+                       : launch_window_fwd<4>(p, s));
+}
+#endif
+
+// Window attention's backward: q, k, v as the forward took them, o its
+// output and dout its cotangent (W, H, n, D), dq, dk, dv the same, each
+// through ``strides`` (24 values: q, k, v, o, dout, dq, dk, dv); table and
+// labels as the forward's; lse the forward's (W, H, n) fp32 and delta (W,
+// H, n) fp32 scratch, both 16-byte aligned; dtable (H, n, n) fp32 (null:
+// not computed), the windows' ds summed, through partial ((chunks, H, n,
+// n) fp32 scratch, the windows cut in chunks of per_chunk; with one chunk
+// partial may be dtable itself). Up to four launches (dQ, dK/dV, the
+// table's partial sums, their reduction); returns the first error, and
+// cudaErrorInvalidValue, launching nothing, for operands the kernels do not
+// take.
+#if VAST_PART_ON(5)
+extern "C" int vast_window_attention_bwd_sm90(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* table, const int* labels, void* dq,
+    void* dk, void* dv, float* dtable, float* partial, float* lse,
+    float* delta, int dtype, int W, int H, int n, int D, int n_win,
+    int per_chunk, int chunks, const long long* strides, float scale,
+    void* stream) {
+  const WinParams p = window_params(q, k, v, o, dout, table, labels, nullptr,
+                                    dq, dk, dv, lse, delta, partial, dtable,
+                                    W, H, n, D, n_win, per_chunk, chunks,
+                                    strides, scale);
+  if (!window_takes(p, dtype, true) ||
+      (dtable && (!partial || per_chunk < 1 || chunks < 1 ||
+                  (long long)per_chunk * (chunks - 1) >= W ||
+                  (long long)per_chunk * chunks < W ||
+                  (chunks == 1) != (partial == dtable))))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(D <= 32 ? launch_window_bwd<2>(p, s)
+                       : launch_window_bwd<4>(p, s));
 }
 #endif

@@ -9,8 +9,9 @@ beats.py:290-294, ast.py:91-94, bert.py:285-293). Policies:
 * ``none``: no checkpoint; the block keeps all its activations;
 * ``full``: save only the block's inputs, recompute everything;
 * ``attn``: also save the outputs of the attention ops, token-major
-  (``ops.flash_attention.TMAJOR_OP``) and head-major (``FLASH_OP``: its
-  output and its lse), so the backward recomputes the projections, MLP
+  (``ops.flash_attention.TMAJOR_OP``), head-major (``FLASH_OP``: its
+  output and its lse) and the window blocks' (``ops.window_attention.
+  WINDOW_OP``: the same), so the backward recomputes the projections, MLP
   and norms but never re-runs an attention forward kernel (JAX tags
   that output ``attn_out``);
 * ``dots``: ``attn`` plus the outputs of every ``aten.mm`` / ``addmm``
@@ -39,9 +40,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, _VersionWrapper,
                                     create_selective_checkpoint_contexts)
 
 from vast_tpu_torch.ops.flash_attention import FLASH_OP, TMAJOR_OP
+from vast_tpu_torch.ops.window_attention import WINDOW_OP
 
 POLICIES = ("none", "full", "attn", "dots", "attn_offload", "dots_offload")
-_ATTN = (TMAJOR_OP, FLASH_OP)
+_ATTN = (TMAJOR_OP, FLASH_OP, WINDOW_OP)
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 

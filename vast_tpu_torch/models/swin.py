@@ -11,8 +11,10 @@ mean-pools. Every second block of a stage shifts its windows by half a
 window, and the mask of ``shift_attn_mask`` keeps tokens of different
 regions of the rolled image apart.
 
-A window's 49 tokens take the plain route of ``ops.attention`` (49 x 49
-is under 128 x 128), as in ``vast_tpu``. Module and parameter names are
+The window attention is ``ops.window_attention``'s, given the gathered
+bias table and, in a shifted block, the region labels of the mask (made
+once, a buffer); a window's 49 tokens take its plain route (49 x 49 is
+under 128 x 128), as in ``vast_tpu``. Module and parameter names are
 the reference torch ones (``patch_embed.proj``, ``patch_embed.norm``,
 ``layers.{s}.blocks.{b}.attn.qkv``, ``...attn.relative_position_bias_table``,
 ``layers.{s}.downsample.reduction``, ``norm``), so the state dict is what
@@ -37,7 +39,8 @@ from torch import nn
 from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.ops.activations import gelu
-from vast_tpu_torch.ops.attention import multi_head_attention
+from vast_tpu_torch.ops.window_attention import region_labels, \
+    window_attention
 from vast_tpu_torch.parallel import tp as tpl
 
 
@@ -116,10 +119,10 @@ def shift_attn_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
 class WindowAttention(nn.Module):
     """Multi-head attention inside each window, with the relative
     position bias ``relative_position_bias_table[index]`` (``index``: a
-    window's (n, n) table rows) and an optional per-window mask. Shared
-    by the 2-D and 3-D towers. Under tp this rank runs its heads: ``qkv``
-    holds its heads of each of q, k and v, ``proj`` is row-parallel, and
-    the table (whole) gives its heads' columns."""
+    window's (n, n) table rows) and an optional per-window region mask,
+    as labels. Shared by the 2-D and 3-D towers. Under tp this rank runs
+    its heads: ``qkv`` holds its heads of each of q, k and v, ``proj`` is
+    row-parallel, and the table (whole) gives its heads' columns."""
 
     def __init__(self, dim, heads, index: np.ndarray, table_rows: int,
                  device=None, dtype=None):
@@ -149,23 +152,21 @@ class WindowAttention(nn.Module):
         tpl.split_module(self, tp)
         self.heads = self.num_heads // tp.size
 
-    def forward(self, x, mask=None):
-        """x (nB, n, C); ``mask`` (nW, n, n) bool or None, nB a multiple
-        of nW (the windows of each sample in order)."""
+    def forward(self, x, labels=None):
+        """x (nB, n, C); ``labels`` the (nW, n) region labels of a shifted
+        block's mask (``ops.window_attention.region_labels``) or None, nB
+        a multiple of nW (the windows of each sample in order)."""
         nb, n, c = x.shape
         h, d = self.heads, c // self.num_heads
-        q, k, v = self.qkv(x).view(nb, n, 3, h, d).unbind(2)
+        q, k, v = self.qkv(x).view(nb, n, 3, h, d).transpose(1, 3).unbind(2)
         table = self.relative_position_bias_table
         if self.tp is not None:
             table = table[:, self.tp.block(self.num_heads)]
         # (h, n, n) with its keys contiguous, as the kernels read a bias
         bias = table[self.relative_position_index].view(n, n, h).permute(
             2, 0, 1).contiguous()
-        attn_mask = None
-        if mask is not None:
-            attn_mask = mask[:, None].repeat(nb // mask.shape[0], 1, 1, 1)
-        out = multi_head_attention(q, k, v, bias=bias[None], mask=attn_mask)
-        return self.proj(out.reshape(nb, n, h * d))
+        out = window_attention(q, k, v, bias, labels, scale=d ** -0.5)
+        return self.proj(out.transpose(1, 2).reshape(nb, n, h * d))
 
 
 class Mlp(nn.Module):
@@ -205,11 +206,11 @@ class SwinBlock(nn.Module):
                                     (2 * win - 1) ** 2, **fk)
         self.norm2 = layers.LayerNorm(dim, eps=c.ln_eps, **fk)
         self.mlp = Mlp(dim, int(dim * c.mlp_ratio), **fk)
-        mask = None
+        labels = None
         if self.shift:
-            mask = torch.from_numpy(shift_attn_mask(
-                resolution, resolution, win, self.shift)).to(device)
-        self.register_buffer("attn_mask", mask, persistent=False)
+            labels = region_labels(torch.from_numpy(shift_attn_mask(
+                resolution, resolution, win, self.shift))).to(device)
+        self.register_buffer("attn_labels", labels, persistent=False)
 
     def forward(self, x):
         b, l, ch = x.shape
@@ -217,7 +218,7 @@ class SwinBlock(nn.Module):
         y = self.norm1(x).view(b, r, r, ch)
         if s:
             y = torch.roll(y, (-s, -s), dims=(1, 2))
-        y = self.attn(window_partition(y, self.window), self.attn_mask)
+        y = self.attn(window_partition(y, self.window), self.attn_labels)
         y = window_reverse(y, self.window, r, r)
         if s:
             y = torch.roll(y, (s, s), dims=(1, 2))

@@ -15,14 +15,17 @@ A window's size is clamped to each stage's grid, and, as in
 window: the tower is therefore built for its input's frames and
 resolution (``frames``, ``image_size``), and another input whose
 windows clamp otherwise raises. A window of 8 x 7 x 7 = 392 tokens at
-head width 32 takes whatever route ``ops.attention``'s rule gives it
-(392^2 is over 128^2: the head-major kernel, with the bias and mask).
+head width 32 goes through ``ops.window_attention`` (392^2 is over
+128^2: on the card its own kernels, which read the bias table and the
+region labels of a shifted block's mask per window).
 
 Each stage's forward is a span (``vast.videoswin.stage<S>``,
 ``profiling.py``) that counts its ``windows`` (clips times windows a
 clip) and its ``shifted`` blocks, and, from ``ops.attention``, the
-``bias_bytes`` its attention calls materialise: the fp32 sum of the
-bias table and the region mask of each shifted block.
+``bias_bytes`` its attention calls materialise beyond the table: the
+fp32 sum of the table and the region mask of a shifted block on the
+routes that build it (none on the window kernels' route or its plain
+version).
 
 Module and parameter names are the reference torch ones (``patch_embed.
 proj`` a Conv3d, ``layers.{s}.blocks.{b}.attn.relative_position_bias_
@@ -45,6 +48,7 @@ from vast_tpu_torch.models import layers
 from vast_tpu_torch.models.remat import check_policy, remat_call
 from vast_tpu_torch.models.swin import Mlp, PatchMerging, SwinStage, \
     WindowAttention
+from vast_tpu_torch.ops.window_attention import region_labels
 from vast_tpu_torch.profiling import span
 
 
@@ -147,10 +151,12 @@ class VideoSwinBlock(nn.Module):
         self._masks = {}
 
     def _mask(self, grid, win, shift, device):
+        """The region labels of the shifted windows' mask of ``grid``
+        (``region_labels``), made once per grid and device."""
         key = (grid, device)
         if key not in self._masks:
-            self._masks[key] = torch.from_numpy(
-                shift_mask_3d(*grid, win, shift)).to(device)
+            self._masks[key] = region_labels(torch.from_numpy(
+                shift_mask_3d(*grid, win, shift))).to(device)
         return self._masks[key]
 
     def forward(self, x, grid):
@@ -161,11 +167,11 @@ class VideoSwinBlock(nn.Module):
                              f"block's bias table is for {self.window}")
         b, _, ch = x.shape
         y = self.norm1(x).view(b, *grid, ch)
-        mask = None
+        labels = None
         if any(shift):
             y = torch.roll(y, tuple(-s for s in shift), dims=(1, 2, 3))
-            mask = self._mask(grid, win, shift, x.device)
-        y = self.attn(window_partition_3d(y, win), mask)
+            labels = self._mask(grid, win, shift, x.device)
+        y = self.attn(window_partition_3d(y, win), labels)
         y = window_reverse_3d(y, win, *grid)
         if any(shift):
             y = torch.roll(y, shift, dims=(1, 2, 3))

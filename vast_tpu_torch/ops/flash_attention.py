@@ -70,7 +70,10 @@ LAUNCHES = {"tmajor_attention_fwd": 0, "tmajor_attention_fwd_bias": 0,
             "attention_dma": 0, "attention_sect": 0,
             # of those two, the launches of their Hopper bodies (wgmma +
             # TMA: the resident strip, the shared forward body)
-            "attention_dma_sm90": 0, "attention_sect_sm90": 0}
+            "attention_dma_sm90": 0, "attention_sect_sm90": 0,
+            # of the head-major forwards and backwards, the window
+            # attention's (ops/window_attention.py: its own kernels)
+            "window_attention_fwd": 0, "window_attention_bwd": 0}
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
